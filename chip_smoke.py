@@ -1,12 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py              # the whole check, one card
-    python3 chip_smoke.py --profile F  # also write a torch.profiler table of
-                                       # one flagship step to file F
+    python3 chip_smoke.py --profile F  # also write torch.profiler tables of
+                                       # one flagship step and one bounded
+                                       # step to file F
 
 Drives the port (``climaseaice_jl_tpu_torch``) through the entry points a
-user calls and holds its CUDA kernel against the kernel's plain PyTorch
-version.  Phases, each of which raises (exit code 1) when it fails:
+user calls and holds its CUDA kernels against their plain PyTorch versions.
+Phases, each of which raises (exit code 1) when it fails:
 
 1. build the CUDA kernels from ``climaseaice_jl_tpu_torch/csrc``;
 2. the EVP kernel vs its plain version on the card: the flagship at 512² in
@@ -20,7 +21,25 @@ version.  Phases, each of which raises (exit code 1) when it fails:
 4. one flagship step at 1024² (above the TPU kernel's whole-array limit):
    finite, and through the kernel;
 5. the same port on the card and on the CPU (the plain version), 128² soft
-   ice, 2 RK3 steps; bars as in phase 2 and 1e-5 for h/ℵ.
+   ice, 2 RK3 steps; bars as in phase 2 and 1e-5 for h/ℵ;
+6. the padded EVP kernel vs its plain version on the card: the bounded and
+   immersed configuration of ``validation/perf_sweep.py:build(512,
+   bounded=True)`` (512² box, island of radius 60 km, ImmersedDrag) in soft
+   ice, 120 substeps, seeded velocities; bars as in phase 2 over the whole
+   padded arrays; times per call of both;
+7. the slice's main path: that configuration at the default P★, one warm-up
+   step and five timed steps; finite and physical, h = ℵ = 0 on land, u and
+   v zero on peripheral nodes, the padded wrapper called 3 times per step
+   (3·120 + 2 launches per call) and the periodic one never;
+8. the example configurations through the normal entry points: the
+   anticyclone (128², bounded, StressFunction wind, array ocean currents,
+   150 substeps) for 5 ``cst.step`` calls, and the coastline (256×128,
+   periodic-x, immersed coast, ImmersedDrag, 150 substeps) for 10
+   iterations of ``Simulation.run`` with a callback; both finite, physical,
+   land empty and through the padded kernel;
+9. the same port on the card and on the CPU, 128² bounded and immersed soft
+   ice with a StressFunction wind, array ocean currents and ImmersedDrag,
+   2 RK3 steps; bars as in phase 5.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and as the last line
@@ -50,7 +69,13 @@ FLOPS_PER_POINT_SUBSTEP = 183
 EVP_ARRAYS_READ = 18     # 12 constants + 6 carried fields
 EVP_ARRAYS_WRITTEN = 6
 EVP_PARAMS = 18
+# float32 operations per padded point and substep of csrc/evp_padded.cu with
+# immersed drag: evp_stress 111, each update 45 (evp.cu's 36, σ masks 4,
+# immersed drag 5); 191 without drag
+PADDED_FLOPS_PER_POINT_SUBSTEP = 201
+PADDED_ARRAYS_READ = 28  # 22 constants (with drag) + 6 carried fields
 KM = 1000.0
+MINUTE, DAY = 60.0, 86400.0
 
 
 def flagship(cst, N, substeps=120, P_star=27500.0, device="cuda"):
@@ -87,6 +112,111 @@ def flagship_state(cst, model, velocity_seed=None):
     return cst.initial_state(model, h=h0, a=1.0, **kw)
 
 
+def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, bottom=None):
+    """The configuration of validation/perf_sweep.py:build(N, bounded=True),
+    in the port: a 512 km bounded box with a circular island of radius
+    60 km and ImmersedDrag(1e-3); ``top`` and ``bottom`` replace its stresses."""
+    import numpy as np
+    grid = cst.RectilinearGrid(size=(N, N), x=(0, 512 * KM), y=(0, 512 * KM),
+                               halo=5, dtype="float32",
+                               topology=("bounded", "bounded"), device=device)
+    x = (np.arange(N) + 0.5) * (512 * KM / N)
+    xc, yc = np.meshgrid(x, x, indexing="ij")
+    grid = cst.ImmersedBoundaryGrid(grid, (xc - 256 * KM) ** 2 + (yc - 256 * KM) ** 2
+                                    < (60 * KM) ** 2)
+    dynamics = cst.SeaIceMomentumEquation(
+        rheology=cst.ElastoViscoPlasticRheology(ice_compressive_strength=P_star),
+        coriolis=cst.FPlane(f=1.4e-4),
+        top_momentum_stress=top if top is not None else {"u": 0.1, "v": 0.05},
+        bottom_momentum_stress=bottom if bottom is not None else cst.SemiImplicitStress(),
+        immersed_drag=cst.ImmersedDrag(coefficient=1e-3),
+        solver=cst.SplitExplicitSolver(substeps=substeps))
+    return cst.sea_ice_model(grid, dynamics=dynamics,
+                             ice_thermodynamics=cst.sea_ice_slab_thermodynamics(),
+                             top_heat_flux=-20.0, bottom_heat_flux=-5.0,
+                             advection=cst.WENO(order=7),
+                             timestepper="SplitRungeKutta3")
+
+
+def anticyclone_wind(cst):
+    """The translating anticyclone's wind stress of
+    examples/ice_advected_by_anticyclone.py:26-53, as StressFunctions."""
+    import torch
+
+    def stress(x, y, t, comp):
+        center = 256 * KM + 51.2 * KM * t / DAY
+        r = torch.sqrt((x - center) ** 2 + (y - center) ** 2)
+        s = 1 / 100 * torch.exp(-r / (100 * KM))
+        cosd, sind = math.cos(math.radians(72)), math.sin(math.radians(72))
+        ua = -30.0 * s * (cosd * (x - center) + sind * (y - center)) / 1000
+        va = -30.0 * s * (-sind * (x - center) + cosd * (y - center)) / 1000
+        w = ua if comp == "u" else va
+        return -w * torch.sqrt(ua ** 2 + va ** 2) * (1.3 * 1.2e-3)
+
+    def wind_u(grid, clock, fields):
+        return stress(grid.xf[:, None], grid.yc[None, :], clock.time, "u").expand(grid.shape)
+
+    def wind_v(grid, clock, fields):
+        return stress(grid.xc[:, None], grid.yf[None, :], clock.time, "v").expand(grid.shape)
+
+    return {"u": cst.StressFunction(func=wind_u), "v": cst.StressFunction(func=wind_v)}
+
+
+def ocean_currents(cst, grid):
+    """The anticyclone's linear ocean currents as arrays of the grid's shape."""
+    import numpy as np
+    L = 512 * KM
+    xc = grid.xc.cpu().numpy()[:, None]
+    yc = grid.yc.cpu().numpy()[None, :]
+    Uo = np.broadcast_to(0.01 * (2 * yc - L) / L, grid.shape).astype(np.float32)
+    Vo = np.broadcast_to(0.01 * (L - 2 * xc) / L, grid.shape).astype(np.float32)
+    return cst.SemiImplicitStress(ue=Uo, ve=Vo)
+
+
+def anticyclone(cst, N=128, substeps=150, device="cuda"):
+    """examples/ice_advected_by_anticyclone.py:56-85 in the port, float32."""
+    import torch
+    grid = cst.RectilinearGrid(size=(N, N), x=(0, 512 * KM), y=(0, 512 * KM), halo=7,
+                               topology=("bounded", "bounded"), dtype="float32",
+                               device=device)
+    dynamics = cst.SeaIceMomentumEquation(
+        rheology=cst.ElastoViscoPlasticRheology(), coriolis=cst.FPlane(f=1e-4),
+        top_momentum_stress=anticyclone_wind(cst),
+        bottom_momentum_stress=ocean_currents(cst, grid),
+        solver=cst.SplitExplicitSolver(substeps=substeps))
+    model = cst.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
+                              advection=cst.WENO(order=7), timestepper="SplitRungeKutta3")
+
+    def h0(x, y):
+        return 0.3 + 0.005 * (torch.sin(60 * x / (1000 * KM)) + torch.sin(30 * y / (1000 * KM)))
+
+    return model, cst.initial_state(model, h=h0, a=1.0)
+
+
+def coastline(cst, Nx=256, Ny=128, substeps=150, device="cuda"):
+    """examples/ice_advected_on_coastline.py:18-44 in the port, float32."""
+    import numpy as np
+    Lx, Ly = 512 * KM, 256 * KM
+    grid = cst.RectilinearGrid(size=(Nx, Ny), x=(-Lx / 2, Lx / 2), y=(0, Ly), halo=4,
+                               topology=("periodic", "bounded"), dtype="float32",
+                               device=device)
+
+    def land(x, y):
+        ocean = (y <= Ly / 2) & (np.abs(x / Lx) * Nx + y / Ly * Ny > 24)
+        return ~ocean
+
+    grid = cst.ImmersedBoundaryGrid(grid, land)
+    dynamics = cst.SeaIceMomentumEquation(
+        rheology=cst.ElastoViscoPlasticRheology(),
+        top_momentum_stress={"u": -1.3 * 1.2e-3 * 10.0 ** 2, "v": 0.0},
+        bottom_momentum_stress=cst.SemiImplicitStress(),
+        immersed_drag=cst.ImmersedDrag(coefficient=3e-3),
+        solver=cst.SplitExplicitSolver(substeps=substeps))
+    model = cst.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
+                              advection=cst.WENO(order=7), timestepper="SplitRungeKutta3")
+    return model, cst.initial_state(model, h=1.0, a=1.0)
+
+
 def rel_diff(ref, x):
     """max |x − ref| over max |ref|, and max |x − ref|."""
     abs_err = (x.double() - ref.double()).abs().max().item()
@@ -115,14 +245,76 @@ def cuda_ms(fn, repeats):
 
 
 def check_state(model, state):
+    """Finite and physical over the interior; on a grid with walls or land,
+    h = ℵ = 0 on land cells and u, v zero on peripheral nodes."""
     import torch
     I = model.grid.interior
     for name in ("h", "a", "u", "v", "sig11", "sig22", "sig12", "alpha", "Tu"):
-        if not torch.isfinite(I(getattr(state, name))).all():
+        q = getattr(state, name)
+        if q is not None and not torch.isfinite(I(q)).all():
             raise AssertionError(f"{name} is not finite")
     h, a = I(state.h), I(state.a)
     if not (h.min().item() >= 0.0 and a.min().item() >= 0.0 and a.max().item() <= 1.0):
         raise AssertionError("h < 0 or ℵ outside [0, 1]")
+    masks = model.masks
+    solid = I(masks.solid_cc)
+    if solid.any() and (h[solid].abs().max().item() != 0.0
+                        or a[solid].abs().max().item() != 0.0):
+        raise AssertionError("ice on land")
+    for vel, per in ((state.u, masks.per_fc), (state.v, masks.per_cf)):
+        per = I(per)
+        if per.any() and I(vel)[per].abs().max().item() != 0.0:
+            raise AssertionError("velocity on a peripheral node")
+
+
+def timed_steps(cst, model, state, dt, steps):
+    """``steps`` timed calls of cst.step: (state, CUDA-event ms per step, host
+    ms per step)."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        state = cst.step(model, state, dt)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    return state, start.elapsed_time(end) / steps, host_ms
+
+
+def profile_step(cst, model, state, dt, title, card):
+    """A torch.profiler table of one step, with the device time it saw."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = cst.step(model, state, dt)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    print("\n".join(table.splitlines()[:16]))
+    return f"{title} on {card}: one profiled step, {host_ms:.2f} ms host time\n{table}\n"
+
+
+def kernel_entry(name, source, replaces, function, launches, worst_abs, worst_rel,
+                 kernel_ms, plain_ms, bytes_ms, ops_ms, shape):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "replaces_function": function,
+        "launches": launches,
+        "max_abs_err": worst_abs,
+        "max_rel_diff": worst_rel,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None,
+        "shape": shape,
+    }
 
 
 def card_name_and_power_limit():
@@ -135,7 +327,8 @@ def card_name_and_power_limit():
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="FILE",
-                        help="write a torch.profiler table of one flagship step to FILE")
+                        help="write torch.profiler tables of one flagship step and "
+                             "one bounded step to FILE")
     args = parser.parse_args(argv)
 
     import torch
@@ -145,7 +338,7 @@ def main(argv=None):
     import numpy as np
     import climaseaice_jl_tpu_torch as cst
     from climaseaice_jl_tpu_torch import _build
-    from climaseaice_jl_tpu_torch.dynamics import fused_evp
+    from climaseaice_jl_tpu_torch.dynamics import fused_evp, fused_evp_padded
     from climaseaice_jl_tpu_torch.convert import state_to_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -153,6 +346,8 @@ def main(argv=None):
     card = card_name_and_power_limit()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     counter = fused_evp.evp_counter
+    padded_counter = fused_evp_padded.padded_evp_counter
+    profiles = []
 
     # --- 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -189,46 +384,30 @@ def main(argv=None):
     evp_flops = FLOPS_PER_POINT_SUBSTEP * points * nsub
     bytes_ms = evp_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = evp_flops / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
     print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
-          f"{bound_ms:.4f} ms ({evp_flops / 1e9:.2f} GFLOP, {evp_bytes / 1e6:.1f} MB) "
-          f"on {card}")
+          f"{max(bytes_ms, ops_ms):.4f} ms ({evp_flops / 1e9:.2f} GFLOP, "
+          f"{evp_bytes / 1e6:.1f} MB) on {card}")
+    evp_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
 
     # --- 3. the main path ---------------------------------------------------------
-    model = flagship(cst, N, nsub)
+    flag_model = model = flagship(cst, N, nsub)
     state = flagship_state(cst, model)
     dt, steps = 120.0, 5
     state = cst.step(model, state, dt)                  # warm-up
     torch.cuda.synchronize()
     counter.reset()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(steps):
-        state = cst.step(model, state, dt)
-    end.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
+    state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
     main_calls, main_launches = counter.calls, counter.launches
     check_state(model, state)
+    flag_state = state
     if main_calls != 3 * steps or main_launches != 3 * steps * 3 * nsub:
         raise AssertionError(f"EVP wrapper: {main_calls} calls, {main_launches} launches; "
                              f"expected {3 * steps} and {9 * steps * nsub}")
-    step_ms = start.elapsed_time(end) / steps
     print(f"[3] main path {N}² flagship: {step_ms:.2f} ms/step (CUDA events; host "
-          f"{host_s / steps * 1e3:.2f} ms/step), {points / step_ms * 1e3:.4e} points/s, "
+          f"{host_ms:.2f} ms/step), {points / step_ms * 1e3:.4e} points/s, "
           f"EVP {main_calls} calls / {main_launches} launches in {steps} steps, on {card}")
-
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state = cst.step(model, state, dt)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        os.makedirs(os.path.dirname(os.path.abspath(args.profile)), exist_ok=True)
-        with open(args.profile, "w") as f:
-            f.write(f"{card}\n{table}\n")
-        print("\n".join(table.splitlines()[:16]))
+        profiles.append(profile_step(cst, model, state, dt, f"{N}² flagship step", card))
 
     # --- 4. no size gate ------------------------------------------------------------
     big = flagship(cst, 1024, nsub)
@@ -241,6 +420,7 @@ def main(argv=None):
         raise AssertionError(f"1024² step made {counter.calls} EVP kernel calls, expected 3")
     check_state(big, big_state)
     print(f"[4] 1024² step through the kernel: finite, {time.perf_counter() - t0:.2f} s")
+    del big, big_state
 
     # --- 5. card vs CPU -------------------------------------------------------------
     finals = {}
@@ -259,24 +439,141 @@ def main(argv=None):
     if not all(np.isfinite(q).all() for q in finals["cuda"].values()):
         raise AssertionError("card run is not finite")
 
+    # --- 6. padded kernel vs plain version on the card -------------------------------
+    model = bounded(cst, N, nsub, P_star=27.5)
+    grid = model.grid
+    state = flagship_state(cst, model, velocity_seed=2)
+    params, consts, carry, _ = fused_evp_padded.padded_evp_inputs(model, state, dt,
+                                                                  state.u, state.v)
+    if len(consts) != 22:
+        raise AssertionError("the immersed drag did not reach the padded kernel")
+    padded_counter.reset()
+    out = fused_evp_padded.padded_evp_substeps(params, consts, [q.clone() for q in carry],
+                                               nsub, grid)
+    ref = fused_evp_padded.padded_evp_substeps_reference(params, consts, carry, nsub, grid)
+    torch.cuda.synchronize()
+    launches_per_call = padded_counter.launches
+    print(f"[6] padded EVP kernel vs plain version, {N}² bounded + island + drag, soft ice, "
+          f"{nsub} substeps, whole {grid.nxp}×{grid.nyp} padded arrays:")
+    worst_rel = worst_abs = 0.0
+    for name, r, o, bar in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), ref, out,
+                               (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
+        rel, abs_err = rel_diff(r, o)
+        check(name, rel, bar)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    work = [q.clone() for q in carry]
+    kernel_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps(
+        params, consts, work, nsub, grid), 20)
+    plain_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps_reference(
+        params, consts, carry, nsub, grid), 3)
+    padded_points = grid.nxp * grid.nyp
+    padded_bytes = ((PADDED_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * padded_points + EVP_PARAMS) * 4
+    padded_flops = PADDED_FLOPS_PER_POINT_SUBSTEP * padded_points * nsub
+    bytes_ms = padded_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = padded_flops / FP32_FLOP_PER_S * 1e3
+    print(f"    kernel {kernel_ms:.4f} ms/call ({launches_per_call} launches), plain "
+          f"{plain_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms "
+          f"({padded_flops / 1e9:.2f} GFLOP, {padded_bytes / 1e6:.1f} MB) on {card}")
+    padded_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    del work, out, ref, carry, consts
+
+    # --- 7. the slice's main path -----------------------------------------------------
+    model = bounded(cst, N, nsub)
+    state = flagship_state(cst, model)
+    state = cst.step(model, state, dt)                  # warm-up
+    torch.cuda.synchronize()
+    counter.reset()
+    padded_counter.reset()
+    state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
+    padded_calls, padded_launches = padded_counter.calls, padded_counter.launches
+    check_state(model, state)
+    expected = 3 * steps
+    if (padded_calls != expected or padded_launches != expected * (3 * nsub + 2)
+            or counter.calls != 0):
+        raise AssertionError(f"padded EVP wrapper: {padded_calls} calls, {padded_launches} "
+                             f"launches, periodic wrapper {counter.calls} calls; expected "
+                             f"{expected}, {expected * (3 * nsub + 2)} and 0")
+    print(f"[7] slice main path {N}² bounded + island + drag: {step_ms:.2f} ms/step (CUDA "
+          f"events; host {host_ms:.2f} ms/step), {points / step_ms * 1e3:.4e} points/s, "
+          f"padded EVP {padded_calls} calls / {padded_launches} launches in {steps} "
+          f"steps, on {card}")
+    # both main paths again, in turns, to separate the code from the shared host
+    turns = []
+    for name, m, s in (("flagship", flag_model, flag_state), ("bounded", model, state),
+                       ("flagship", flag_model, flag_state), ("bounded", model, state)):
+        _, turn_ms, _ = timed_steps(cst, m, s, dt, steps)
+        turns.append(f"{name} {turn_ms:.2f}")
+    print(f"    in turns, ms/step (CUDA events): {', '.join(turns)}")
+    del flag_model, flag_state
+    if args.profile:
+        profiles.append(profile_step(cst, model, state, dt,
+                                     f"{N}² bounded + island + drag step", card))
+        os.makedirs(os.path.dirname(os.path.abspath(args.profile)), exist_ok=True)
+        with open(args.profile, "w") as f:
+            f.write("\n".join(profiles))
+
+    # --- 8. the example configurations -------------------------------------------------
+    model, state = anticyclone(cst)
+    padded_counter.reset()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state = cst.step(model, state, 2 * MINUTE)
+    torch.cuda.synchronize()
+    check_state(model, state)
+    if padded_counter.calls != 15:
+        raise AssertionError(f"anticyclone: {padded_counter.calls} padded calls, expected 15")
+    speed = model.grid.interior(state.u).abs().max().item()
+    print(f"[8] anticyclone 128², 5 steps: finite and physical, max |u| {speed:.4e} m/s, "
+          f"{padded_counter.calls} padded calls, {time.perf_counter() - t0:.2f} s")
+    model, state = coastline(cst)
+    sim = cst.Simulation(model, state, dt=5 * MINUTE, stop_iteration=10)
+    fired = []
+    sim.callbacks["iterations"] = cst.Callback(lambda s: fired.append(s.iteration),
+                                               schedule=cst.IterationInterval(5))
+    padded_counter.reset()
+    t0 = time.perf_counter()
+    sim.run()
+    check_state(model, sim.state)
+    if padded_counter.calls != 30 or fired != [0, 5, 10]:
+        raise AssertionError(f"coastline: {padded_counter.calls} padded calls (expected "
+                             f"30), callback at {fired} (expected [0, 5, 10])")
+    print(f"    coastline 256×128, Simulation.run to iteration {sim.iteration}: finite and "
+          f"physical, callback at {fired}, {padded_counter.calls} padded calls, "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # --- 9. card vs CPU, bounded and immersed ---------------------------------------------
+    finals = {}
+    for device in ("cuda", "cpu"):
+        g = cst.RectilinearGrid(size=(128, 128), x=(0, 512 * KM), y=(0, 512 * KM),
+                                halo=5, dtype="float32", topology=("bounded", "bounded"),
+                                device=device)
+        m = bounded(cst, 128, nsub, P_star=27.5, device=device,
+                    top=anticyclone_wind(cst), bottom=ocean_currents(cst, g))
+        s = flagship_state(cst, m, velocity_seed=3)
+        for _ in range(2):
+            s = cst.step(m, s, dt)
+        if device == "cuda":
+            check_state(m, s)
+        finals[device] = state_to_numpy(s)
+    print("[9] 128² bounded + island + drag + StressFunction wind + array currents, soft "
+          "ice, 2 RK3 steps, card (kernel) vs CPU (plain version):")
+    for name, bar in (("u", 1e-4), ("v", 1e-4), ("h", 1e-5), ("a", 1e-5), ("sig11", 4e-3),
+                      ("sig22", 4e-3), ("sig12", 4e-3), ("alpha", 4e-3)):
+        rel, _ = rel_diff(torch.as_tensor(finals["cpu"][name]),
+                          torch.as_tensor(finals["cuda"][name]))
+        check(name, rel, bar)
+
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "evp_substeps",
-        "route": "cuda",
-        "source": "climaseaice_jl_tpu_torch/csrc/evp.cu",
-        "replaces": "climaseaice_jl_tpu/dynamics/pallas_evp.py:139",
-        "replaces_function": "_evp_kernel",
-        "launches": main_launches,
-        "max_abs_err": worst_abs,
-        "max_rel_diff": worst_rel,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-        "library_ms": None,
-        "shape": f"{N}x{N}, {nsub} substeps",
-    }]}))
+    print(json.dumps({"kernels": [
+        kernel_entry("evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp.py:139", "_evp_kernel",
+                     main_launches, *evp_timing, f"{N}x{N}, {nsub} substeps"),
+        kernel_entry("padded_evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp_padded.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:167", "_padded_kernel",
+                     padded_launches, *padded_timing,
+                     f"{grid.nxp}x{grid.nyp} padded ({N}x{N} bounded, island, drag), "
+                     f"{nsub} substeps"),
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,12 +7,13 @@ the two states compare element by element through numpy
 (:mod:`.convert`).  It imports torch, numpy and the standard library only.
 
 Grids live on the CUDA card unless the caller passes ``device="cpu"``.  The
-EVP substep loop of the flagship configuration runs in the CUDA kernel of
-:mod:`.dynamics.fused_evp`; on CPU tensors the same route runs the kernel's
-plain PyTorch version.
+EVP substep loop runs in a CUDA kernel: doubly periodic grids without land
+in :mod:`.dynamics.fused_evp`, bounded and immersed grids in
+:mod:`.dynamics.fused_evp_padded`; on CPU tensors the same routes run the
+kernels' plain PyTorch versions.
 """
 
-from .grids import RectilinearGrid, Grid
+from .grids import RectilinearGrid, ImmersedBoundaryGrid, Grid
 from .state import SeaIceState, Clock, ModelFields
 from .model import (SeaIceModel, sea_ice_model, initial_state, step,
                     update_state, make_fields)
@@ -23,7 +24,10 @@ from .thermodynamics import (LinearLiquidus, PhaseTransitions, melting_temperatu
                              RadiativeEmission, FluxFunction, getflux,
                              ConductiveFlux, ProportionalEvolution, SlabThermodynamics,
                              sea_ice_slab_thermodynamics)
-from .dynamics import (FPlane, SemiImplicitStress, ElastoViscoPlasticRheology,
-                       SeaIceMomentumEquation, SplitExplicitSolver)
+from .dynamics import (FPlane, SemiImplicitStress, StressFunction,
+                       ElastoViscoPlasticRheology, SeaIceMomentumEquation,
+                       SplitExplicitSolver, ImmersedDrag, ImmersedStressBC)
+from .simulation import (Simulation, Callback, IterationInterval, TimeInterval,
+                         time_step)
 
 __version__ = "0.1.0"

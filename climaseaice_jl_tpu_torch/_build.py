@@ -1,6 +1,6 @@
 """Build the package's CUDA sources into shared libraries at first use.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` into a library with a
+Each ``.cu`` source under ``csrc/`` (with the headers beside it) is compiled by ``nvcc`` into a library with a
 plain C interface, loaded with ``ctypes``; no PyTorch headers are involved,
 so a build takes seconds.  Libraries go to ``_build/`` beside this file,
 named by a hash of the sources and flags, so an edited source is rebuilt and
@@ -21,7 +21,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCES = {"evp": "evp.cu"}
+SOURCES = {"evp": "evp.cu", "evp_padded": "evp_padded.cu"}
 
 # no --use_fast_math: it would change the divides and square roots
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

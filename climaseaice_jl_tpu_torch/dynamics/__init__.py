@@ -1,9 +1,10 @@
 from .coriolis import FPlane
-from .stresses import SemiImplicitStress
+from .stresses import SemiImplicitStress, StressFunction
 from .rheologies import ElastoViscoPlasticRheology
-from .momentum import SeaIceMomentumEquation, SplitExplicitSolver
+from .momentum import (SeaIceMomentumEquation, SplitExplicitSolver, ImmersedDrag,
+                       ImmersedStressBC)
 
 __all__ = [
-    "FPlane", "SemiImplicitStress", "ElastoViscoPlasticRheology",
-    "SeaIceMomentumEquation", "SplitExplicitSolver",
+    "FPlane", "SemiImplicitStress", "StressFunction", "ElastoViscoPlasticRheology",
+    "SeaIceMomentumEquation", "SplitExplicitSolver", "ImmersedDrag", "ImmersedStressBC",
 ]

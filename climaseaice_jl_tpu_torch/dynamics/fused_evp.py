@@ -32,7 +32,7 @@ from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff
 from .coriolis import FPlane
 from .momentum import SplitExplicitSolver
 from .rheologies import ElastoViscoPlasticRheology, ice_strength
-from .stresses import SemiImplicitStress
+from .stresses import SemiImplicitStress, StressFunction
 
 # params vector layout (csrc/evp.cu, pallas_evp.py:44-46); the last is padding
 _P_DT, _P_DX, _P_DY, _P_F, _P_TAUU, _P_TAUV, _P_RC, _P_UE, _P_VE, \
@@ -66,6 +66,8 @@ evp_counter = KernelCounter()
 def _scalar(x):
     if x is None or isinstance(x, (int, float)):
         return True
+    if isinstance(x, StressFunction):
+        return False   # time-dependent stress
     if isinstance(x, torch.Tensor):
         return x.dim() == 0
     if callable(x):
@@ -281,14 +283,15 @@ def _evp_entry():
     return fn
 
 
-def _cuda_error_string(code):
-    fn = _build.load("evp").csi_cuda_error_string
+def cuda_error_string(library, code):
+    """The CUDA runtime's message for error ``code``, from a built library."""
+    fn = _build.load(library).csi_cuda_error_string
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(code).decode()
 
 
-def _check_kernel_args(params, arrays):
+def check_kernel_args(params, arrays):
     device = params.device
     if params.dtype != torch.float32 or tuple(params.shape) != (N_PARAMS,) \
             or not params.is_contiguous():
@@ -327,7 +330,7 @@ def evp_substeps(params, consts, carry, nsub):
         return evp_substeps_reference(params, consts, carry, nsub)
     if device.type != "cuda":
         raise ValueError(f"no EVP kernel for device {device}")
-    nx, ny = _check_kernel_args(params, consts + carry)
+    nx, ny = check_kernel_args(params, consts + carry)
     fn = _evp_entry()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -335,7 +338,7 @@ def evp_substeps(params, consts, carry, nsub):
                  nx, ny, int(nsub), stream)
     if err != 0:
         raise RuntimeError(f"EVP kernel launch failed: CUDA error {err} "
-                           f"({_cuda_error_string(err)})")
+                           f"({cuda_error_string('evp', err)})")
     evp_counter.calls += 1
     evp_counter.launches += LAUNCHES_PER_SUBSTEP * int(nsub)
     return carry
@@ -343,26 +346,22 @@ def evp_substeps(params, consts, carry, nsub):
 
 # --- the launcher ---------------------------------------------------------------
 
-def evp_inputs(model, state, dt, u_start, v_start):
-    """(params, consts, carry, P) of the substep loop: the constants
-    prepared on padded arrays (correct halos) and cropped to contiguous
-    interiors, as `pallas_evp.py:354-438` does, and the padded ice strength
-    P for the state.  The carry tensors are fresh copies."""
-    grid = model.grid
+def evp_coefficients(model, state, dt):
+    """The padded constants of the substep loop that both EVP kernels take,
+    in the JAX launchers' operation order (`pallas_evp.py:354-438`,
+    `pallas_evp_padded.py:375-429`): (P, Pff, gcc, gff, drag_u, invm_u,
+    act_u, drag_v, invm_v, act_v).  ``dt`` is a 0-d float32 tensor; gcc and
+    gff are the γ² coefficients with −1 where the mass is not positive."""
     dyn = model.dynamics
     rheo = dyn.rheology
-    f32 = grid.scalar      # the gate guarantees a float32 grid
-    dt = f32(dt)
-    I = grid.interior
-
+    grid = model.grid
+    f32 = grid.scalar      # the gates guarantee a float32 grid
     h, a = state.h, state.a
     rho = f32(model.sea_ice_density)
-    dx = f32(grid.dx_cc)
-    dy = f32(grid.dy_cc)
-    az = dx * dy
+    az = f32(grid.dx_cc) * f32(grid.dy_cc)
 
-    P_pad = ice_strength(rheo, h, a)
-    Pff_pad = ixy_ff(P_pad)
+    P = ice_strength(rheo, h, a)
+    Pff = ixy_ff(P)
     m_cc = h * a * rho
     m_ff = ixy_ff(m_cc)
     m_fc = ixf(m_cc)
@@ -380,12 +379,49 @@ def evp_inputs(model, state, dt, u_start, v_start):
         return torch.where(ok, rheo.relaxation_strength * dt
                            / (torch.where(ok, m, 1.0) * az), -1.0)
 
-    invm_u_pad = inv0(m_fc)
-    invm_v_pad = inv0(m_cf)
-    act_u_pad = ((m_fc >= dyn.minimum_mass)
-                 & (a_fc >= dyn.minimum_concentration)).to(torch.float32)
-    act_v_pad = ((m_cf >= dyn.minimum_mass)
-                 & (a_cf >= dyn.minimum_concentration)).to(torch.float32)
+    invm_u = inv0(m_fc)
+    invm_v = inv0(m_cf)
+    act_u = ((m_fc >= dyn.minimum_mass)
+             & (a_fc >= dyn.minimum_concentration)).to(torch.float32)
+    act_v = ((m_cf >= dyn.minimum_mass)
+             & (a_cf >= dyn.minimum_concentration)).to(torch.float32)
+    return (P, Pff, gamma2_coefficient(m_cc), gamma2_coefficient(m_ff),
+            invm_u * a_fc, invm_u, act_u, invm_v * a_cf, invm_v, act_v)
+
+
+def evp_params(model, dt, tau_u_top, tau_v_top, rC, ue, ve):
+    """The float32[18] params vector (layout above) from 0-d tensors."""
+    dyn = model.dynamics
+    rheo = dyn.rheology
+    f32 = model.grid.scalar
+    return torch.stack([
+        dt, f32(model.grid.dx_cc), f32(model.grid.dy_cc),
+        f32(dyn.coriolis.f if dyn.coriolis is not None else 0.0),
+        tau_u_top, tau_v_top, rC, ue, ve,
+        f32(rheo.yield_curve_eccentricity) ** -2.0,
+        f32(rheo.min_relaxation_parameter),
+        f32(rheo.max_relaxation_parameter),
+        f32(rheo.relaxation_strength),
+        f32(rheo.minimum_plastic_stress),
+        f32(dyn.minimum_mass),
+        f32(dyn.minimum_concentration),
+        f32(1.0 if rheo.pressure_formulation == "replacement" else 0.0),
+        f32(0.0),
+    ])
+
+
+def evp_inputs(model, state, dt, u_start, v_start):
+    """(params, consts, carry, P) of the substep loop: the constants
+    prepared on padded arrays (correct halos) and cropped to contiguous
+    interiors, as `pallas_evp.py:354-438` does, and the padded ice strength
+    P for the state.  The carry tensors are fresh copies."""
+    grid = model.grid
+    dyn = model.dynamics
+    f32 = grid.scalar
+    dt = f32(dt)
+    I = grid.interior
+    (P_pad, Pff_pad, gcc, gff, drag_u, invm_u, act_u,
+     drag_v, invm_v, act_v) = evp_coefficients(model, state, dt)
 
     def value(x):
         return f32(0.0 if x is None else x)
@@ -400,25 +436,11 @@ def evp_inputs(model, state, dt, u_start, v_start):
         rC, ue, ve = f32(bottom.rho_e * bottom.Cd), f32(bottom.ue), f32(bottom.ve)
     else:
         rC = ue = ve = f32(0.0)
-    f_cor = f32(dyn.coriolis.f if dyn.coriolis is not None else 0.0)
-
-    params = torch.stack([
-        dt, dx, dy, f_cor, tau_u_top, tau_v_top, rC, ue, ve,
-        f32(rheo.yield_curve_eccentricity) ** -2.0,
-        f32(rheo.min_relaxation_parameter),
-        f32(rheo.max_relaxation_parameter),
-        f32(rheo.relaxation_strength),
-        f32(rheo.minimum_plastic_stress),
-        f32(dyn.minimum_mass),
-        f32(dyn.minimum_concentration),
-        f32(1.0 if rheo.pressure_formulation == "replacement" else 0.0),
-        f32(0.0),
-    ])
+    params = evp_params(model, dt, tau_u_top, tau_v_top, rC, ue, ve)
 
     consts = tuple(I(q).contiguous() for q in (
-        P_pad, Pff_pad, gamma2_coefficient(m_cc), gamma2_coefficient(m_ff),
-        invm_u_pad * a_fc, invm_u_pad, act_u_pad, u_start,
-        invm_v_pad * a_cf, invm_v_pad, act_v_pad, v_start))
+        P_pad, Pff_pad, gcc, gff, drag_u, invm_u, act_u, u_start,
+        drag_v, invm_v, act_v, v_start))
     carry = tuple(I(q).clone(memory_format=torch.contiguous_format)
                   for q in (u_start, v_start, state.sig11, state.sig22,
                             state.sig12, state.alpha))

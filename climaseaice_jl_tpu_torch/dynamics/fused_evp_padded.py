@@ -1,0 +1,406 @@
+"""Padded fused split-explicit αEVP substep loop for bounded and immersed
+grids: the gate, the launcher, the CUDA kernel's wrapper and its plain
+version.
+
+Counterpart of `climaseaice_jl_tpu/dynamics/pallas_evp_padded.py`.  The
+kernel (``csrc/evp_padded.cu``) replaces the TPU kernel ``_padded_kernel``:
+the whole substep loop on halo-inclusive (nxp, nyp) float32 arrays, with the
+velocity halos refilled after every half-update (zero beyond a bounded wall
+for the wall-normal component, edge copy for the tangential one, wrap where
+periodic).  Circular shifts wrap over the whole padded extent, as the TPU
+kernel's rolls do, so σ and α in the outermost halo ring come from wrapped
+neighbours.  Immersed land enters as in the general path:
+
+* σ read by the divergence is zeroed at solid cc nodes and peripheral ff
+  nodes (constant masks);
+* velocities are zeroed on peripheral nodes (the activity masks);
+* an :class:`~.momentum.ImmersedDrag` enters as geometric coefficients per
+  face: the term at a u point is −(gˢ·u(i,j) + gᴺ·u(i,j+1))·invm_u with
+  g = C·1_imm·Δx_ff/Az sampled at each face's own ff index.
+
+External stresses are arrays (scalars broadcast); a StressFunction is
+evaluated once per momentum step at the step-start clock.
+
+:func:`padded_evp_substeps` picks by the tensors' device: CUDA tensors go to
+the kernel, CPU tensors to :func:`padded_evp_substeps_reference`.  A CUDA
+tensor never reaches the plain version; a kernel that fails to build or
+launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..grids import PERIODIC, BOUNDED
+from ..ops import shift_m
+from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff
+from .coriolis import FPlane
+from .momentum import SplitExplicitSolver, ImmersedDrag
+from .rheologies import ElastoViscoPlasticRheology
+from .stresses import SemiImplicitStress, StressFunction, _value
+from .fused_evp import (KernelCounter, _scalar, _P_DT, _P_DX, _P_DY, _P_F, _P_RC,
+                        _P_EINV2, _P_AMIN, _P_AMAX, _P_DMIN, _P_REPL,
+                        check_kernel_args, cuda_error_string, evp_coefficients,
+                        evp_params)
+
+N_CONSTS = 14       # P, Pff, gcc, gff, drag_u, invm_u, act_u, un,
+                    # drag_v, invm_v, act_v, vn, msk_cc, msk_ff
+N_DRAG = 4          # immersed-drag coefficients: S/N faces of u, W/E faces of v
+N_STRESS = 4        # τᵤ, τᵥ (top), uₑ, vₑ (bottom), as arrays
+N_CARRY = 6         # u, v, σ₁₁, σ₂₂, σ₁₂, α
+LAUNCHES_PER_SUBSTEP = 3
+LAUNCHES_PER_CALL = 2   # the initial u and v halo fills
+
+padded_evp_counter = KernelCounter()
+
+
+# --- the gate -----------------------------------------------------------------
+
+def padded_fused_available(model):
+    """True when the model matches the padded fused EVP configuration:
+    uniform rectilinear float32, periodic or bounded sides, any land mask,
+    scalar, array or StressFunction stresses, an FPlane or no Coriolis, no
+    free drift, no user forcing, no immersed drag or an ImmersedDrag.
+
+    The physics conditions of the JAX gate (`pallas_evp_padded.py:46-116`)
+    without its TPU-only ones: the scoped-VMEM budget kept the whole padded
+    state on chip, and the mesh test guards the distributed wide-halo mode
+    (queue 9).  The CUDA kernel keeps its state in device memory and indexes
+    any nxp×nyp (ragged edges masked), so it has no size limit."""
+    grid = model.grid
+    dyn = model.dynamics
+    if dyn is None or not isinstance(dyn.rheology, ElastoViscoPlasticRheology):
+        return False
+    if not isinstance(dyn.solver, SplitExplicitSolver):
+        return False
+    if grid.kind != "rectilinear":
+        return False
+    if any(t not in (PERIODIC, BOUNDED) for t in grid.topology):
+        return False
+    if grid.dtype != torch.float32:
+        return False
+    if not all(_scalar(m) for m in (grid.dx_cc, grid.dy_cc)):
+        return False
+    if dyn.immersed_drag is not None and not isinstance(dyn.immersed_drag, ImmersedDrag):
+        return False   # general ImmersedStressBC callables: general path only
+
+    def ok_value(x):
+        return (isinstance(x, StressFunction) or _scalar(x)
+                or tuple(getattr(x, "shape", ())) == grid.shape)
+
+    top = dyn.top_momentum_stress
+    if isinstance(top, dict):
+        if not (ok_value(top.get("u")) and ok_value(top.get("v"))):
+            return False
+    elif not ok_value(top):
+        return False
+    bottom = dyn.bottom_momentum_stress
+    if bottom is not None and not isinstance(bottom, SemiImplicitStress):
+        return False
+    if isinstance(bottom, SemiImplicitStress):
+        if not (ok_value(bottom.ue) and ok_value(bottom.ve)):
+            return False
+    if dyn.coriolis is not None and not isinstance(dyn.coriolis, FPlane):
+        return False
+    if dyn.free_drift is not None:
+        return False
+    if model.forcing:
+        return False
+    return True
+
+
+# --- the plain version ----------------------------------------------------------
+
+def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
+    """Plain PyTorch version of the kernel: ``nsub`` substeps on padded
+    arrays with circular shifts over the padded extent, in the TPU kernel's
+    operation order (`pallas_evp_padded.py:167-372`).  The u/v halo fills
+    are the serial fills of :mod:`..fields`, which concatenate exactly as
+    the TPU kernel's `_make_fillers` (`pallas_evp_padded.py:119-164`).
+    Returns the new (u, v, σ₁₁, σ₂₂, σ₁₂, α)."""
+    p = params
+    dt = p[_P_DT]
+    inv_dx = 1.0 / p[_P_DX]
+    inv_dy = 1.0 / p[_P_DY]
+    f_cor = p[_P_F]
+    rC = p[_P_RC]
+    e_inv2 = p[_P_EINV2]
+    a_min = p[_P_AMIN]
+    a_max = p[_P_AMAX]
+    d_min = p[_P_DMIN]
+    repl_on = bool(p[_P_REPL] != 0)
+
+    consts = tuple(consts)
+    has_drag = len(consts) == N_CONSTS + N_DRAG + N_STRESS
+    (P, Pff, gcc, gff, drag_u, invm_u, act_u, un,
+     drag_v, invm_v, act_v, vn, msk_cc, msk_ff) = consts[:N_CONSTS]
+    if has_drag:
+        imms_u, immn_u, immw_v, imme_v = consts[N_CONSTS:N_CONSTS + N_DRAG]
+    tau_u_top, tau_v_top, ue, ve = consts[-N_STRESS:]
+
+    def fill_fc(q):
+        return fill_halos_fc(q, grid)
+
+    def fill_cf(q):
+        return fill_halos_cf(q, grid)
+
+    def sp(q, axis):   # q[I-1]
+        return torch.roll(q, 1, axis)
+
+    def sm(q, axis):   # q[I+1]
+        return torch.roll(q, -1, axis)
+
+    def ixf_(q):
+        return 0.5 * (q + sp(q, 0))
+
+    def iyf_(q):
+        return 0.5 * (q + sp(q, 1))
+
+    def ixyf_(q):
+        t = q + sp(q, 1)
+        return 0.25 * (t + sp(t, 0))
+
+    def ixyc_(q):
+        t = q + sm(q, 1)
+        return 0.25 * (t + sm(t, 0))
+
+    def ixf_yc_(q):
+        t = q + sm(q, 1)
+        return 0.25 * (t + sp(t, 0))
+
+    def ixc_yf_(q):
+        t = q + sp(q, 1)
+        return 0.25 * (t + sm(t, 0))
+
+    inv_dt = 1.0 / dt
+    inv_dmin = 1.0 / d_min
+    amin2 = a_min * a_min
+    amax2 = a_max * a_max
+    Ph = 0.5 * P
+    Pffh = 0.5 * Pff
+    ve_fc = ixf_yc_(ve)
+    ue_cf = ixc_yf_(ue)
+    ok_cc = gcc > 0
+    ok_ff = gff > 0
+
+    def stresses(u, v, s11, s22, s12):
+        e11 = (sm(u, 0) - u) * inv_dx
+        e22 = (sm(v, 1) - v) * inv_dy
+        eS = (u - sp(u, 1)) * inv_dy + (v - sp(v, 0)) * inv_dx   # 2ϵ̇₁₂ at ff
+        d_cc = e11 + e22
+        t_cc = e11 - e22
+        d_ff = ixyf_(d_cc)
+        t_ff = ixyf_(t_cc)
+        eSc = ixyc_(eS)
+        dd_cc = d_cc * d_cc + (t_cc * t_cc + eSc * eSc) * e_inv2
+        dd_ff = d_ff * d_ff + (t_ff * t_ff + eS * eS) * e_inv2
+        rD_cc = torch.minimum(torch.rsqrt(dd_cc), inv_dmin)   # 1/max(Δcc, Δmin)
+        rD_ff = torch.minimum(torch.rsqrt(dd_ff), inv_dmin)
+        zcc = Ph * rD_cc
+        zff = Pffh * rD_ff
+        if repl_on:
+            Dcc = torch.maximum(dd_cc * rD_cc, d_min)
+            Prh = Ph * Dcc / (Dcc + d_min)
+        else:
+            Prh = Ph
+        eta_cc = zcc * e_inv2
+        eta_ff = zff * e_inv2
+        iso = (zcc - eta_cc) * d_cc - Prh
+        s11_t = 2 * eta_cc * e11 + iso
+        s22_t = 2 * eta_cc * e22 + iso
+        s12_t = eta_ff * eS
+        g2cc = torch.clamp(zcc * gcc, amin2, amax2)
+        g2ff = torch.clamp(zff * gff, amin2, amax2)
+        rg_cc = torch.rsqrt(g2cc)
+        rg_ff = torch.rsqrt(g2ff)
+        gamma_cc = torch.where(ok_cc, g2cc * rg_cc, a_max)
+        s11 = s11 + torch.where(ok_cc, (s11_t - s11) * rg_cc, 0.0)
+        s22 = s22 + torch.where(ok_cc, (s22_t - s22) * rg_cc, 0.0)
+        s12 = s12 + torch.where(ok_ff, (s12_t - s12) * rg_ff, 0.0)
+        return s11, s22, s12, gamma_cc
+
+    def u_update(u, v, s11, s12, alpha):
+        s11m = s11 * msk_cc
+        s12m = s12 * msk_ff
+        div_x = (s11m - sp(s11m, 0)) * inv_dx + (sm(s12m, 1) - s12m) * inv_dy
+        v_fc = ixf_yc_(v)
+        du = ue - u
+        dv = ve_fc - v_fc
+        speed = torch.sqrt(du * du + dv * dv)
+        Gu = (f_cor * v_fc - tau_u_top * drag_u + rC * speed * ue * drag_u
+              + div_x * invm_u)
+        if has_drag:
+            Gu = Gu - (imms_u * u + immn_u * sm(u, 1)) * invm_u
+        Gu = Gu + (un - u) * inv_dt
+        Gu = torch.where(invm_u > 0, Gu, 0.0)
+        idtau = ixf_(alpha) * inv_dt
+        u_new = (u * idtau + Gu) / (idtau + rC * speed * drag_u) * act_u
+        return fill_fc(u_new)
+
+    def v_update(u, v, s22, s12, alpha):
+        s22m = s22 * msk_cc
+        s12m = s12 * msk_ff
+        div_y = (s22m - sp(s22m, 1)) * inv_dy + (sm(s12m, 0) - s12m) * inv_dx
+        u_cf = ixc_yf_(u)
+        dv = ve - v
+        du = ue_cf - u_cf
+        speed = torch.sqrt(du * du + dv * dv)
+        Gv = (-f_cor * u_cf - tau_v_top * drag_v + rC * speed * ve * drag_v
+              + div_y * invm_v)
+        if has_drag:
+            Gv = Gv - (immw_v * v + imme_v * sm(v, 0)) * invm_v
+        Gv = Gv + (vn - v) * inv_dt
+        Gv = torch.where(invm_v > 0, Gv, 0.0)
+        idtau = iyf_(alpha) * inv_dt
+        v_new = (v * idtau + Gv) / (idtau + rC * speed * drag_v) * act_v
+        return fill_cf(v_new)
+
+    u, v, s11, s22, s12, alpha = carry
+    u, v = fill_fc(u), fill_cf(v)
+    for substep in range(1, nsub + 1):
+        s11, s22, s12, alpha = stresses(u, v, s11, s22, s12)
+        if substep % 2 == 0:
+            u = u_update(u, v, s11, s12, alpha)
+            v = v_update(u, v, s22, s12, alpha)
+        else:
+            v = v_update(u, v, s22, s12, alpha)
+            u = u_update(u, v, s11, s12, alpha)
+    return u, v, s11, s22, s12, alpha
+
+
+# --- the kernel's wrapper -------------------------------------------------------
+
+def _padded_entry():
+    fn = _build.load("evp_padded").csi_evp_padded_substeps
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * (1 + N_CONSTS + N_DRAG + N_STRESS
+                                            + N_CARRY + 2)
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def padded_evp_substeps(params, consts, carry, nsub, grid):
+    """Run ``nsub`` αEVP substeps on padded arrays of ``grid``'s shape.
+
+    ``params``: float32[18] (the layout of :mod:`.fused_evp`); ``consts``:
+    the 14 constant arrays, then the 4 immersed-drag coefficient arrays if
+    there is drag, then the 4 stress arrays; ``carry``: (u, v, σ₁₁, σ₂₂,
+    σ₁₂, α).  CUDA tensors go to the CUDA kernel, which updates the carry
+    tensors in place and returns them; CPU tensors go to
+    :func:`padded_evp_substeps_reference`."""
+    consts, carry = tuple(consts), tuple(carry)
+    if (len(consts) not in (N_CONSTS + N_STRESS, N_CONSTS + N_DRAG + N_STRESS)
+            or len(carry) != N_CARRY):
+        raise ValueError(f"expected {N_CONSTS} constants, optionally {N_DRAG} drag "
+                         f"arrays, {N_STRESS} stress arrays and {N_CARRY} carries")
+    device = params.device
+    if device.type == "cpu":
+        if any(q.device != device for q in consts + carry):
+            raise ValueError("EVP tensors span devices")
+        return padded_evp_substeps_reference(params, consts, carry, nsub, grid)
+    if device.type != "cuda":
+        raise ValueError(f"no EVP kernel for device {device}")
+    shape = check_kernel_args(params, consts + carry)
+    if shape != grid.shape:
+        raise ValueError(f"EVP arrays are {shape}, the grid's fields {grid.shape}")
+    has_drag = len(consts) == N_CONSTS + N_DRAG + N_STRESS
+    drag = consts[N_CONSTS:N_CONSTS + N_DRAG] if has_drag else (None,) * N_DRAG
+    scratch = (torch.empty_like(carry[0]), torch.empty_like(carry[1]))
+    ptrs = [params.data_ptr()]
+    ptrs += [q.data_ptr() for q in consts[:N_CONSTS]]
+    ptrs += [None if q is None else q.data_ptr() for q in drag]
+    ptrs += [q.data_ptr() for q in consts[-N_STRESS:] + carry + scratch]
+    fn = _padded_entry()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*ptrs, grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy, grid.Ny,
+                 int(grid.topology[0] == PERIODIC), int(grid.topology[1] == PERIODIC),
+                 int(has_drag), int(nsub), stream)
+    if err != 0:
+        raise RuntimeError(f"padded EVP kernel launch failed: CUDA error {err} "
+                           f"({cuda_error_string('evp_padded', err)})")
+    padded_evp_counter.calls += 1
+    padded_evp_counter.launches += LAUNCHES_PER_SUBSTEP * int(nsub) + LAUNCHES_PER_CALL
+    return carry
+
+
+# --- the launcher ---------------------------------------------------------------
+
+def padded_evp_inputs(model, state, dt, u_start, v_start):
+    """(params, consts, carry, P) of the padded substep loop, as
+    `pallas_evp_padded.py:375-509` assembles them (without its
+    ``fixed_tiles`` branch, kernel 2.4).  The carry tensors are fresh
+    copies."""
+    from ..model import make_fields
+
+    grid = model.grid
+    dyn = model.dynamics
+    masks = model.masks
+    f32 = grid.scalar
+    dt = f32(dt)
+    (P, Pff, gcc, gff, drag_u, invm_u, act_u,
+     drag_v, invm_v, act_v) = evp_coefficients(model, state, dt)
+    act_u = act_u * (~masks.per_fc).to(torch.float32)
+    act_v = act_v * (~masks.per_cf).to(torch.float32)
+    msk_cc = (~masks.solid_cc).to(torch.float32)   # 1 where σ₁₁, σ₂₂ are read
+    msk_ff = (~masks.per_ff).to(torch.float32)     # 1 where σ₁₂ is read
+
+    drag_consts = ()
+    if dyn.immersed_drag is not None and masks.imm_ff is not None:
+        C = f32(dyn.immersed_drag.coefficient)
+        az = f32(grid.dx_cc) * f32(grid.dy_cc)
+        dx_ff = f32(grid.dx_ff).expand(grid.shape)
+        dy_ff = f32(grid.dy_ff).expand(grid.shape)
+        wx = torch.where(masks.imm_ff, C * dx_ff, 0.0) / az
+        wy = torch.where(masks.imm_ff, C * dy_ff, 0.0) / az
+        drag_consts = (wx, shift_m(wx, 1), wy, shift_m(wy, 0))
+
+    fields = make_fields(model, state)
+
+    def array(x):   # a scalar, array or StressFunction as a float32 array
+        x = _value(0.0 if x is None else x, grid, state.clock, fields)
+        return f32(x).expand(grid.shape)
+
+    top = dyn.top_momentum_stress
+    if isinstance(top, dict):
+        tau_u_top, tau_v_top = array(top.get("u")), array(top.get("v"))
+    else:
+        tau_u_top = tau_v_top = array(top)
+    bottom = dyn.bottom_momentum_stress
+    if isinstance(bottom, SemiImplicitStress):
+        rC = f32(bottom.rho_e * bottom.Cd)
+        ue, ve = array(bottom.ue), array(bottom.ve)
+    else:
+        rC = f32(0.0)
+        ue = ve = array(None)
+    zero = f32(0.0)
+    params = evp_params(model, dt, zero, zero, rC, zero, zero)
+
+    consts = tuple(q.contiguous() for q in (
+        (P, Pff, gcc, gff, drag_u, invm_u, act_u, u_start,
+         drag_v, invm_v, act_v, v_start, msk_cc, msk_ff)
+        + drag_consts + (tau_u_top, tau_v_top, ue, ve)))
+    carry = tuple(q.clone(memory_format=torch.contiguous_format)
+                  for q in (u_start, v_start, state.sig11, state.sig22,
+                            state.sig12, state.alpha))
+    return params, consts, carry, P
+
+
+def padded_fused_momentum_step(model, state, dt, u_start, v_start):
+    """Run the whole substep loop through :func:`padded_evp_substeps`;
+    returns the same update dict as the general
+    `split_explicit_momentum_step`.  σ halos are refilled afterwards and α
+    keeps the loop's halos, as in `pallas_evp_padded.py:651-658`; Delta,
+    zeta_cc and zeta_ff stay as they were."""
+    grid = model.grid
+    params, consts, carry, P = padded_evp_inputs(model, state, dt, u_start, v_start)
+    u, v, s11, s22, s12, alpha = padded_evp_substeps(
+        params, consts, carry, model.dynamics.solver.substeps, grid)
+    return dict(u=u, v=v, sig11=fill_halos_cc(s11, grid), sig22=fill_halos_cc(s22, grid),
+                sig12=fill_halos_ff(s12, grid), alpha=alpha,
+                P=P, un=u_start, vn=v_start,
+                Delta=state.Delta, zeta_cc=state.zeta_cc, zeta_ff=state.zeta_ff)

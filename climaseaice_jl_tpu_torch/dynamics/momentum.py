@@ -7,8 +7,12 @@ configurations the fused EVP kernel does not take
 (:func:`~.fused_evp.fused_available`).  The substep loop is a Python loop;
 odd substeps update v then u, even substeps u then v.
 
-``ExplicitSolver``, free drift, immersed drag and user forcing belong to a
-later slice (queue 7).
+Immersed boundaries enter as in the JAX package: σ is zeroed at solid cc
+and peripheral ff nodes before the divergence, velocities on peripheral
+nodes, and an :class:`ImmersedDrag` or :class:`ImmersedStressBC` adds a
+boundary flux on the faces of immersed (not wall) ff nodes.
+``ExplicitSolver``, free drift and user forcing belong to a later slice
+(queue 7).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import dataclasses
 import torch
 
 from ..utils import frozen_dataclass
-from ..ops import ixf, iyf
+from ..ops import ixf, iyf, shift_m
 from ..fields import fill_halos_fc, fill_halos_cf, fill_halos_many
 from ..state import ModelFields
 from .coriolis import x_f_cross_U, y_f_cross_U
@@ -49,6 +53,42 @@ class SplitExplicitSolver:
 
 
 @frozen_dataclass
+class ImmersedDrag:
+    """Linear drag flux −C·u through the faces next to immersed (land)
+    cells."""
+    coefficient: object = 3e-3
+
+
+@frozen_dataclass
+class ImmersedStressBC:
+    """General immersed flux boundary conditions on the stress divergence:
+    ``u_flux``/``v_flux`` are callables ``f(grid, clock, fields[,
+    parameters])`` returning the boundary flux sampled at every node.  The
+    immersed stress divergence applies them on the faces whose (f,f) node is
+    immersed, weighted by the face length; :class:`ImmersedDrag` is the case
+    ``flux = −C·u``."""
+    u_flux: object = None
+    v_flux: object = None
+    parameters: object = None
+
+
+def _immersed_flux_values(imm, grid, clock, fields):
+    """(Fu, Fv): boundary flux arrays for the immersed stress divergence."""
+    if isinstance(imm, ImmersedDrag):
+        return -imm.coefficient * fields.u, -imm.coefficient * fields.v
+    zeros = torch.zeros(grid.shape, dtype=grid.dtype, device=grid.device)
+
+    def ev(f):
+        if f is None:
+            return zeros
+        if imm.parameters is None:
+            return f(grid, clock, fields)
+        return f(grid, clock, fields, imm.parameters)
+
+    return ev(imm.u_flux), ev(imm.v_flux)
+
+
+@frozen_dataclass
 class SeaIceMomentumEquation:
     """Dynamics container."""
     rheology: object = None
@@ -70,9 +110,9 @@ class SeaIceMomentumEquation:
         if not isinstance(self.solver, SplitExplicitSolver):
             raise NotImplementedError("only SplitExplicitSolver is ported yet "
                                       "(ExplicitSolver: queue 7)")
-        if self.free_drift is not None or self.immersed_drag is not None:
-            raise NotImplementedError("free drift and immersed drag belong to "
-                                      "a later slice of the port (queue 7)")
+        if self.free_drift is not None:
+            raise NotImplementedError("free drift belongs to a later slice of "
+                                      "the port (queue 7)")
 
 
 def _inv(x, ok):
@@ -110,6 +150,18 @@ def velocity_tendencies(model, dyn, grid, dt, fields, clock, div=None):
           + explicit_tau_y(grid, bottom, clock, fields) * inv_m_cf * a_cf
           + div_y * inv_m_cf
           + Fv)
+
+    if dyn.immersed_drag is not None and masks.imm_ff is not None:
+        # immersed ∂ⱼσᵢⱼ: for the u point the flux through its south and
+        # north (f,f) faces, (qᴺ + qˢ)/Az with q = flux·Δx_ff sampled at each
+        # face's own index, on immersed faces only; east/west for v
+        Fu, Fv = _immersed_flux_values(dyn.immersed_drag, grid, clock, fields)
+        wx = torch.where(masks.imm_ff, grid.dx_ff.broadcast_to(grid.shape), 0.0)
+        wy = torch.where(masks.imm_ff, grid.dy_ff.broadcast_to(grid.shape), 0.0)
+        imm_x = (shift_m(Fu * wx, 1) + Fu * wx) / grid.az_fc
+        imm_y = (shift_m(Fv * wy, 0) + Fv * wy) / grid.az_cf
+        Gu = Gu + imm_x * inv_m_fc
+        Gv = Gv + imm_y * inv_m_cf
 
     Gu = torch.where(m_fc <= 0, 0.0, Gu)
     Gv = torch.where(m_cf <= 0, 0.0, Gv)

@@ -119,3 +119,28 @@ def peripheral_masks(grid: Grid):
 
 def solid_cc_mask(grid: Grid):
     return torch.as_tensor(_solid_base(grid), device=grid.device)
+
+
+def immersed_only_ff(grid: Grid):
+    """(f,f) nodes peripheral because of an immersed cell but not because of
+    a domain wall: the nodes whose faces carry immersed stress-divergence
+    fluxes.  None on grids without land."""
+    if grid.solid_cc is None:
+        return None
+
+    def per_ff(s):
+        sx = np.roll(s, 1, 0)
+        sy = np.roll(s, 1, 1)
+        sxy = np.roll(sx, 1, 1)
+        return s | sx | sy | sxy
+
+    full = _solid_base(grid)
+    wall = _solid_base(grid.evolve(solid_cc=None))
+    return torch.as_tensor(per_ff(full) & ~per_ff(wall), device=grid.device)
+
+
+def mask_immersed_cc(q, grid: Grid):
+    """Zero a centred field over solid cells."""
+    if grid.solid_cc is None:
+        return q
+    return torch.where(grid.solid_cc, 0.0, q)

@@ -1,7 +1,7 @@
 """Staggered C-grid with uniform scalar metrics.
 
-Counterpart of `climaseaice_jl_tpu/grids.py` (``Grid`` and
-``RectilinearGrid``).  Every 2-D field is a halo-inclusive tensor of shape
+Counterpart of `climaseaice_jl_tpu/grids.py` (``Grid``, ``RectilinearGrid``
+and ``ImmersedBoundaryGrid``).  Every 2-D field is a halo-inclusive tensor of shape
 ``(Nx + 2*Hx, Ny + 2*Hy)`` shared by all four staggered locations (cc, fc,
 cf, ff); center ``i`` lives at index ``Hx + i`` and a face with the same
 index sits at the *left/south* edge of that center.  y is the contiguous
@@ -56,8 +56,8 @@ class Grid:
     az_cf: object = None
     az_ff: object = None
 
-    # immersed boundary: boolean (nxp, nyp) mask, True where solid (land).
-    # Immersed grids are not ported yet (queue 7); this stays None.
+    # immersed boundary: boolean (nxp, nyp) tensor on the grid device, True
+    # where solid (land); None on grids without land
     solid_cc: object = None
 
     @property
@@ -190,3 +190,43 @@ def RectilinearGrid(size=None, x=(0.0, 1.0), y=(0.0, 1.0),
         az_cc=mk(az), az_fc=mk(az), az_cf=mk(az), az_ff=mk(az),
         solid_cc=None,
     )
+
+
+def ImmersedBoundaryGrid(grid: Grid, solid_mask):
+    """Attach a land mask to ``grid``.
+
+    ``solid_mask``: interior-shaped boolean array or tensor (True = land), or
+    a callable ``f(x, y) -> bool`` over cell centres, called with numpy
+    arrays of shapes (Nx, 1) and (1, Ny) in the grid dtype.  The halos
+    continue the mask as the topology says: periodic wrap, and solid beyond
+    a bounded wall."""
+    if callable(solid_mask):
+        x = grid.xc.cpu().numpy()[grid.Hx:grid.Hx + grid.Nx, None]
+        y = grid.yc.cpu().numpy()[None, grid.Hy:grid.Hy + grid.Ny]
+        solid_mask = solid_mask(x, y)
+    if isinstance(solid_mask, torch.Tensor):
+        solid_mask = solid_mask.cpu().numpy()
+    full = np.zeros(grid.shape, bool)
+    full[grid.Hx:grid.Hx + grid.Nx, grid.Hy:grid.Hy + grid.Ny] = np.asarray(solid_mask, bool)
+    full = _extend_mask(full, grid)
+    return grid.evolve(solid_cc=torch.as_tensor(full, device=grid.device))
+
+
+def _extend_mask(mask, grid):
+    """Fill the halos of a padded boolean mask in place and return it."""
+    Hx, Hy, Nx, Ny = grid.Hx, grid.Hy, grid.Nx, grid.Ny
+    if Hx > 0:
+        if grid.topology[0] == PERIODIC:
+            mask[:Hx] = mask[Nx:Nx + Hx]
+            mask[Hx + Nx:] = mask[Hx:2 * Hx]
+        else:   # bounded: outside the domain counts as solid
+            mask[:Hx] = True
+            mask[Hx + Nx:] = True
+    if Hy > 0:
+        if grid.topology[1] == PERIODIC:
+            mask[:, :Hy] = mask[:, Ny:Ny + Hy]
+            mask[:, Hy + Ny:] = mask[:, Hy:2 * Hy]
+        else:
+            mask[:, :Hy] = True
+            mask[:, Hy + Ny:] = True
+    return mask

@@ -4,18 +4,22 @@
 Counterpart of `climaseaice_jl_tpu/model.py`.  The model is an immutable
 configuration, the state a separate dataclass of tensors, and
 ``step(model, state, dt) -> state`` a plain function that runs eagerly on
-the grid's device.  The EVP substep loop of eligible models goes to the CUDA
-kernel of :mod:`.dynamics.fused_evp`.
+the grid's device.  The EVP substep loop of eligible models goes to a CUDA
+kernel: doubly periodic grids without land to :mod:`.dynamics.fused_evp`,
+bounded or immersed ones to :mod:`.dynamics.fused_evp_padded`.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from .utils import frozen_dataclass
 from .grids import Grid
 from .state import SeaIceState, Clock, ModelFields
-from .fields import (fill_halos_many, peripheral_masks, solid_cc_mask)
+from .fields import (fill_halos_many, peripheral_masks, solid_cc_mask,
+                     immersed_only_ff)
 from .advection import horizontal_div_Uc, required_halo
 from .thermodynamics.heat_bcs import PrescribedTemperature
 from .thermodynamics.phase_transitions import PhaseTransitions
@@ -24,6 +28,8 @@ from .thermodynamics.slab import (sea_ice_slab_thermodynamics,
 from .dynamics.momentum import SplitExplicitSolver, split_explicit_momentum_step
 from .dynamics.rheologies import ElastoViscoPlasticRheology
 from .dynamics.fused_evp import fused_available, fused_split_explicit_momentum_step
+from .dynamics.fused_evp_padded import padded_fused_available, padded_fused_momentum_step
+from .dynamics.stresses import place_stress
 
 
 @frozen_dataclass
@@ -32,6 +38,9 @@ class Masks:
     per_fc: object = None
     per_cf: object = None
     per_ff: object = None
+    # immersed-only peripheral ff nodes: gate the immersed stress-divergence
+    # fluxes; None on grids without land
+    imm_ff: object = None
 
 
 @frozen_dataclass
@@ -78,9 +87,6 @@ def sea_ice_model(grid: Grid,
     if forcing:
         raise NotImplementedError("user forcing belongs to a later slice of the "
                                   "port (queue 7)")
-    if grid.is_immersed:
-        raise NotImplementedError("immersed grids belong to a later slice of the "
-                                  "port (queue 7)")
     if ice_thermodynamics == "default":
         ice_thermodynamics = sea_ice_slab_thermodynamics()
     if phase_transitions is None:
@@ -96,7 +102,15 @@ def sea_ice_model(grid: Grid,
 
     per_fc, per_cf, per_ff = peripheral_masks(grid)
     solid_cc = solid_cc_mask(grid)
-    masks = Masks(solid_cc=solid_cc, per_fc=per_fc, per_cf=per_cf, per_ff=per_ff)
+    masks = Masks(solid_cc=solid_cc, per_fc=per_fc, per_cf=per_cf, per_ff=per_ff,
+                  imm_ff=immersed_only_ff(grid))
+
+    if dynamics is not None:
+        # array-valued stresses go to the grid device once, here
+        dynamics = dataclasses.replace(
+            dynamics,
+            top_momentum_stress=place_stress(dynamics.top_momentum_stress, grid),
+            bottom_momentum_stress=place_stress(dynamics.bottom_momentum_stress, grid))
 
     if advection is not None:
         need = required_halo(advection)
@@ -242,9 +256,6 @@ def update_state(model, state):
 def tracer_tendencies(model, state):
     """G = −∇·(U c) for h, ℵ, hs and extra tracers."""
     grid = model.grid
-    if grid.is_immersed:
-        raise NotImplementedError("immersed grids belong to a later slice of the "
-                                  "port (queue 7)")
     adv_masks = (model.masks.per_fc, model.masks.per_cf)
 
     def div(c):
@@ -290,9 +301,10 @@ def dynamic_step_tracers(model, state, G, dt, base=None):
 # --- momentum dispatch --------------------------------------------------------
 
 def momentum_step(model, state, dt, u_prev=None, v_prev=None):
-    """Dispatch on the dynamics: the fused EVP route where
-    :func:`fused_available` allows it and ``fused`` is not 'never', else the
-    general split-explicit path."""
+    """Dispatch on the dynamics in the JAX package's order, unless ``fused``
+    is 'never': the periodic fused EVP route where :func:`fused_available`
+    allows it, else the padded one where :func:`padded_fused_available`
+    does, else the general split-explicit path."""
     dyn = model.dynamics
     if dyn is None:
         return state
@@ -300,8 +312,11 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
         raise TypeError(f"unsupported solver {dyn.solver!r}")
     u_start = u_prev if u_prev is not None else state.u
     v_start = v_prev if v_prev is not None else state.v
-    if dyn.solver.fused != "never" and fused_available(model):
+    fused = dyn.solver.fused != "never"
+    if fused and fused_available(model):
         upd = fused_split_explicit_momentum_step(model, state, dt, u_start, v_start)
+    elif fused and padded_fused_available(model):
+        upd = padded_fused_momentum_step(model, state, dt, u_start, v_start)
     else:
         upd = split_explicit_momentum_step(model, state, dt, u_start, v_start)
     return state.evolve(**upd)

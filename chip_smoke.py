@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py              # the whole check, one card
     python3 chip_smoke.py --profile F  # also write torch.profiler tables of
-                                       # one flagship step and one bounded
-                                       # step to file F
+                                       # one flagship, one bounded and one
+                                       # tripolar basin step to file F
 
 Drives the port (``climaseaice_jl_tpu_torch``) through the entry points a
 user calls and holds its CUDA kernels against their plain PyTorch versions.
@@ -26,7 +26,9 @@ Phases, each of which raises (exit code 1) when it fails:
    immersed configuration of ``validation/perf_sweep.py:build(512,
    bounded=True)`` (512² box, island of radius 60 km, ImmersedDrag) in soft
    ice, 120 substeps, seeded velocities; bars as in phase 2 over the whole
-   padded arrays; times per call of both;
+   padded arrays; times per call of both; then the curvilinear kernel on
+   the same input, held against the padded kernel with the same bars, and
+   the two kernels timed in turns;
 7. the slice's main path: that configuration at the default P★, one warm-up
    step and five timed steps; finite and physical, h = ℵ = 0 on land, u and
    v zero on peripheral nodes, the padded wrapper called 3 times per step
@@ -39,7 +41,27 @@ Phases, each of which raises (exit code 1) when it fails:
    land empty and through the padded kernel;
 9. the same port on the card and on the CPU, 128² bounded and immersed soft
    ice with a StressFunction wind, array ocean currents and ImmersedDrag,
-   2 RK3 steps; bars as in phase 5.
+   2 RK3 steps; bars as in phase 5;
+10. the curvilinear EVP kernel vs its plain version on the card: the
+    tripolar Arctic basin of ``validation/run_tripolar_basin.py:build(1152,
+    960)`` (1162×970 padded, Zipper fold, land, ImmersedDrag, f(φ) planes)
+    in soft ice with seeded velocities, 120 substeps, over the whole padded
+    arrays; bars as in phase 2; times per call of both; then the same check
+    on a 360×160 latitude-longitude grid (no fold, no land, no drag, FPlane);
+11. the slice's main path: the basin at the default P★ (snow,
+    FieldTimeSeries fluxes, LatitudeCoriolis, StressFunction winds), dt 300
+    s: one warm-up step, five timed ``cst.step`` calls and two iterations of
+    ``Simulation.run``; every field finite, halos included; h, hs ≥ 0, 0 ≤
+    ℵ ≤ 1; h = ℵ = hs = 0 on land; the fold halo of u equal to minus its
+    mirror; every EVP call through the curvilinear kernel (3·120 + 3
+    launches a call) and none through the other two; one profiled step's
+    device time gives the device-busy share;
+12. the same port on the card and on the CPU, the 96×80 basin in soft ice
+    with 10 cm of snow on the ice at the start, 2 RK3 steps; bars u/v ≤
+    1e-4, σ/α ≤ 4e-3, h/ℵ/hs ≤ 1e-5.  (Without initial snow, hs after two
+    steps is 6e-6 m of fresh snow, and flooding of thin ice moves one
+    float32 ulp of h, 3.7e-9 m at 5 cm, into it: 1e-4 of its largest value
+    whichever device runs.)
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and as the last line
@@ -59,21 +81,42 @@ import time
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-# float32 operations per point and substep of csrc/evp.cu, counted from its
-# source: evp_stress 111 (ϵ̇ at 4+4 points 44, cc↔ff averages 12, Δ² 12,
-# rsqrt/min 4, ζ 4, replacement pressure 5, η 2, σ targets 10, γ 9,
-# σ updates 9), evp_u_update 36 and evp_v_update 36 (divergence 5,
-# transverse average 4, drag speed 6, drag 3, G 10, 1/Δτ 3, update 4,
-# activity 1)
-FLOPS_PER_POINT_SUBSTEP = 183
+# The operations bound of each kernel counts the float32 operations its
+# function needs, as its plain version computes them: each value once per
+# point (a strain rate at its own point, not again at its neighbours'),
+# loop-invariant forms once per call, a shared product once; selects are
+# not counted, a clamp counts 2, the replacement pressure (the default) is
+# counted.  The kernels themselves do more (they recompute the neighbours'
+# strain rates and masked stresses), which their time shows and the bound
+# does not.
+#
+# csrc/evp.cu, per point and substep: σ relaxation 72 (strain rates 11,
+# cc↔ff averages 9, Δ² 12, rsqrt/min 4, ζ 2, replacement pressure 5, η 2,
+# σ targets 9, γ 9, σ updates 9), each update 35 (divergence 5, transverse
+# average 3, relative speed 6, forcing G 12, 1/Δτ 3, update 6); per point
+# and call ½P and ½Pff
+FLOPS_PER_POINT_SUBSTEP = 142
+FLOPS_PER_POINT_CALL = 2
 EVP_ARRAYS_READ = 18     # 12 constants + 6 carried fields
 EVP_ARRAYS_WRITTEN = 6
 EVP_PARAMS = 18
-# float32 operations per padded point and substep of csrc/evp_padded.cu with
-# immersed drag: evp_stress 111, each update 45 (evp.cu's 36, σ masks 4,
-# immersed drag 5); 191 without drag
-PADDED_FLOPS_PER_POINT_SUBSTEP = 201
+# csrc/evp_padded.cu with immersed drag: σ relaxation 72, masked σ 3, each
+# update 40 (evp.cu's 35 and the immersed drag 5); 145 without drag; per
+# call ½P, ½Pff and the two transverse averages of the ocean velocity 6
+PADDED_FLOPS_PER_POINT_SUBSTEP = 155
+PADDED_FLOPS_PER_POINT_CALL = 8
 PADDED_ARRAYS_READ = 28  # 22 constants (with drag) + 6 carried fields
+# csrc/evp_curvilinear.cu with immersed drag: σ relaxation 84 (strain rates
+# ϵ̇D 6, ϵ̇T 8, ϵ̇S 8; averages 9, Δ² 12, rsqrt/min 4, ζ 2, replacement
+# pressure 5, η 2, σ targets 10, γ 9, σ updates 9), the metric stress
+# divergences 31 (masked σ 3, sum and difference 2, metric products 4, each
+# divergence 11), each update 35 (transverse average 3, relative speed 6, G
+# 12, immersed drag 5, 1/Δτ 3, update 6); 175 without drag; per call ½P,
+# ½Pff, the ocean velocity averages 6 and the 8 metric forms
+CURV_FLOPS_PER_POINT_SUBSTEP = 185
+CURV_FLOPS_PER_POINT_CALL = 16
+# 12 metrics, 14 constants, 4 drag and 4 stress arrays, 2 f planes, 6 carried
+CURV_ARRAYS_READ = 42
 KM = 1000.0
 MINUTE, DAY = 60.0, 86400.0
 
@@ -96,13 +139,14 @@ def flagship(cst, N, substeps=120, P_star=27500.0, device="cuda"):
                              timestepper="SplitRungeKutta3")
 
 
-def flagship_state(cst, model, velocity_seed=None):
+def flagship_state(cst, model, velocity_seed=None, h0=None):
     import numpy as np
     import torch
 
-    def h0(x, y):
-        return (1.0 + 0.25 * torch.sin(2 * math.pi * x / (512 * KM))
-                * torch.sin(2 * math.pi * y / (512 * KM)))
+    if h0 is None:
+        def h0(x, y):
+            return (1.0 + 0.25 * torch.sin(2 * math.pi * x / (512 * KM))
+                    * torch.sin(2 * math.pi * y / (512 * KM)))
 
     kw = {}
     if velocity_seed is not None:
@@ -215,6 +259,102 @@ def coastline(cst, Nx=256, Ny=128, substeps=150, device="cuda"):
     model = cst.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
                               advection=cst.WENO(order=7), timestepper="SplitRungeKutta3")
     return model, cst.initial_state(model, h=1.0, a=1.0)
+
+
+def latlon_model(cst, Nx, Ny, substeps, device="cuda"):
+    """A 50–80°N latitude-longitude band, periodic in x and bounded in y, in
+    soft ice with an FPlane and no land: the curvilinear kernel without a
+    fold, land or drag."""
+    grid = cst.LatitudeLongitudeGrid((Nx, Ny), latitude=(50.0, 80.0), halo=5,
+                                     dtype="float32", topology=("periodic", "bounded"),
+                                     device=device)
+    dynamics = cst.SeaIceMomentumEquation(
+        rheology=cst.ElastoViscoPlasticRheology(ice_compressive_strength=27.5),
+        coriolis=cst.FPlane(f=1.4e-4),
+        top_momentum_stress={"u": 0.1, "v": 0.05},
+        bottom_momentum_stress=cst.SemiImplicitStress(),
+        solver=cst.SplitExplicitSolver(substeps=substeps))
+    return cst.sea_ice_model(grid, dynamics=dynamics,
+                             ice_thermodynamics=cst.sea_ice_slab_thermodynamics(),
+                             top_heat_flux=-20.0, bottom_heat_flux=-5.0,
+                             advection=cst.WENO(order=7), timestepper="SplitRungeKutta3")
+
+
+def compare_curvilinear(params, consts, carry, nsub, grid, f_planes, card, timed=True):
+    """The curvilinear kernel against its plain version on the same card
+    tensors over the whole padded arrays (bars of phase 2); with ``timed``,
+    the CUDA-event times per call of both and the call's bounds."""
+    import torch
+    from climaseaice_jl_tpu_torch.dynamics import fused_evp_curvilinear as fc
+    out = fc.curvilinear_evp_substeps(params, consts, [q.clone() for q in carry], nsub, grid,
+                                      f_planes)
+    ref = fc.curvilinear_evp_substeps_reference(params, consts, carry, nsub, grid, f_planes)
+    torch.cuda.synchronize()
+    worst_rel = worst_abs = 0.0
+    for name, r, o, bar in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), ref, out,
+                               (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name} from the curvilinear kernel is not finite")
+        rel, abs_err = rel_diff(r, o)
+        check(name, rel, bar)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    if not timed:
+        return None
+    work = [q.clone() for q in carry]
+    kernel_ms = cuda_ms(lambda: fc.curvilinear_evp_substeps(params, consts, work, nsub, grid,
+                                                            f_planes), 20)
+    plain_ms = cuda_ms(lambda: fc.curvilinear_evp_substeps_reference(
+        params, consts, carry, nsub, grid, f_planes), 3)
+    points = grid.nxp * grid.nyp
+    curv_bytes = ((CURV_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + EVP_PARAMS) * 4
+    curv_flops = (CURV_FLOPS_PER_POINT_SUBSTEP * nsub + CURV_FLOPS_PER_POINT_CALL) * points
+    bytes_ms = curv_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = curv_flops / FP32_FLOP_PER_S * 1e3
+    print(f"    kernel {kernel_ms:.4f} ms/call ({3 * nsub + 3} launches), plain "
+          f"{plain_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms "
+          f"({curv_flops / 1e9:.2f} GFLOP, {curv_bytes / 1e6:.1f} MB) on {card}")
+    return worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms
+
+
+def check_basin_state(model, state):
+    """Over the whole padded arrays: every field finite; h, hs ≥ 0 and
+    0 ≤ ℵ ≤ 1; h = ℵ = hs = 0 on land; the fold halo of u equal to minus its
+    mirror (the Zipper fill)."""
+    import torch
+    from climaseaice_jl_tpu_torch.fields import _x_fold_indices
+    for name in ("h", "a", "hs", "u", "v", "sig11", "sig22", "sig12", "alpha", "Tu", "Tus"):
+        if not torch.isfinite(getattr(state, name)).all():
+            raise AssertionError(f"{name} is not finite")
+    h, a, hs = state.h, state.a, state.hs
+    if not (h.min().item() >= 0 and hs.min().item() >= 0 and a.min().item() >= 0
+            and a.max().item() <= 1):
+        raise AssertionError("h < 0, hs < 0 or ℵ outside [0, 1]")
+    solid = model.grid.solid_cc
+    if any(q[solid].abs().max().item() != 0 for q in (h, a, hs)):
+        raise AssertionError("ice or snow on land")
+    g = model.grid
+    src = torch.as_tensor(_x_fold_indices(g, True), device=h.device)
+    if not torch.equal(state.u[:, g.Hy + g.Ny:], -state.u[src][:, g.Ny:g.Hy + g.Ny].flip(1)):
+        raise AssertionError("the fold halo of u is not minus its mirror")
+
+
+def profile_device_ms(cst, model, state, dt):
+    """Device time (ms, the sum of the kernels' CUDA time) of one step under
+    torch.profiler, the count of device-to-host reads of a value that
+    make the host wait for the device, and the profiler's table by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cst.step(model, state, dt)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # the kernels' own rows, as the table's "Self CUDA time total" sums them
+    # (an operator's row repeats the time of the kernels it launched)
+    total_us = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    syncs = sum(e.count for e in events if e.key == "aten::_local_scalar_dense")
+    return total_us / 1e3, syncs, events.table(sort_by="self_cuda_time_total", row_limit=40)
 
 
 def rel_diff(ref, x):
@@ -338,7 +478,9 @@ def main(argv=None):
     import numpy as np
     import climaseaice_jl_tpu_torch as cst
     from climaseaice_jl_tpu_torch import _build
-    from climaseaice_jl_tpu_torch.dynamics import fused_evp, fused_evp_padded
+    from climaseaice_jl_tpu_torch.dynamics import (fused_evp, fused_evp_curvilinear,
+                                                   fused_evp_padded)
+    from climaseaice_jl_tpu_torch.arctic_basin import basin_model, basin_state
     from climaseaice_jl_tpu_torch.convert import state_to_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -381,7 +523,7 @@ def main(argv=None):
     plain_ms = cuda_ms(lambda: fused_evp.evp_substeps_reference(params, consts, carry, nsub), 3)
     points = N * N
     evp_bytes = ((EVP_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + EVP_PARAMS) * 4
-    evp_flops = FLOPS_PER_POINT_SUBSTEP * points * nsub
+    evp_flops = (FLOPS_PER_POINT_SUBSTEP * nsub + FLOPS_PER_POINT_CALL) * points
     bytes_ms = evp_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = evp_flops / FP32_FLOP_PER_S * 1e3
     print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
@@ -468,14 +610,40 @@ def main(argv=None):
         params, consts, carry, nsub, grid), 3)
     padded_points = grid.nxp * grid.nyp
     padded_bytes = ((PADDED_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * padded_points + EVP_PARAMS) * 4
-    padded_flops = PADDED_FLOPS_PER_POINT_SUBSTEP * padded_points * nsub
+    padded_flops = ((PADDED_FLOPS_PER_POINT_SUBSTEP * nsub + PADDED_FLOPS_PER_POINT_CALL)
+                    * padded_points)
     bytes_ms = padded_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = padded_flops / FP32_FLOP_PER_S * 1e3
     print(f"    kernel {kernel_ms:.4f} ms/call ({launches_per_call} launches), plain "
           f"{plain_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms "
           f"({padded_flops / 1e9:.2f} GFLOP, {padded_bytes / 1e6:.1f} MB) on {card}")
     padded_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
-    del work, out, ref, carry, consts
+    padded_shape = f"{grid.nxp}x{grid.nyp} padded ({N}x{N} bounded, island, drag)"
+    # the curvilinear kernel computes this function too (uniform metrics, no
+    # fold): its result against the padded kernel's, and both timed in turns
+    # on the same input, which is what the route gate's choice rests on
+    c_params, c_consts, c_carry, _, c_planes = fused_evp_curvilinear.curvilinear_evp_inputs(
+        model, state, dt, state.u, state.v)
+    c_out = fused_evp_curvilinear.curvilinear_evp_substeps(
+        c_params, c_consts, [q.clone() for q in c_carry], nsub, grid, c_planes)
+    torch.cuda.synchronize()
+    print("    the curvilinear kernel on the same input, against the padded kernel:")
+    for name, r, o, bar in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), out, c_out,
+                               (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
+        check(name, rel_diff(r, o)[0], bar)
+    c_work = [q.clone() for q in c_carry]
+    route_turns = []
+    for name in ("padded", "curvilinear", "padded", "curvilinear"):
+        if name == "padded":
+            turn_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps(
+                params, consts, work, nsub, grid), 20)
+        else:
+            turn_ms = cuda_ms(lambda: fused_evp_curvilinear.curvilinear_evp_substeps(
+                c_params, c_consts, c_work, nsub, grid, c_planes), 20)
+        route_turns.append(f"{name} {turn_ms:.4f}")
+    print(f"    in turns, ms per call (CUDA events, 20 calls): {', '.join(route_turns)}, "
+          f"on {card}")
+    del work, out, ref, carry, consts, c_out, c_work, c_carry, c_consts
 
     # --- 7. the slice's main path -----------------------------------------------------
     model = bounded(cst, N, nsub)
@@ -509,8 +677,6 @@ def main(argv=None):
         profiles.append(profile_step(cst, model, state, dt,
                                      f"{N}² bounded + island + drag step", card))
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)), exist_ok=True)
-        with open(args.profile, "w") as f:
-            f.write("\n".join(profiles))
 
     # --- 8. the example configurations -------------------------------------------------
     model, state = anticyclone(cst)
@@ -563,6 +729,89 @@ def main(argv=None):
                           torch.as_tensor(finals["cuda"][name]))
         check(name, rel, bar)
 
+    # --- 10. curvilinear kernel vs plain version on the card -----------------------------
+    curv_counter = fused_evp_curvilinear.curvilinear_evp_counter
+    model = basin_model(1152, 960, substeps=nsub, P_star=27.5)
+    grid = model.grid
+    state = flagship_state(cst, model, velocity_seed=4, h0=lambda x, y: 1.0)
+    params, consts, carry, _, f_planes = fused_evp_curvilinear.curvilinear_evp_inputs(
+        model, state, 300.0, state.u, state.v)
+    if len(consts) != 34 or f_planes is None:
+        raise AssertionError("drag or the f(φ) planes did not reach the curvilinear kernel")
+    print(f"[10] curvilinear EVP kernel vs plain version, tripolar basin {grid.Nx}×{grid.Ny} "
+          f"(land, fold, drag, f(φ)), soft ice, {nsub} substeps, whole {grid.nxp}×{grid.nyp} "
+          "padded arrays:")
+    curv_timing = compare_curvilinear(params, consts, carry, nsub, grid, f_planes, card)
+    latlon = latlon_model(cst, 360, 160, nsub)
+    ll_state = flagship_state(cst, latlon, velocity_seed=5, h0=lambda x, y: 1.0)
+    ll_params, ll_consts, ll_carry, _, ll_planes = fused_evp_curvilinear.curvilinear_evp_inputs(
+        latlon, ll_state, 300.0, ll_state.u, ll_state.v)
+    if len(ll_consts) != 30 or ll_planes is not None:
+        raise AssertionError("the latitude-longitude check should have no drag and a scalar f")
+    print(f"     latitude-longitude {latlon.grid.Nx}×{latlon.grid.Ny} (no fold, no land, "
+          "no drag, FPlane):")
+    compare_curvilinear(ll_params, ll_consts, ll_carry, nsub, latlon.grid, None, card,
+                        timed=False)
+    del params, consts, carry, f_planes, state, ll_consts, ll_carry, ll_state, latlon
+
+    # --- 11. the tripolar basin: the slice's main path --------------------------------------
+    model = basin_model(1152, 960, substeps=nsub)
+    grid = model.grid
+    state = basin_state(model)
+    dt = 300.0
+    state = cst.step(model, state, dt)                  # warm-up
+    torch.cuda.synchronize()
+    for c in (counter, padded_counter, curv_counter):
+        c.reset()
+    state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
+    sim = cst.Simulation(model, state, dt=dt, stop_iteration=int(state.clock.iteration) + 2)
+    sim.run()
+    state = sim.state
+    torch.cuda.synchronize()
+    curv_calls, curv_launches = curv_counter.calls, curv_counter.launches
+    expected = 3 * (steps + 2)
+    if (curv_calls != expected or curv_launches != expected * (3 * nsub + 3)
+            or counter.calls or padded_counter.calls):
+        raise AssertionError(f"curvilinear EVP wrapper: {curv_calls} calls, {curv_launches} "
+                             f"launches, periodic {counter.calls}, padded "
+                             f"{padded_counter.calls} calls; expected {expected}, "
+                             f"{expected * (3 * nsub + 3)}, 0 and 0")
+    check_basin_state(model, state)
+    basin_points = grid.Nx * grid.Ny
+    device_ms, syncs, table = profile_device_ms(cst, model, state, dt)
+    print(f"[11] slice main path, tripolar basin {grid.Nx}×{grid.Ny} (83 % land, snow, seasonal "
+          f"fluxes, f(φ), winds, drag): {step_ms:.2f} ms/step (CUDA events; host "
+          f"{host_ms:.2f} ms/step), {basin_points / step_ms * 1e3:.4e} points/s, "
+          f"curvilinear EVP {curv_calls} calls / {curv_launches} launches in {steps} steps + "
+          f"2 Simulation iterations; one profiled step {device_ms:.3f} ms of device time, "
+          f"busy {100 * device_ms / step_ms:.1f} % of a step, {syncs} host waits on a "
+          f"device value, on {card}")
+    print("\n".join(table.splitlines()[:14]))
+    if args.profile:
+        profiles.append(f"tripolar basin {grid.Nx}×{grid.Ny} step on {card}: {device_ms:.3f} "
+                        f"ms of device time\n{table}\n")
+        with open(args.profile, "w") as f:
+            f.write("\n".join(profiles))
+    del model, state, sim
+
+    # --- 12. card vs CPU, the basin -------------------------------------------------------
+    finals = {}
+    for device in ("cuda", "cpu"):
+        m = basin_model(96, 80, substeps=nsub, P_star=27.5, device=device)
+        s = basin_state(m, snow=0.1)
+        for _ in range(2):
+            s = cst.step(m, s, 300.0)
+        if device == "cuda":
+            check_basin_state(m, s)
+        finals[device] = state_to_numpy(s)
+    print("[12] 96×80 tripolar basin, soft ice, 10 cm of snow, 2 RK3 steps, card (kernel) "
+          "vs CPU (plain version):")
+    for name, bar in (("u", 1e-4), ("v", 1e-4), ("h", 1e-5), ("a", 1e-5), ("hs", 1e-5),
+                      ("sig11", 4e-3), ("sig22", 4e-3), ("sig12", 4e-3), ("alpha", 4e-3)):
+        rel, _ = rel_diff(torch.as_tensor(finals["cpu"][name]),
+                          torch.as_tensor(finals["cuda"][name]))
+        check(name, rel, bar)
+
     print(card)
     print(json.dumps({"kernels": [
         kernel_entry("evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp.cu",
@@ -570,9 +819,14 @@ def main(argv=None):
                      main_launches, *evp_timing, f"{N}x{N}, {nsub} substeps"),
         kernel_entry("padded_evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp_padded.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:167", "_padded_kernel",
-                     padded_launches, *padded_timing,
-                     f"{grid.nxp}x{grid.nyp} padded ({N}x{N} bounded, island, drag), "
-                     f"{nsub} substeps"),
+                     padded_launches, *padded_timing, f"{padded_shape}, {nsub} substeps"),
+        dict(kernel_entry("curvilinear_evp_substeps",
+                          "climaseaice_jl_tpu_torch/csrc/evp_curvilinear.cu",
+                          "climaseaice_jl_tpu/dynamics/pallas_evp_curvilinear.py:202",
+                          "_curvilinear_kernel", curv_launches, *curv_timing,
+                          "1162x970 padded (1152x960 tripolar basin, land, fold, drag, "
+                          f"f planes), {nsub} substeps"),
+             also_serves="climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,13 +7,16 @@ the two states compare element by element through numpy
 (:mod:`.convert`).  It imports torch, numpy and the standard library only.
 
 Grids live on the CUDA card unless the caller passes ``device="cpu"``.  The
-EVP substep loop runs in a CUDA kernel: doubly periodic grids without land
-in :mod:`.dynamics.fused_evp`, bounded and immersed grids in
-:mod:`.dynamics.fused_evp_padded`; on CPU tensors the same routes run the
-kernels' plain PyTorch versions.
+EVP substep loop runs in a CUDA kernel: latitude-longitude, curvilinear and
+tripolar grids (and rectilinear ones with a north fold) in
+:mod:`.dynamics.fused_evp_curvilinear`, doubly periodic grids without land
+in :mod:`.dynamics.fused_evp`, other bounded and immersed rectilinear grids
+in :mod:`.dynamics.fused_evp_padded`; on CPU tensors the same routes run
+the kernels' plain PyTorch versions.
 """
 
-from .grids import RectilinearGrid, ImmersedBoundaryGrid, Grid
+from .grids import (RectilinearGrid, LatitudeLongitudeGrid, CurvilinearGrid,
+                    TripolarGrid, ImmersedBoundaryGrid, Grid)
 from .state import SeaIceState, Clock, ModelFields
 from .model import (SeaIceModel, sea_ice_model, initial_state, step,
                     update_state, make_fields)
@@ -22,9 +25,11 @@ from .thermodynamics import (LinearLiquidus, PhaseTransitions, melting_temperatu
                              latent_heat, PrescribedTemperature,
                              MeltingConstrainedFluxBalance, IceWaterThermalEquilibrium,
                              RadiativeEmission, FluxFunction, getflux,
-                             ConductiveFlux, ProportionalEvolution, SlabThermodynamics,
-                             sea_ice_slab_thermodynamics)
-from .dynamics import (FPlane, SemiImplicitStress, StressFunction,
+                             ConductiveFlux, IceSnowConductiveFlux, ProportionalEvolution,
+                             SlabThermodynamics, sea_ice_slab_thermodynamics,
+                             snow_slab_thermodynamics)
+from .forcing_utils import FieldTimeSeries
+from .dynamics import (FPlane, LatitudeCoriolis, SemiImplicitStress, StressFunction,
                        ElastoViscoPlasticRheology, SeaIceMomentumEquation,
                        SplitExplicitSolver, ImmersedDrag, ImmersedStressBC)
 from .simulation import (Simulation, Callback, IterationInterval, TimeInterval,

@@ -21,7 +21,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCES = {"evp": "evp.cu", "evp_padded": "evp_padded.cu"}
+SOURCES = {"evp": "evp.cu", "evp_padded": "evp_padded.cu",
+           "evp_curvilinear": "evp_curvilinear.cu"}
 
 # no --use_fast_math: it would change the divides and square roots
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -6,12 +6,14 @@
 // pressure, σ relaxation with the dynamic γ, α = γ, then the alternating
 // semi-implicit u/v updates).
 //
-// What bounds it on an H100.  Per point and substep the algebra below is
-// 183 float32 operations (111 in evp_stress, 36 in each update; counted in
-// chip_smoke.py's FLOPS_PER_POINT_SUBSTEP) while a whole call only has to
-// read 18 arrays and write 6, once.  At 512² and 120 substeps that is
-// 5.8 GFLOP (0.086 ms at 67 TFLOP/s) against 25 MB (7.5 µs at 3.35 TB/s):
-// the call is bound by operations.  The TPU kernel keeps all 18 arrays on
+// What bounds it on an H100.  Per point and substep the function needs 142
+// float32 operations, each value computed once at its own point (72 for
+// the σ relaxation, 35 for each update; counted in chip_smoke.py's
+// FLOPS_PER_POINT_SUBSTEP); the kernel below does 183, because a thread
+// recomputes the strain rates of its neighbours.  A whole call only has to
+// read 18 arrays and write 6, once.  At 512² and 120 substeps that is 4.5
+// GFLOP (0.067 ms at 67 TFLOP/s) against 25 MB (7.5 µs at 3.35 TB/s): the
+// call is bound by operations.  The TPU kernel keeps all 18 arrays on
 // chip for every substep; no on-chip memory of the H100 holds a 512² state
 // (18 MiB), so the carried state goes through the memory hierarchy on every
 // substep here.

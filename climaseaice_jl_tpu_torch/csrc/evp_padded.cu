@@ -11,15 +11,17 @@
 // `has_drag` the immersed drag −(gˢ·u(i,j) + gᴺ·u(i,j+1))·invm_u (west/east
 // for v) enters G.  Stresses and ocean velocities are arrays.
 //
-// What bounds it on an H100.  Per point and substep the algebra is 201
-// float32 operations with drag (111 in evp_stress, 45 in each update; 191
-// without drag; counted in chip_smoke.py's PADDED_FLOPS_PER_POINT_SUBSTEP)
-// while a call only has to read 28 arrays (24 without drag) and write 6,
-// once.  At 512² (522² padded) and 120 substeps that is 6.6 GFLOP (0.098
+// What bounds it on an H100.  Per point and substep the function needs 155
+// float32 operations with drag, each value computed once at its own point
+// (145 without drag; counted in chip_smoke.py's
+// PADDED_FLOPS_PER_POINT_SUBSTEP), and 8 per point and call for the
+// loop-invariant forms; the kernel below does 201, because a thread
+// recomputes its neighbours' strain rates and masked σ and the transverse
+// averages of the ocean velocity, which the TPU kernel hoists out of the
+// loop.  A call only has to read 28 arrays (24 without drag) and write 6,
+// once.  At 512² (522² padded) and 120 substeps that is 5.1 GFLOP (0.076
 // ms at 67 TFLOP/s) against 37 MB (0.011 ms at 3.35 TB/s): the call is
-// bound by operations.  The transverse averages of the ocean velocity,
-// which the TPU kernel hoists out of the loop, are recomputed here and not
-// counted.
+// bound by operations.
 //
 // Design (simple and right first), as evp.cu: one thread per padded point,
 // threadIdx.x along the contiguous y axis, neighbours by index wrap over

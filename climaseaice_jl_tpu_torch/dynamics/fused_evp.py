@@ -346,19 +346,22 @@ def evp_substeps(params, consts, carry, nsub):
 
 # --- the launcher ---------------------------------------------------------------
 
-def evp_coefficients(model, state, dt):
-    """The padded constants of the substep loop that both EVP kernels take,
+def evp_coefficients(model, state, dt, az_cc=None, az_ff=None):
+    """The padded constants of the substep loop that the EVP kernels take,
     in the JAX launchers' operation order (`pallas_evp.py:354-438`,
-    `pallas_evp_padded.py:375-429`): (P, Pff, gcc, gff, drag_u, invm_u,
-    act_u, drag_v, invm_v, act_v).  ``dt`` is a 0-d float32 tensor; gcc and
-    gff are the γ² coefficients with −1 where the mass is not positive."""
+    `pallas_evp_padded.py:375-429`, `pallas_evp_curvilinear.py:458-518`):
+    (P, Pff, gcc, gff, drag_u, invm_u, act_u, drag_v, invm_v, act_v).
+    ``dt`` is a 0-d float32 tensor; gcc and gff are the γ² coefficients
+    with −1 where the mass is not positive.  ``az_cc``/``az_ff``: the cell
+    areas at cc and ff points; by default the uniform Δx·Δy."""
     dyn = model.dynamics
     rheo = dyn.rheology
     grid = model.grid
     f32 = grid.scalar      # the gates guarantee a float32 grid
     h, a = state.h, state.a
     rho = f32(model.sea_ice_density)
-    az = f32(grid.dx_cc) * f32(grid.dy_cc)
+    if az_cc is None:
+        az_cc = az_ff = f32(grid.dx_cc) * f32(grid.dy_cc)
 
     P = ice_strength(rheo, h, a)
     Pff = ixy_ff(P)
@@ -374,7 +377,7 @@ def evp_coefficients(model, state, dt):
         return torch.where(ok, 1.0 / torch.where(ok, x, 1.0), 0.0)
 
     # γ² coefficient with the m ≤ 0 sentinel (negative)
-    def gamma2_coefficient(m):
+    def gamma2_coefficient(m, az):
         ok = m > 0
         return torch.where(ok, rheo.relaxation_strength * dt
                            / (torch.where(ok, m, 1.0) * az), -1.0)
@@ -385,18 +388,22 @@ def evp_coefficients(model, state, dt):
              & (a_fc >= dyn.minimum_concentration)).to(torch.float32)
     act_v = ((m_cf >= dyn.minimum_mass)
              & (a_cf >= dyn.minimum_concentration)).to(torch.float32)
-    return (P, Pff, gamma2_coefficient(m_cc), gamma2_coefficient(m_ff),
+    return (P, Pff, gamma2_coefficient(m_cc, az_cc), gamma2_coefficient(m_ff, az_ff),
             invm_u * a_fc, invm_u, act_u, invm_v * a_cf, invm_v, act_v)
 
 
-def evp_params(model, dt, tau_u_top, tau_v_top, rC, ue, ve):
-    """The float32[18] params vector (layout above) from 0-d tensors."""
+def evp_params(model, dt, tau_u_top, tau_v_top, rC, ue, ve, dx=None, dy=None, f=None):
+    """The float32[18] params vector (layout above) from 0-d tensors.  ``dx``,
+    ``dy`` default to the grid's uniform spacings and ``f`` to the FPlane's
+    f (0 without Coriolis)."""
     dyn = model.dynamics
     rheo = dyn.rheology
     f32 = model.grid.scalar
+    if f is None:
+        f = dyn.coriolis.f if dyn.coriolis is not None else 0.0
     return torch.stack([
-        dt, f32(model.grid.dx_cc), f32(model.grid.dy_cc),
-        f32(dyn.coriolis.f if dyn.coriolis is not None else 0.0),
+        dt, f32(model.grid.dx_cc if dx is None else dx),
+        f32(model.grid.dy_cc if dy is None else dy), f32(f),
         tau_u_top, tau_v_top, rC, ue, ve,
         f32(rheo.yield_curve_eccentricity) ** -2.0,
         f32(rheo.min_relaxation_parameter),

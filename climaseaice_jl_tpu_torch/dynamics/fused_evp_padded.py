@@ -61,7 +61,8 @@ padded_evp_counter = KernelCounter()
 
 def padded_fused_available(model):
     """True when the model matches the padded fused EVP configuration:
-    uniform rectilinear float32, periodic or bounded sides, any land mask,
+    uniform rectilinear float32 without a north fold, periodic or bounded
+    sides, any land mask,
     scalar, array or StressFunction stresses, an FPlane or no Coriolis, no
     free drift, no user forcing, no immersed drag or an ImmersedDrag.
 
@@ -76,8 +77,8 @@ def padded_fused_available(model):
         return False
     if not isinstance(dyn.solver, SplitExplicitSolver):
         return False
-    if grid.kind != "rectilinear":
-        return False
+    if grid.kind != "rectilinear" or grid.north_fold:
+        return False   # array metrics or a fold: the curvilinear route
     if any(t not in (PERIODIC, BOUNDED) for t in grid.topology):
         return False
     if grid.dtype != torch.float32:

@@ -1,7 +1,6 @@
 """External (atmosphere / ocean) momentum stresses.
 
-Counterpart of `climaseaice_jl_tpu/dynamics/stresses.py` on rectilinear
-grids (the Zipper fold of ``_vec_value`` belongs to queue 8).  Each stress
+Counterpart of `climaseaice_jl_tpu/dynamics/stresses.py`.  Each stress
 exposes an explicit part ``explicit_tau_{x,y}`` and an implicit coefficient
 ``implicit_tau_{x,y}_coefficient`` for the semi-implicit update
 ``u = (u⁻ + Δt G)/(1 + Δt τᵢ)``.
@@ -19,6 +18,7 @@ import torch
 
 from ..utils import frozen_dataclass
 from ..ops import ixy_fc_of_cf, ixy_cf_of_fc
+from ..fields import _maybe_fold
 
 
 @frozen_dataclass
@@ -60,14 +60,26 @@ def _value(x, grid, clock, fields):
     return grid.scalar(x)
 
 
+def _vec_value(x, grid, clock, fields, comp):
+    """Resolve a vector-component ingredient (a τ component or an external
+    velocity).  On a north-folded grid its north halo carries the Zipper
+    sign flip, as the reference's stress Fields do, so that stencils across
+    the seam see the mirrored, sign-flipped component."""
+    v = _value(x, grid, clock, fields)
+    if grid.north_fold and grid.Hy > 0:
+        xface = comp == "u"
+        v = _maybe_fold(v.broadcast_to(grid.shape), grid, xface, not xface, -1.0)
+    return v
+
+
 def _full(x, grid):
     return x.broadcast_to(grid.shape)
 
 
 def _drag_speed_x(grid, stress, clock, fields):
     """(|Δu| at (f,c), uₑ) of a SemiImplicitStress."""
-    ue = _value(stress.ue, grid, clock, fields)
-    ve = _value(stress.ve, grid, clock, fields)
+    ue = _vec_value(stress.ue, grid, clock, fields, "u")
+    ve = _vec_value(stress.ve, grid, clock, fields, "v")
     du = ue - fields.u
     dv = ixy_fc_of_cf(_full(ve, grid)) - ixy_fc_of_cf(fields.v)
     return torch.sqrt(du ** 2 + dv ** 2), ue
@@ -75,8 +87,8 @@ def _drag_speed_x(grid, stress, clock, fields):
 
 def _drag_speed_y(grid, stress, clock, fields):
     """(|Δu| at (c,f), vₑ) of a SemiImplicitStress."""
-    ue = _value(stress.ue, grid, clock, fields)
-    ve = _value(stress.ve, grid, clock, fields)
+    ue = _vec_value(stress.ue, grid, clock, fields, "u")
+    ve = _vec_value(stress.ve, grid, clock, fields, "v")
     dv = ve - fields.v
     du = ixy_cf_of_fc(_full(ue, grid)) - ixy_cf_of_fc(fields.u)
     return torch.sqrt(du ** 2 + dv ** 2), ve
@@ -89,7 +101,7 @@ def explicit_tau_x(grid, stress, clock, fields):
     if isinstance(stress, SemiImplicitStress):
         speed, ue = _drag_speed_x(grid, stress, clock, fields)
         return stress.rho_e * stress.Cd * speed * ue
-    return _value(stress, grid, clock, fields)
+    return _vec_value(stress, grid, clock, fields, "u")
 
 
 def explicit_tau_y(grid, stress, clock, fields):
@@ -99,7 +111,7 @@ def explicit_tau_y(grid, stress, clock, fields):
     if isinstance(stress, SemiImplicitStress):
         speed, ve = _drag_speed_y(grid, stress, clock, fields)
         return stress.rho_e * stress.Cd * speed * ve
-    return _value(stress, grid, clock, fields)
+    return _vec_value(stress, grid, clock, fields, "v")
 
 
 def implicit_tau_x_coefficient(grid, stress, clock, fields):

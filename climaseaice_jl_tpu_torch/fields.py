@@ -5,13 +5,17 @@ are functional: ``q -> q_with_fresh_halos``.
 
 * centered tracers (h, ℵ, σ₁₁, …): periodic wrap or zero-gradient at
   bounded walls;
-* wall-normal velocity components: zero in the halo beyond a bounded wall.
+* wall-normal velocity components: zero in the halo beyond a bounded wall;
+* the Zipper fold on a ``north_fold`` grid: the north halo is the x-reversed
+  image of the top interior rows, with u and v changing sign.
 
-Distributed exchanges and the Zipper fold belong to later slices (queues 8
-and 9).
+Distributed exchanges, and with them the meshed folds, belong to a later
+slice (queue 9).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -53,22 +57,77 @@ def _fill_y(q, grid: Grid, face: bool):
     return q
 
 
+# --- Zipper fold (tripolar north edge) -----------------------------------------
+# Cell (i, Ny-1+k) pairs with cell (Nx-1-i, Ny-k).  u and v flip sign across
+# the fold; scalars and σ₁₂ keep it (component and coordinate both flip).
+
+def _fold_source(Nx, Hx, face):
+    p = np.arange(Nx + 2 * Hx)
+    if face:
+        return ((Nx - (p - Hx)) % Nx) + Hx      # face i ↔ face (Nx − i) mod Nx
+    return ((Nx - 1 - (p - Hx)) % Nx) + Hx      # centre i ↔ Nx − 1 − i
+
+
+def _x_fold_indices(grid: Grid, face: bool):
+    """Padded column whose value lands at each padded column under the fold;
+    always an interior column."""
+    return _fold_source(grid.Nx, grid.Hx, face)
+
+
+@functools.lru_cache(maxsize=32)
+def _fold_index_tensor(Nx, Hx, face, device):
+    """:func:`_x_fold_indices` as an index tensor on ``device``, made once
+    per grid layout so that a fill copies nothing from the host."""
+    return torch.as_tensor(_fold_source(Nx, Hx, face), device=device)
+
+
+def _fill_y_fold(q, grid: Grid, xface: bool, yface: bool, sign: float):
+    """Overwrite the north halo (and, for y-face fields, project the seam row
+    onto its fold symmetry) from the x-reversed top interior rows."""
+    Hy, Ny = grid.Hy, grid.Ny
+    r = sign * q[_fold_index_tensor(grid.Nx, grid.Hx, xface, q.device), :]
+    q = q.clone()
+    if not yface:
+        q[:, Hy + Ny:] = r[:, Ny:Hy + Ny].flip(1)            # row Hy+Ny+k ← Hy+Ny-1-k
+        return q
+    q[:, Hy + Ny] = 0.5 * (q[:, Hy + Ny] + r[:, Hy + Ny])
+    q[:, Hy + Ny + 1:] = r[:, Ny + 1:Hy + Ny].flip(1)        # row Hy+Ny+k ← Hy+Ny-k
+    return q
+
+
+def _maybe_fold(q, grid: Grid, xface: bool, yface: bool, sign: float):
+    if not (grid.north_fold and grid.Hy > 0):
+        return q
+    return _fill_y_fold(q, grid, xface, yface, sign)
+
+
+# fold sign per staggered location: u (fc) and v (cf) change sign across the
+# fold, scalars (cc) and σ₁₂ (ff) keep it
+_FOLD_SIGN = {"cc": 1.0, "fc": -1.0, "cf": -1.0, "ff": 1.0}
+
+
+def _fill(q, grid: Grid, loc: str):
+    xface, yface = loc[0] == "f", loc[1] == "f"
+    q = _fill_y(_fill_x(q, grid, face=xface), grid, face=yface)
+    return _maybe_fold(q, grid, xface, yface, _FOLD_SIGN[loc])
+
+
 def fill_halos_cc(q, grid: Grid):
-    return _fill_y(_fill_x(q, grid, face=False), grid, face=False)
+    return _fill(q, grid, "cc")
 
 
 def fill_halos_fc(q, grid: Grid):
     """u-like fields: face in x, center in y."""
-    return _fill_y(_fill_x(q, grid, face=True), grid, face=False)
+    return _fill(q, grid, "fc")
 
 
 def fill_halos_cf(q, grid: Grid):
     """v-like fields: center in x, face in y."""
-    return _fill_y(_fill_x(q, grid, face=False), grid, face=True)
+    return _fill(q, grid, "cf")
 
 
 def fill_halos_ff(q, grid: Grid):
-    return _fill_y(_fill_x(q, grid, face=True), grid, face=True)
+    return _fill(q, grid, "ff")
 
 
 FILLERS = {
@@ -83,7 +142,7 @@ def fill_halos_many(qs, locs, grid: Grid):
     """Halo fill for several fields at once; ``locs`` is "cc"/"fc"/"cf"/"ff"
     per field.  Serially this is one fill per field, identical to
     ``FILLERS[loc](q, grid)``."""
-    return [FILLERS[(loc[0], loc[1])](q, grid) for q, loc in zip(qs, locs)]
+    return [_fill(q, grid, loc) for q, loc in zip(qs, locs)]
 
 
 # --- peripheral masks ---------------------------------------------------------
@@ -98,7 +157,8 @@ def _solid_base(grid: Grid):
         m[grid.Hx + grid.Nx:] = True
     if grid.topology[1] == BOUNDED and grid.Hy > 0:
         m[:, :grid.Hy] = True
-        m[:, grid.Hy + grid.Ny:] = True
+        if not grid.north_fold:   # a folded north edge is connected, not a wall
+            m[:, grid.Hy + grid.Ny:] = True
     return m
 
 

@@ -5,8 +5,10 @@ Counterpart of `climaseaice_jl_tpu/model.py`.  The model is an immutable
 configuration, the state a separate dataclass of tensors, and
 ``step(model, state, dt) -> state`` a plain function that runs eagerly on
 the grid's device.  The EVP substep loop of eligible models goes to a CUDA
-kernel: doubly periodic grids without land to :mod:`.dynamics.fused_evp`,
-bounded or immersed ones to :mod:`.dynamics.fused_evp_padded`.
+kernel: grids with array metrics or a north fold to
+:mod:`.dynamics.fused_evp_curvilinear`, doubly periodic rectilinear grids
+without land to :mod:`.dynamics.fused_evp`, other bounded or immersed
+rectilinear ones to :mod:`.dynamics.fused_evp_padded`.
 """
 
 from __future__ import annotations
@@ -16,19 +18,22 @@ import dataclasses
 import torch
 
 from .utils import frozen_dataclass
-from .grids import Grid
+from .grids import Grid, south_crop_grid
 from .state import SeaIceState, Clock, ModelFields
-from .fields import (fill_halos_many, peripheral_masks, solid_cc_mask,
-                     immersed_only_ff)
+from .fields import (fill_halos_many, peripheral_masks, immersed_only_ff, solid_cc_mask,
+                     _solid_base)
 from .advection import horizontal_div_Uc, required_halo
 from .thermodynamics.heat_bcs import PrescribedTemperature
 from .thermodynamics.phase_transitions import PhaseTransitions
 from .thermodynamics.slab import (sea_ice_slab_thermodynamics,
-                                  bare_ice_thermodynamic_step)
+                                  bare_ice_thermodynamic_step, layered_thermodynamic_step)
 from .dynamics.momentum import SplitExplicitSolver, split_explicit_momentum_step
 from .dynamics.rheologies import ElastoViscoPlasticRheology
 from .dynamics.fused_evp import fused_available, fused_split_explicit_momentum_step
 from .dynamics.fused_evp_padded import padded_fused_available, padded_fused_momentum_step
+from .dynamics.fused_evp_curvilinear import (curvilinear_fused_available,
+                                             curvilinear_fused_momentum_step,
+                                             _solid_crop_rows)
 from .dynamics.stresses import place_stress
 
 
@@ -41,6 +46,9 @@ class Masks:
     # immersed-only peripheral ff nodes: gate the immersed stress-divergence
     # fluxes; None on grids without land
     imm_ff: object = None
+    # count of southernmost interior rows that are solid across every x,
+    # found once on the host at model build (the tendencies skip them)
+    solid_rows: int = 0
 
 
 @frozen_dataclass
@@ -81,9 +89,6 @@ def sea_ice_model(grid: Grid,
                   timestepper="SplitRungeKutta3",
                   forcing=None):
     """Build a :class:`SeaIceModel` with the JAX package's defaults."""
-    if snow_thermodynamics is not None:
-        raise NotImplementedError("snow thermodynamics belongs to a later slice "
-                                  "of the port (queue 7)")
     if forcing:
         raise NotImplementedError("user forcing belongs to a later slice of the "
                                   "port (queue 7)")
@@ -93,17 +98,21 @@ def sea_ice_model(grid: Grid,
         phase_transitions = PhaseTransitions()
 
     # default top flux: equilibrium with the internal flux when the top
-    # temperature is prescribed (there is no snow here)
+    # temperature is prescribed and there is no snow
     if ice_thermodynamics is not None and top_heat_flux is None:
-        if isinstance(ice_thermodynamics.top_heat_bc, PrescribedTemperature):
+        if (snow_thermodynamics is None
+                and isinstance(ice_thermodynamics.top_heat_bc, PrescribedTemperature)):
             top_heat_flux = _equilibrium_top_flux(ice_thermodynamics, phase_transitions)
         else:
             top_heat_flux = 0.0
 
     per_fc, per_cf, per_ff = peripheral_masks(grid)
-    solid_cc = solid_cc_mask(grid)
-    masks = Masks(solid_cc=solid_cc, per_fc=per_fc, per_cf=per_cf, per_ff=per_ff,
-                  imm_ff=immersed_only_ff(grid))
+    masks = Masks(solid_cc=solid_cc_mask(grid), per_fc=per_fc, per_cf=per_cf, per_ff=per_ff,
+                  imm_ff=immersed_only_ff(grid),
+                  solid_rows=_solid_crop_rows(_solid_base(grid), grid))
+
+    if isinstance(snowfall, torch.Tensor) or hasattr(snowfall, "shape"):
+        snowfall = torch.as_tensor(snowfall, dtype=grid.dtype, device=grid.device)
 
     if dynamics is not None:
         # array-valued stresses go to the grid device once, here
@@ -120,7 +129,7 @@ def sea_ice_model(grid: Grid,
 
     return SeaIceModel(grid=grid, masks=masks,
                        ice_thermodynamics=ice_thermodynamics,
-                       snow_thermodynamics=None,
+                       snow_thermodynamics=snow_thermodynamics,
                        phase_transitions=phase_transitions,
                        sea_ice_density=sea_ice_density,
                        snow_density=snow_density,
@@ -161,11 +170,11 @@ def initial_state(model: SeaIceModel, h=0.0, a=0.0, hs=0.0, u=0.0, v=0.0,
     state = SeaIceState(
         h=cc(h), a=cc(a),
         u=cc(u), v=cc(v),
-        hs=None,
+        hs=cc(hs) if model.snow_thermodynamics is not None else None,
         S=cc(model.ice_salinity),
         tracers={k: cc(v0) for k, v0 in (tracers or {}).items()},
         Tu=_initial_surface_temperature(model.ice_thermodynamics, grid),
-        Tus=None,
+        Tus=_initial_surface_temperature(model.snow_thermodynamics, grid),
         mf_ice=grid.new_field(), mf_snow=grid.new_field(),
         mf_snowfall=grid.new_field(),
         Qtop=grid.new_field(), Qbot=grid.new_field(),
@@ -254,13 +263,30 @@ def update_state(model, state):
 # --- tendencies and tracer update ---------------------------------------------
 
 def tracer_tendencies(model, state):
-    """G = −∇·(U c) for h, ℵ, hs and extra tracers."""
-    grid = model.grid
-    adv_masks = (model.masks.per_fc, model.masks.per_cf)
+    """G = −∇·(U c) for h, ℵ, hs and extra tracers.
 
-    def div(c):
-        return horizontal_div_Uc(grid, model.advection, state.u, state.v, c,
-                                 masks=adv_masks)
+    Solid-row crop: on the ≥ 32 southernmost interior rows that are land
+    across every x, every face is peripheral, so the divergence is exactly
+    zero there.  It is computed on a row-sliced view of the grid and a band
+    of zeros takes the cropped rows and the view's first Hy output rows
+    (whose stencils wrap); every kept row is bitwise the uncropped value."""
+    grid = model.grid
+    adv = model.advection
+    u, v = state.u, state.v
+    adv_masks = (model.masks.per_fc, model.masks.per_cf)
+    cs = model.masks.solid_rows if adv is not None else 0
+    if cs >= 32:
+        gc = south_crop_grid(grid, cs)
+        uc, vc = u[:, cs:], v[:, cs:]
+        mc = (adv_masks[0][:, cs:], adv_masks[1][:, cs:])
+        zband = torch.zeros((grid.nxp, cs + grid.Hy), dtype=grid.dtype, device=grid.device)
+
+        def div(c):
+            d = horizontal_div_Uc(gc, adv, uc, vc, c[:, cs:], masks=mc)
+            return torch.cat([zband, d[:, grid.Hy:]], 1)
+    else:
+        def div(c):
+            return horizontal_div_Uc(grid, adv, u, v, c, masks=adv_masks)
 
     Gh = -div(state.h)
     Ga = -div(state.a)
@@ -302,9 +328,11 @@ def dynamic_step_tracers(model, state, G, dt, base=None):
 
 def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     """Dispatch on the dynamics in the JAX package's order, unless ``fused``
-    is 'never': the periodic fused EVP route where :func:`fused_available`
-    allows it, else the padded one where :func:`padded_fused_available`
-    does, else the general split-explicit path."""
+    is 'never': the curvilinear fused EVP route where
+    :func:`curvilinear_fused_available` allows it, else the periodic one
+    where :func:`fused_available` does, else the padded one where
+    :func:`padded_fused_available` does, else the general split-explicit
+    path."""
     dyn = model.dynamics
     if dyn is None:
         return state
@@ -313,7 +341,9 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     u_start = u_prev if u_prev is not None else state.u
     v_start = v_prev if v_prev is not None else state.v
     fused = dyn.solver.fused != "never"
-    if fused and fused_available(model):
+    if fused and curvilinear_fused_available(model):
+        upd = curvilinear_fused_momentum_step(model, state, dt, u_start, v_start)
+    elif fused and fused_available(model):
         upd = fused_split_explicit_momentum_step(model, state, dt, u_start, v_start)
     elif fused and padded_fused_available(model):
         upd = padded_fused_momentum_step(model, state, dt, u_start, v_start)
@@ -325,13 +355,17 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
 # --- thermodynamic dispatch ---------------------------------------------------
 
 def thermodynamic_step(model, state, dt):
-    """Bare-ice slab column step."""
+    """Slab column step: bare ice, or snow on ice."""
     if model.ice_thermodynamics is None:
         return state
     fields = make_fields(model, state)
-    h1, a1, Tu, diags = bare_ice_thermodynamic_step(model, state, fields, dt)
-    return state.evolve(h=h1, a=a1, Tu=Tu,
-                        mf_ice=diags["mf_ice"], mf_snow=diags["mf_snow"],
+    if model.snow_thermodynamics is None:
+        h1, a1, Tu, diags = bare_ice_thermodynamic_step(model, state, fields, dt)
+        upd = dict(h=h1, a=a1, Tu=Tu)
+    else:
+        h1, a1, hs1, Tu, Tus, diags = layered_thermodynamic_step(model, state, fields, dt)
+        upd = dict(h=h1, a=a1, hs=hs1, Tu=Tu, Tus=Tus)
+    return state.evolve(**upd, mf_ice=diags["mf_ice"], mf_snow=diags["mf_snow"],
                         mf_snowfall=diags["mf_snowfall"],
                         Qtop=diags["Qtop"], Qbot=diags["Qbot"])
 

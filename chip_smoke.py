@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py              # the whole check, one card
     python3 chip_smoke.py --profile F  # also write torch.profiler tables of
-                                       # one flagship, one bounded and one
-                                       # tripolar basin step to file F
+                                       # one flagship, one bounded, one
+                                       # tripolar basin and one fixed-tile
+                                       # step to file F
 
 Drives the port (``climaseaice_jl_tpu_torch``) through the entry points a
 user calls and holds its CUDA kernels against their plain PyTorch versions.
@@ -62,6 +63,27 @@ Phases, each of which raises (exit code 1) when it fails:
     steps is 6e-6 m of fresh snow, and flooding of thin ice moves one
     float32 ulp of h, 3.7e-9 m at 5 cm, into it: 1e-4 of its largest value
     whichever device runs.)
+13. the fixed-tile kernels vs their plain versions on the card, at the
+    slice's 522² padded shape (phase 6's configuration with
+    ``fixed_tiles=(8, 128)`` and the wide halo policy, soft ice, seeded
+    velocities), each timed per call with its plain version: the EVP
+    coefficients (within 1 ulp); the tiled EVP loop (phase 2's bars over
+    the interiors, bitwise against itself with chunks of 2 and 4 substeps,
+    and against the padded kernel on the same input bitwise or within
+    1e-5, timed in turns with it); the WENO-7 advection (≤ 1e-6, and on the
+    1162×970 basin grid with array metrics); the column thermodynamics of
+    bare ice and of snow on ice under the basin's series and emission
+    (≤ 1e-5);
+14. the fixed-tile slice's main path at the default P★: one warm-up step,
+    five timed ``cst.step`` calls and two iterations of ``Simulation.run``;
+    finite and physical, land empty, u and v zero on peripheral nodes; per
+    step 3 tiled EVP, 3 coefficient, 6 advection and 3 thermodynamics calls
+    and no padded, periodic or curvilinear EVP call; in turns with phase
+    7's slice; one profiled step's device-busy share;
+15. halo 5 against halo 19 on the card: the fixed-tile slice for five RK3
+    steps, bitwise-equal interiors of u, v, h, ℵ, σ₁₁, σ₂₂, σ₁₂ and α;
+16. the fixed-tile route on the card and on the CPU, 128² bounded + island
+    + drag in soft ice, 2 RK3 steps; bars as in phase 5.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and as the last line
@@ -117,6 +139,30 @@ CURV_FLOPS_PER_POINT_SUBSTEP = 185
 CURV_FLOPS_PER_POINT_CALL = 16
 # 12 metrics, 14 constants, 4 drag and 4 stress arrays, 2 f planes, 6 carried
 CURV_ARRAYS_READ = 42
+# csrc/evp_prep.cu, per padded point: m 2, P 5 (the exp counted as 1), Pff 6,
+# m_ff 6, the four face averages 8, the two γ² coefficients 4, the two 1/m 2,
+# the two drags 2; h and ℵ read, 10 coefficients written, 7 parameters
+PREP_FLOPS_PER_POINT = 35
+PREP_ARRAYS = 12
+PREP_PARAMS = 7
+# csrc/evp_tiled_padded.cu computes evp_padded.cu's function (the PADDED_*
+# counts above, on the same padded input)
+# csrc/advection_fixed.cu with WENO-7, per padded point: at each of its x
+# and y faces two one-sided reconstructions of 253 (4 candidate stencils:
+# value 8, smoothness 48 from the 64 nonzero β terms, weight 4, sums 3; the
+# quotient 1), the upwind average 2 and the flux product 1 at each face, and
+# the divergence 5; u, v, c read as float32 and the two face masks as bytes,
+# the divergence written
+ADV_FLOPS_PER_POINT = 1023
+ADV_BYTES_PER_POINT = 18
+# csrc/thermo_fixed.cu, bare ice with constant fluxes and 20 secant
+# iterations, per padded point: the secant 210 (2 starting iterates, 22
+# balance evaluations of 4, 20 updates of 6), the cap at Tₘ 3, conduction 3,
+# the two latent energies 8, the volume tendency 5, the volume and
+# concentration update 19, mf_ice 4, Qtop and Qbot 2; h, ℵ, S, Tu read and 8
+# outputs written
+THERMO_FLOPS_PER_POINT = 254
+THERMO_ARRAYS = 12
 KM = 1000.0
 MINUTE, DAY = 60.0, 86400.0
 
@@ -156,13 +202,19 @@ def flagship_state(cst, model, velocity_seed=None, h0=None):
     return cst.initial_state(model, h=h0, a=1.0, **kw)
 
 
-def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, bottom=None):
+def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, bottom=None,
+            fixed_tiles=None, halo=5, snow=False):
     """The configuration of validation/perf_sweep.py:build(N, bounded=True),
     in the port: a 512 km bounded box with a circular island of radius
-    60 km and ImmersedDrag(1e-3); ``top`` and ``bottom`` replace its stresses."""
+    60 km and ImmersedDrag(1e-3); ``top`` and ``bottom`` replace its stresses.
+    ``fixed_tiles`` selects the decomposition-invariant mode with the wide
+    halo policy, as the repo's fixed-tile configurations set it; ``snow``
+    puts snow on the ice with the basin's snowfall and its heat fluxes
+    without the FluxFunction (the Semtner longwave, sensible and latent
+    series and radiative emission)."""
     import numpy as np
     grid = cst.RectilinearGrid(size=(N, N), x=(0, 512 * KM), y=(0, 512 * KM),
-                               halo=5, dtype="float32",
+                               halo=halo, dtype="float32",
                                topology=("bounded", "bounded"), device=device)
     x = (np.arange(N) + 0.5) * (512 * KM / N)
     xc, yc = np.meshgrid(x, x, indexing="ij")
@@ -174,12 +226,22 @@ def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, botto
         top_momentum_stress=top if top is not None else {"u": 0.1, "v": 0.05},
         bottom_momentum_stress=bottom if bottom is not None else cst.SemiImplicitStress(),
         immersed_drag=cst.ImmersedDrag(coefficient=1e-3),
-        solver=cst.SplitExplicitSolver(substeps=substeps))
+        solver=cst.SplitExplicitSolver(substeps=substeps) if fixed_tiles is None else
+        cst.SplitExplicitSolver(substeps=substeps, halo_exchange="wide",
+                                fixed_tiles=fixed_tiles))
+    thermo = dict(top_heat_flux=-20.0, bottom_heat_flux=-5.0)
+    if snow:
+        from climaseaice_jl_tpu_torch import arctic_basin as ab
+        series = [cst.FieldTimeSeries(times=ab.TIMES, data=tab, cyclical=True)
+                  for tab in (ab.TAB_LONGWAVE, ab.TAB_SENSIBLE, ab.TAB_LATENT)]
+        thermo = dict(top_heat_flux=(*series, cst.RadiativeEmission(
+                          emissivity=1.0, stefan_boltzmann_constant=5.67e-8 * 1.02)),
+                      bottom_heat_flux=-2.0, snowfall=3.2e-6,
+                      snow_thermodynamics=cst.snow_slab_thermodynamics())
     return cst.sea_ice_model(grid, dynamics=dynamics,
                              ice_thermodynamics=cst.sea_ice_slab_thermodynamics(),
-                             top_heat_flux=-20.0, bottom_heat_flux=-5.0,
                              advection=cst.WENO(order=7),
-                             timestepper="SplitRungeKutta3")
+                             timestepper="SplitRungeKutta3", **thermo)
 
 
 def anticyclone_wind(cst):
@@ -457,6 +519,20 @@ def kernel_entry(name, source, replaces, function, launches, worst_abs, worst_re
     }
 
 
+def max_ulp(ref, x):
+    """The largest distance in float32 units in the last place."""
+    import torch
+    a = ref.contiguous().view(torch.int32).long()
+    b = x.contiguous().view(torch.int32).long()
+    a = torch.where(a < 0, -(a & 0x7FFFFFFF), a)       # order negative floats too
+    b = torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+    return int((a - b).abs().max().item())
+
+
+def bounds_ms(nbytes, flops):
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+
+
 def card_name_and_power_limit():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -673,6 +749,7 @@ def main(argv=None):
         turns.append(f"{name} {turn_ms:.2f}")
     print(f"    in turns, ms/step (CUDA events): {', '.join(turns)}")
     del flag_model, flag_state
+    bounded_model, bounded_state = model, state         # phase 14's turns
     if args.profile:
         profiles.append(profile_step(cst, model, state, dt,
                                      f"{N}² bounded + island + drag step", card))
@@ -812,6 +889,261 @@ def main(argv=None):
                           torch.as_tensor(finals["cuda"][name]))
         check(name, rel, bar)
 
+    # --- 13. the fixed-tile kernels vs their plain versions -------------------------------
+    from climaseaice_jl_tpu_torch.dynamics import fixed_tile_advection, fused_evp_tiled_padded
+    from climaseaice_jl_tpu_torch.thermodynamics import fixed_tile_thermo
+    prep_counter = fused_evp_padded.evp_prep_counter
+    tiled_counter = fused_evp_tiled_padded.tiled_padded_evp_counter
+    adv_counter = fixed_tile_advection.fixed_tile_advection_counter
+    thermo_counter = fixed_tile_thermo.fixed_tile_thermo_counter
+    fixed = (8, 128)
+    dt = 120.0
+    model = bounded(cst, N, nsub, P_star=27.5, fixed_tiles=fixed)
+    grid = model.grid
+    I = grid.interior
+    state = flagship_state(cst, model, velocity_seed=6)
+    points = grid.nxp * grid.nyp
+    shape = f"{grid.nxp}x{grid.nyp} padded ({N}x{N} bounded, island, drag)"
+    print(f"[13] fixed-tile kernels vs plain versions, {N}² bounded + island + drag, "
+          f"{grid.nxp}×{grid.nyp} padded, on {card}:")
+
+    # 2.4: the EVP coefficients, bitwise or within 1 ulp
+    prm = fused_evp_padded.evp_prep_params(model, grid.scalar(dt))
+    h, a = state.h.contiguous(), state.a.contiguous()
+    out = fused_evp_padded.evp_prep(prm, h, a, grid)
+    ref = fused_evp_padded.evp_prep_reference(prm, h, a, grid)
+    torch.cuda.synchronize()
+    ulps = max(max_ulp(r, o) for r, o in zip(ref, out))
+    prep_abs = max((r.double() - o.double()).abs().max().item() for r, o in zip(ref, out))
+    prep_rel = max(rel_diff(r, o)[0] for r, o in zip(ref, out))
+    print(f"  coefficients: at most {ulps} ulp apart (bar 1), max abs diff {prep_abs:.3e}")
+    if ulps > 1:
+        raise AssertionError(f"the coefficient kernel is {ulps} ulp from its plain version")
+    kernel_ms = cuda_ms(lambda: fused_evp_padded.evp_prep(prm, h, a, grid), 50)
+    plain_ms = cuda_ms(lambda: fused_evp_padded.evp_prep_reference(prm, h, a, grid), 10)
+    bytes_ms, ops_ms = bounds_ms((PREP_ARRAYS * points + PREP_PARAMS) * 4,
+                                 PREP_FLOPS_PER_POINT * points)
+    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms")
+    prep_timing = (prep_abs, prep_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+
+    # 2.5: the tiled EVP loop; against its plain version (the TPU kernel's
+    # tiles of fixed_tiles), against the padded kernel on the same input, and
+    # with chunks of 4 and 2 substeps
+    params, consts, carry, _ = fused_evp_padded.padded_evp_inputs(model, state, dt,
+                                                                  state.u, state.v)
+    if len(consts) != 22:
+        raise AssertionError("the immersed drag did not reach the tiled kernel")
+    tiled_counter.reset()
+    out = fused_evp_tiled_padded.tiled_padded_evp_substeps(
+        params, consts, [q.clone() for q in carry], nsub, grid, fixed)
+    tiled_launches_per_call = tiled_counter.launches
+    half = fused_evp_tiled_padded.tiled_padded_evp_substeps(
+        params, consts, [q.clone() for q in carry], nsub, grid, fixed, chunk=2)
+    whole = fused_evp_padded.padded_evp_substeps(params, consts, [q.clone() for q in carry],
+                                                 nsub, grid)
+    ref = fused_evp_tiled_padded.tiled_padded_evp_substeps_reference(params, consts, carry,
+                                                                     nsub, grid, fixed)
+    torch.cuda.synchronize()
+    names = ("u", "v", "sig11", "sig22", "sig12", "alpha")
+    print(f"  tiled EVP, soft ice, {nsub} substeps ({tiled_launches_per_call} launches), "
+          "interiors:")
+    worst_rel = worst_abs = 0.0
+    for name, r, o, bar in zip(names, ref, out, (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
+        if not torch.isfinite(I(o)).all():
+            raise AssertionError(f"{name} from the tiled kernel is not finite")
+        rel, abs_err = rel_diff(I(r), I(o))
+        check(name, rel, bar)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    same_plain = all(torch.equal(I(r), I(o)) for r, o in zip(ref, out))
+    same_padded = all(torch.equal(I(w), I(o)) for w, o in zip(whole, out))
+    same_chunks = all(torch.equal(I(x), I(o)) for x, o in zip(half, out))
+    print(f"    bitwise: plain version {same_plain}, padded kernel {same_padded}, "
+          f"chunks of 2 and 4 {same_chunks}")
+    if not same_chunks:
+        raise AssertionError("the tiled kernel's interiors depend on the chunk length")
+    if not same_padded:
+        for name, w, o in zip(names, whole, out):
+            check(f"{name}/2.3", rel_diff(I(w), I(o))[0], 1e-5)
+    work = [q.clone() for q in carry]
+    work_padded = [q.clone() for q in carry]
+    kernel_ms = cuda_ms(lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps(
+        params, consts, work, nsub, grid, fixed), 20)
+    plain_ms = cuda_ms(lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps_reference(
+        params, consts, carry, nsub, grid, fixed), 2)
+    bytes_ms, ops_ms = bounds_ms(
+        ((PADDED_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + EVP_PARAMS) * 4,
+        (PADDED_FLOPS_PER_POINT_SUBSTEP * nsub + PADDED_FLOPS_PER_POINT_CALL) * points)
+    route_turns = []
+    for name in ("tiled", "padded", "tiled", "padded"):
+        if name == "tiled":
+            turn_ms = cuda_ms(lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps(
+                params, consts, work, nsub, grid, fixed), 20)
+        else:
+            turn_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps(
+                params, consts, work_padded, nsub, grid), 20)
+        route_turns.append(f"{name} {turn_ms:.4f}")
+    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms; in turns with the padded kernel, ms per call "
+          f"(20 calls): {', '.join(route_turns)}")
+    tiled_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    del out, half, whole, ref, work, work_padded, carry, consts
+
+    # 2.9: the fixed-tile advection, uniform metrics on the slice
+    div = fixed_tile_advection.make_fixed_tile_div(model, state.u, state.v)
+    schemes = fixed_tile_advection._schemes(model.advection)
+    masks = (model.masks.per_fc.contiguous(), model.masks.per_cf.contiguous())
+    uniform = (1.0 / grid.scalar(grid.dx_cc), 1.0 / grid.scalar(grid.dy_cc))
+    out = div(state.h)
+    ref = fixed_tile_advection.fixed_tile_div_reference(grid, schemes, state.u, state.v,
+                                                        state.h, masks, uniform)
+    torch.cuda.synchronize()
+    adv_rel, adv_abs = rel_diff(ref, out)
+    check("div(Uh)", adv_rel, 1e-6)
+    u_c, v_c, h_c = state.u.contiguous(), state.v.contiguous(), state.h.contiguous()
+    kernel_ms = cuda_ms(lambda: div(h_c), 50)
+    plain_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div_reference(
+        grid, schemes, u_c, v_c, h_c, masks, uniform), 10)
+    bytes_ms, ops_ms = bounds_ms(ADV_BYTES_PER_POINT * points, ADV_FLOPS_PER_POINT * points)
+    print(f"    advection kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms")
+    adv_timing = (adv_abs, adv_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    # array metrics on the basin's grid (not on this slice's path)
+    basin = basin_model(1152, 960, substeps=nsub)
+    bg = basin.grid
+    bstate = basin_state(basin)
+    rng = np.random.default_rng(7)
+    bu = torch.where(basin.masks.per_fc, 0.0, torch.as_tensor(
+        0.1 * rng.standard_normal(bg.shape), dtype=torch.float32, device="cuda")).contiguous()
+    bv = torch.where(basin.masks.per_cf, 0.0, torch.as_tensor(
+        0.1 * rng.standard_normal(bg.shape), dtype=torch.float32, device="cuda")).contiguous()
+    metrics = tuple(bg.scalar(getattr(bg, n)).expand(bg.shape).contiguous()
+                    for n in ("dy_fc", "dx_cf", "az_cc"))
+    bmasks = (basin.masks.per_fc.contiguous(), basin.masks.per_cf.contiguous())
+    bh = bstate.h.contiguous()
+    out = fixed_tile_advection.fixed_tile_div(bg, schemes, bu, bv, bh, bmasks, metrics)
+    ref = fixed_tile_advection.fixed_tile_div_reference(bg, schemes, bu, bv, bh, bmasks,
+                                                        metrics)
+    torch.cuda.synchronize()
+    check("basin", rel_diff(ref, out)[0], 1e-6)
+    del basin, bstate, bu, bv, bh, metrics, out, ref
+
+    # 2.11: the column thermodynamics, bare ice on the slice and snow on ice
+    dt_t = grid.scalar(dt)
+    out = fixed_tile_thermo.thermo_column(model, state, dt_t)
+    ref = fixed_tile_thermo.thermo_column_reference(model, state, dt_t)
+    torch.cuda.synchronize()
+    thermo_rel = thermo_abs = 0.0
+    for name, q in out.items():
+        if not torch.isfinite(q).all():
+            raise AssertionError(f"{name} from the thermodynamics kernel is not finite")
+        rel, abs_err = rel_diff(ref[name].broadcast_to(grid.shape), q)
+        check(name, rel, 1e-5)
+        thermo_rel, thermo_abs = max(thermo_rel, rel), max(thermo_abs, abs_err)
+    kernel_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column(model, state, dt_t), 50)
+    plain_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column_reference(model, state, dt_t),
+                       5)
+    bytes_ms, ops_ms = bounds_ms(THERMO_ARRAYS * points * 4, THERMO_FLOPS_PER_POINT * points)
+    print(f"    thermodynamics kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms")
+    thermo_timing = (thermo_abs, thermo_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    layered = bounded(cst, N, nsub, fixed_tiles=fixed, snow=True)
+    lstate = cst.initial_state(layered, h=lambda x, y: 1.0 + 0.25 * torch.sin(x / (40 * KM)),
+                               a=1.0, hs=0.1, time=150 * DAY)
+    out = fixed_tile_thermo.thermo_column(layered, lstate, dt_t)
+    ref = fixed_tile_thermo.thermo_column_reference(layered, lstate, dt_t)
+    torch.cuda.synchronize()
+    print("  snow on ice, Semtner series + emission, snowfall 3.2e-6:")
+    for name, q in out.items():
+        if not torch.isfinite(q).all():
+            raise AssertionError(f"{name} (snow) from the thermodynamics kernel is not finite")
+        check(name, rel_diff(ref[name].broadcast_to(grid.shape), q)[0], 1e-5)
+    layered_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column(layered, lstate, dt_t), 50)
+    print(f"    snow kernel {layered_ms:.4f} ms/call")
+    del layered, lstate, out, ref
+
+    # --- 14. the fixed-tile slice's main path -------------------------------------------
+    model = bounded(cst, N, nsub, fixed_tiles=fixed)
+    state = flagship_state(cst, model)
+    state = cst.step(model, state, dt)                  # warm-up
+    torch.cuda.synchronize()
+    counters = dict(tiled=tiled_counter, prep=prep_counter, adv=adv_counter,
+                    thermo=thermo_counter, padded=padded_counter, periodic=counter,
+                    curvilinear=curv_counter)
+    for c in counters.values():
+        c.reset()
+    state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
+    sim = cst.Simulation(model, state, dt=dt, stop_iteration=int(state.clock.iteration) + 2)
+    sim.run()
+    state = sim.state
+    torch.cuda.synchronize()
+    n_steps = steps + 2
+    calls = {k: c.calls for k, c in counters.items()}
+    expected = dict(tiled=3 * n_steps, prep=3 * n_steps, adv=6 * n_steps,
+                    thermo=3 * n_steps, padded=0, periodic=0, curvilinear=0)
+    if calls != expected or tiled_counter.launches != 3 * n_steps * tiled_launches_per_call:
+        raise AssertionError(f"fixed-tile route calls {calls}, tiled launches "
+                             f"{tiled_counter.launches}; expected {expected} and "
+                             f"{3 * n_steps * tiled_launches_per_call}")
+    check_state(model, state)
+    fixed_launches = {k: counters[k].launches for k in ("tiled", "prep", "adv", "thermo")}
+    device_ms, syncs, table = profile_device_ms(cst, model, state, dt)
+    print(f"[14] fixed-tile slice main path {N}² bounded + island + drag, fixed_tiles={fixed}: "
+          f"{step_ms:.2f} ms/step (CUDA events; host {host_ms:.2f} ms/step), "
+          f"{N * N / step_ms * 1e3:.4e} points/s; in {steps} steps + 2 Simulation iterations "
+          f"calls {calls}, launches {fixed_launches}; one profiled step {device_ms:.3f} ms of "
+          f"device time, busy {100 * device_ms / step_ms:.1f} % of a step, {syncs} host waits "
+          f"on a device value, on {card}")
+    print("\n".join(table.splitlines()[:14]))
+    turns = []
+    for name, m, s in (("fixed", model, state), ("bounded", bounded_model, bounded_state),
+                       ("fixed", model, state), ("bounded", bounded_model, bounded_state)):
+        _, turn_ms, _ = timed_steps(cst, m, s, dt, steps)
+        turns.append(f"{name} {turn_ms:.2f}")
+    print(f"    in turns with phase 7's slice, ms/step (CUDA events): {', '.join(turns)}")
+    if args.profile:
+        profiles.append(f"fixed-tile {N}² bounded step on {card}: {device_ms:.3f} ms of "
+                        f"device time\n{table}\n")
+        with open(args.profile, "w") as f:
+            f.write("\n".join(profiles))
+    del model, state, sim, bounded_model, bounded_state
+
+    # --- 15. halo 5 against halo 19 on the card -------------------------------------------
+    names = ("u", "v", "h", "a", "sig11", "sig22", "sig12", "alpha")
+    finals = []
+    for halo in (5, 19):
+        m = bounded(cst, N, nsub, fixed_tiles=fixed, halo=halo)
+        s = flagship_state(cst, m)
+        for _ in range(steps):
+            s = cst.step(m, s, dt)
+        finals.append({n: m.grid.interior(getattr(s, n)) for n in names})
+    torch.cuda.synchronize()
+    for name in names:
+        if not torch.equal(finals[0][name], finals[1][name]):
+            diff = (finals[0][name] - finals[1][name]).abs().max().item()
+            raise AssertionError(f"{name}: halo 5 and halo 19 differ by {diff:.3e}")
+    print(f"[15] halo 5 vs halo 19, {N}² fixed-tile slice, {steps} RK3 steps: u, v, h, ℵ, σ₁₁, "
+          "σ₂₂, σ₁₂, α interiors bitwise equal")
+    del finals
+
+    # --- 16. card vs CPU, the fixed-tile route ---------------------------------------------
+    finals = {}
+    for device in ("cuda", "cpu"):
+        m = bounded(cst, 128, nsub, P_star=27.5, device=device, fixed_tiles=fixed)
+        s = flagship_state(cst, m, velocity_seed=8)
+        for _ in range(2):
+            s = cst.step(m, s, dt)
+        if device == "cuda":
+            check_state(m, s)
+        finals[device] = state_to_numpy(s)
+    print("[16] 128² bounded + island + drag, fixed tiles, soft ice, 2 RK3 steps, card "
+          "(kernels) vs CPU (plain versions):")
+    for name, bar in (("u", 1e-4), ("v", 1e-4), ("h", 1e-5), ("a", 1e-5), ("sig11", 4e-3),
+                      ("sig22", 4e-3), ("sig12", 4e-3), ("alpha", 4e-3)):
+        rel, _ = rel_diff(torch.as_tensor(finals["cpu"][name]),
+                          torch.as_tensor(finals["cuda"][name]))
+        check(name, rel, bar)
+
     print(card)
     print(json.dumps({"kernels": [
         kernel_entry("evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp.cu",
@@ -827,6 +1159,22 @@ def main(argv=None):
                           "1162x970 padded (1152x960 tripolar basin, land, fold, drag, "
                           f"f planes), {nsub} substeps"),
              also_serves="climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662"),
+        kernel_entry("evp_prep", "climaseaice_jl_tpu_torch/csrc/evp_prep.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:512", "_prep_kernel",
+                     fixed_launches["prep"], *prep_timing, shape),
+        kernel_entry("tiled_padded_evp_substeps",
+                     "climaseaice_jl_tpu_torch/csrc/evp_tiled_padded.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_padded.py:262",
+                     "_tiled_padded_kernel", fixed_launches["tiled"], *tiled_timing,
+                     f"{shape}, {nsub} substeps"),
+        kernel_entry("fixed_tile_div", "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_advection.py:142", "_adv_kernel",
+                     fixed_launches["adv"], *adv_timing, f"{shape}, WENO-7"),
+        dict(kernel_entry("thermo_column", "climaseaice_jl_tpu_torch/csrc/thermo_fixed.cu",
+                          "climaseaice_jl_tpu/dynamics/pallas_pointwise.py:69",
+                          "fixed_tile_pointwise_multi", fixed_launches["thermo"],
+                          *thermo_timing, f"{shape}, bare ice"),
+             carries="climaseaice_jl_tpu/thermodynamics/pallas_thermo.py:169"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,11 @@ tripolar grids (and rectilinear ones with a north fold) in
 :mod:`.dynamics.fused_evp_curvilinear`, doubly periodic grids without land
 in :mod:`.dynamics.fused_evp`, other bounded and immersed rectilinear grids
 in :mod:`.dynamics.fused_evp_padded`; on CPU tensors the same routes run
-the kernels' plain PyTorch versions.
+the kernels' plain PyTorch versions.  ``SplitExplicitSolver(fixed_tiles=…)``
+selects the decomposition-invariant mode on rectilinear grids: the EVP
+coefficients, the tiled EVP loop, the tracer advection and the column
+thermodynamics each run in a kernel whose per-point arithmetic does not
+depend on the array shape or the halo width.
 """
 
 from .grids import (RectilinearGrid, LatitudeLongitudeGrid, CurvilinearGrid,

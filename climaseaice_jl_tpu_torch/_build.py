@@ -22,11 +22,25 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 SOURCES = {"evp": "evp.cu", "evp_padded": "evp_padded.cu",
-           "evp_curvilinear": "evp_curvilinear.cu"}
+           "evp_curvilinear": "evp_curvilinear.cu", "evp_prep": "evp_prep.cu",
+           "evp_tiled_padded": "evp_tiled_padded.cu",
+           "advection_fixed": "advection_fixed.cu", "thermo_fixed": "thermo_fixed.cu"}
 
 # no --use_fast_math: it would change the divides and square roots
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The decomposition-invariant kernels (and the padded kernel, whose device
+# code the tiled one shares) contract no multiply-add: each operation rounds
+# on its own, as in their plain PyTorch versions, whatever the compiler
+# would fuse at a given call site.
+EXACT_FLAGS = ("-fmad=false",)
+SOURCE_FLAGS = {name: EXACT_FLAGS for name in (
+    "evp_padded", "evp_prep", "evp_tiled_padded", "advection_fixed", "thermo_fixed")}
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for source ``name``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 _libraries: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}   # nvcc output per source (ptxas registers, spills)
@@ -45,7 +59,7 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(flags(name)).encode())
     for path in sorted(CSRC.iterdir()):
         digest.update(path.name.encode() + path.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
@@ -61,7 +75,7 @@ def build(names=None) -> dict[str, Path]:
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)

@@ -1,0 +1,206 @@
+// Fixed-tile flux-form tracer advection ∇·(U c) for NVIDIA Hopper (sm_90a).
+//
+// Replaces `climaseaice_jl_tpu/dynamics/pallas_advection.py::_adv_kernel`:
+// at every padded point, the upwind-selected face reconstructions of c at
+// its west and east x faces and south and north y faces (WENO 5/7/9,
+// UpwindBiased 1/3/5/7, Centered 2/4; the x and y schemes may differ), the
+// fluxes u·ĉ and v·ĉ zeroed through peripheral faces, and their divergence:
+// δx(fx)·(1/Δx) + δy(fy)·(1/Δy) on uniform grids, [δx(Δy_fc·u·ĉ) +
+// δy(Δx_cf·v·ĉ)]/Az_cc with array metrics.  The TPU kernel gathers
+// halo-extended tiles (wrap into the interior along a periodic direction,
+// clamp at the padded edge along a bounded one) and shifts inside them; here
+// a thread reads the images of its stencil's padded indices directly.
+//
+// What bounds it on an H100: per point the WENO-7 function needs 1023
+// float32 operations, two one-sided reconstructions of 253 at each of its
+// x and y faces (counted as the plain version computes each face once:
+// chip_smoke.py's ADV_FLOPS_PER_POINT), against 3 float32 arrays and 2 byte
+// masks read and one array written, 18 bytes: at 522² 0.0042 ms of
+// operations at 67 TFLOP/s and 0.0015 ms of bytes.  The call is bound by
+// operations.  The kernel computes each face twice (a point's east face is
+// its neighbour's west face), which the bound does not count.
+//
+// Design: one thread per padded point, threadIdx.x along the contiguous y
+// axis, one launch per tracer.  The WENO tables (ε, C, G, B) come rounded
+// to float32 from the caller.
+//
+// Arithmetic: the plain PyTorch version's operation order (the reductions
+// of `advection.py` left to right from 0, G/(ε + β)² as (1/(ε + β)²)·G as
+// PyTorch's reflected division computes it, a division by an integer
+// constant as the product with its float reciprocal, as PyTorch's CUDA
+// division by a Python number computes it).  Built with -fmad=false
+// (`_build.py`): no multiply-add is contracted, so a point's bits do not
+// depend on the launch, the array shape or the halo width.
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+constexpr int BX = 32;  // threads along y (the contiguous axis)
+constexpr int BY = 8;   // threads along x
+constexpr int R = 5;    // widest stencil radius
+
+enum Kind { CENTERED = 0, UPWIND = 1, WENO = 2 };
+
+struct Scheme {
+  int kind, order;
+  const float* tab;   // WENO: ε, C[r][r], G[r], B[r][r][r]
+};
+
+__device__ __forceinline__ int image(int k, int ext, int H, int N, int periodic) {
+  if (periodic) {
+    const int r = (k - H) % N;
+    return H + (r < 0 ? r + N : r);
+  }
+  return k < 0 ? 0 : (k >= ext ? ext - 1 : k);
+}
+
+// x / d for an integer constant d, as PyTorch's CUDA division by a Python
+// number computes it: x times the float reciprocal
+__device__ __forceinline__ float div_const(float x, float d) { return x * (1.0f / d); }
+
+// One-sided WENO-(2r−1) from the stencil st[0 … 2r−2], upwind to downwind
+// (`advection.py:_weno_side`).
+__device__ float weno_side(const float* __restrict__ tab, int r, const float* st) {
+  const float eps = tab[0];
+  const float* C = tab + 1;
+  const float* G = C + r * r;
+  const float* B = G + r;
+  float num = 0.0f, den = 0.0f;
+  for (int k = 0; k < r; ++k) {
+    const float* cells = st + k;
+    float q = 0.0f;
+    for (int j = 0; j < r; ++j) q = q + C[k * r + j] * cells[j];
+    float beta = 0.0f;
+    for (int j1 = 0; j1 < r; ++j1)
+      for (int j2 = 0; j2 < r; ++j2) {
+        const float b = B[(k * r + j1) * r + j2];
+        if (b != 0.0f) beta = beta + b * cells[j1] * cells[j2];
+      }
+    const float t = beta + eps;
+    const float w = (1.0f / (t * t)) * G[k];
+    num = num + w * q;
+    den = den + w;
+  }
+  return num / den;
+}
+
+// (left-biased, right-biased) reconstructions at face I from s[k] = c(I + k),
+// k = −R … R − 1 (`advection.py:reconstruct_face`).
+__device__ void reconstruct(const Scheme& sc, const float* s, float& left, float& right) {
+  const float c = s[0];
+#define M(k) s[-(k)]
+#define P(k) s[(k)]
+  if (sc.kind == CENTERED) {
+    if (sc.order == 2) {
+      left = 0.5f * (M(1) + c);
+    } else {
+      left = div_const(-M(2) + 7.0f * M(1) + 7.0f * c - P(1), 12.0f);
+    }
+    right = left;
+  } else if (sc.kind == UPWIND) {
+    if (sc.order == 1) {
+      left = M(1);
+      right = c;
+    } else if (sc.order == 3) {
+      left = div_const(-M(2) + 5.0f * M(1) + 2.0f * c, 6.0f);
+      right = div_const(2.0f * M(1) + 5.0f * c - P(1), 6.0f);
+    } else if (sc.order == 5) {
+      left = div_const(2.0f * M(3) - 13.0f * M(2) + 47.0f * M(1) + 27.0f * c - 3.0f * P(1),
+                       60.0f);
+      right = div_const(2.0f * P(2) - 13.0f * P(1) + 47.0f * c + 27.0f * M(1) - 3.0f * M(2),
+                        60.0f);
+    } else {
+      left = div_const(-3.0f * M(4) + 25.0f * M(3) - 101.0f * M(2) + 319.0f * M(1)
+                       + 214.0f * c - 38.0f * P(1) + 4.0f * P(2), 420.0f);
+      right = div_const(-3.0f * P(3) + 25.0f * P(2) - 101.0f * P(1) + 319.0f * c
+                        + 214.0f * M(1) - 38.0f * M(2) + 4.0f * M(3), 420.0f);
+    }
+  } else {
+    const int r = (sc.order + 1) / 2;
+    float st[2 * R - 1];
+    // left-biased: c(I − r) … c(I + r − 2); right-biased: c(I + r − 1) … c(I − r + 1)
+    for (int j = 0; j < 2 * r - 1; ++j) st[j] = s[j - r];
+    left = weno_side(sc.tab, r, st);
+    for (int j = 0; j < 2 * r - 1; ++j) st[j] = s[r - 1 - j];
+    right = weno_side(sc.tab, r, st);
+  }
+#undef M
+#undef P
+}
+
+__device__ __forceinline__ float upwind_select(float vel, float left, float right) {
+  return vel > 0.0f ? left : (vel < 0.0f ? right : 0.5f * (left + right));
+}
+
+__global__ void __launch_bounds__(BX * BY) fixed_tile_div(
+    const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ c,
+    const uint8_t* __restrict__ per_fc, const uint8_t* __restrict__ per_cf,
+    const float* __restrict__ dy_fc, const float* __restrict__ dx_cf,
+    const float* __restrict__ az_cc, const float* __restrict__ prm, Scheme sx, Scheme sy,
+    float* __restrict__ out, int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int per_x,
+    int per_y) {
+  const int j = blockIdx.x * BX + threadIdx.x;
+  const int i = blockIdx.y * BY + threadIdx.y;
+  if (i >= nxp || j >= nyp) return;
+  // images of i + k and j + k, k = −R … R
+  int ix[2 * R + 1], iy[2 * R + 1];
+  for (int k = -R; k <= R; ++k) {
+    ix[k + R] = image(i + k, nxp, Hx, Nx, per_x);
+    iy[k + R] = image(j + k, nyp, Hy, Ny, per_y);
+  }
+  const int row0 = ix[R] * nyp, col0 = iy[R];
+  float cs[2 * R + 1];
+  for (int k = 0; k <= 2 * R; ++k) cs[k] = c[ix[k] * nyp + col0];
+  const bool arr = az_cc != nullptr;
+  float f[2];
+  for (int e = 0; e < 2; ++e) {   // faces i (west) and i + 1 (east)
+    float l, r;
+    reconstruct(sx, cs + R + e, l, r);
+    const int k = ix[R + e] * nyp + col0;
+    const float uk = u[k];
+    const float cx = upwind_select(uk, l, r);
+    const float fx = arr ? dy_fc[k] * uk * cx : uk * cx;
+    f[e] = per_fc[k] ? 0.0f : fx;
+  }
+  const float dfx = f[1] - f[0];
+  for (int k = 0; k <= 2 * R; ++k) cs[k] = c[row0 + iy[k]];
+  for (int e = 0; e < 2; ++e) {   // faces j (south) and j + 1 (north)
+    float l, r;
+    reconstruct(sy, cs + R + e, l, r);
+    const int k = row0 + iy[R + e];
+    const float vk = v[k];
+    const float cy = upwind_select(vk, l, r);
+    const float fy = arr ? dx_cf[k] * vk * cy : vk * cy;
+    f[e] = per_cf[k] ? 0.0f : fy;
+  }
+  const float dfy = f[1] - f[0];
+  out[static_cast<size_t>(i) * nyp + j] =
+      arr ? (dfx + dfy) / az_cc[row0 + col0] : dfx * prm[0] + dfy * prm[1];
+}
+
+}  // namespace
+
+// ∇·(U c) on the padded (nxp, nyp) arrays into `out` on `stream`.  dy_fc,
+// dx_cf and az_cc are null on uniform grids, where prm holds (1/Δx, 1/Δy).
+// Scheme kinds: 0 Centered, 1 UpwindBiased, 2 WENO.  Returns 0, or the
+// cudaGetLastError() after the launch.
+extern "C" int csi_fixed_tile_div(
+    const float* u, const float* v, const float* c, const uint8_t* per_fc,
+    const uint8_t* per_cf, const float* dy_fc, const float* dx_cf, const float* az_cc,
+    const float* prm, const float* tab_x, const float* tab_y, int kind_x, int order_x,
+    int kind_y, int order_y, float* out, int nxp, int nyp, int Hx, int Nx, int Hy, int Ny,
+    int per_x, int per_y, void* stream) {
+  const Scheme sx{kind_x, order_x, tab_x}, sy{kind_y, order_y, tab_y};
+  const dim3 block(BX, BY);
+  const dim3 grid((nyp + BX - 1) / BX, (nxp + BY - 1) / BY);
+  fixed_tile_div<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      u, v, c, per_fc, per_cf, dy_fc, dx_cf, az_cc, prm, sx, sy, out, nxp, nyp, Hx, Nx, Hy,
+      Ny, per_x, per_y);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* csi_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

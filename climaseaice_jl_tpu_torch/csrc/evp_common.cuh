@@ -1,12 +1,17 @@
-// Shared by evp.cu and evp_padded.cu: the params layout, the thread
-// layout, periodic point location and the σ relaxation kernel.
+// Shared by evp.cu, evp_padded.cu and evp_tiled_padded.cu: the params
+// layout, the thread layout, periodic point location, the σ relaxation at
+// one point and the kernel that runs it over an array, and the padded
+// kernels' u and v updates at one point.
 //
-// `evp_stress` computes, at every point of an nx×ny array with neighbours
-// found by index wrap, what the TPU kernels' `stresses` computes with
-// circular rolls (pallas_evp.py:230-276, pallas_evp_padded.py:268-306; the
-// two are the same algebra).  evp.cu runs it on interior-only periodic
+// `stress_point` computes, from the 3×3 u, v neighbourhood of a point, what
+// the TPU kernels' `stresses` computes with circular rolls
+// (pallas_evp.py:230-276, pallas_evp_padded.py:268-306; the two are the
+// same algebra).  `evp_stress` runs it at every point of an nx×ny array
+// with neighbours found by index wrap: evp.cu on interior-only periodic
 // arrays, evp_padded.cu on whole padded arrays, where the wrap over the
-// padded extent matches `pltpu.roll` on the halo ring.
+// padded extent matches `pltpu.roll` on the halo ring.  evp_tiled_padded.cu
+// runs `stress_point`, `u_update_point` and `v_update_point` on tiles in
+// shared memory.
 
 #pragma once
 
@@ -43,31 +48,13 @@ __device__ __forceinline__ bool locate(int nx, int ny, Point& p) {
   return true;
 }
 
-// σ relaxation: strain rates from the u, v neighbourhood, then Δ, ζ/η, the
-// replacement pressure and the dynamic γ (pallas_evp.py:230-276).
-__global__ void __launch_bounds__(BX * BY) evp_stress(
-    const float* __restrict__ prm,
-    const float* __restrict__ P, const float* __restrict__ Pff,
-    const float* __restrict__ gcc_, const float* __restrict__ gff_,
-    const float* __restrict__ u, const float* __restrict__ v,
-    float* __restrict__ s11, float* __restrict__ s22,
-    float* __restrict__ s12, float* __restrict__ al, int nx, int ny) {
-  Point p;
-  if (!locate(nx, ny, p)) return;
-
-  // U[a][b] = u at (i + a - 1, j + b - 1); V likewise
-  const int rows[3] = {p.row_m, p.row_0, p.row_p};
-  const int cols[3] = {p.jm, p.j, p.jp};
-  float U[3][3], V[3][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      U[a][b] = u[rows[a] + cols[b]];
-      V[a][b] = v[rows[a] + cols[b]];
-    }
-  }
-
+// σ relaxation at one point: strain rates from the u, v neighbourhood
+// U[a][b] = u(i + a − 1, j + b − 1) (V likewise), then Δ, ζ/η, the
+// replacement pressure and the dynamic γ (pallas_evp.py:230-276).  Updates
+// s11, s22, s12 in place and returns α.
+__device__ __forceinline__ float stress_point(
+    const float* __restrict__ prm, const float (&U)[3][3], const float (&V)[3][3],
+    float P, float Pff, float gcc, float gff, float& s11, float& s22, float& s12) {
   const float inv_dx = 1.0f / prm[P_DX];
   const float inv_dy = 1.0f / prm[P_DY];
   const float e_inv2 = prm[P_EINV2];
@@ -121,8 +108,8 @@ __global__ void __launch_bounds__(BX * BY) evp_stress(
   const float rD_cc = fminf(rsqrtf(dd_cc), inv_dmin);  // 1/max(Δcc, Δmin)
   const float rD_ff = fminf(rsqrtf(dd_ff), inv_dmin);
 
-  const float Ph = 0.5f * P[p.k];
-  const float Pffh = 0.5f * Pff[p.k];
+  const float Ph = 0.5f * P;
+  const float Pffh = 0.5f * Pff;
   const float zcc = Ph * rD_cc;
   const float zff = Pffh * rD_ff;
 
@@ -140,8 +127,6 @@ __global__ void __launch_bounds__(BX * BY) evp_stress(
   const float s12_t = eta_ff * eS_ff;
 
   // dynamic relaxation γ = clamp(√(ζ·cαΔt/m/Az)); α⁺ where m ≤ 0
-  const float gcc = gcc_[p.k];
-  const float gff = gff_[p.k];
   const float g2cc = fminf(fmaxf(zcc * gcc, amin2), amax2);
   const float g2ff = fminf(fmaxf(zff * gff, amin2), amax2);
   const float rg_cc = rsqrtf(g2cc);
@@ -149,13 +134,100 @@ __global__ void __launch_bounds__(BX * BY) evp_stress(
   const bool ok_cc = gcc > 0.0f;
   const bool ok_ff = gff > 0.0f;
 
-  const float s11_0 = s11[p.k];
-  const float s22_0 = s22[p.k];
-  const float s12_0 = s12[p.k];
-  s11[p.k] = s11_0 + (ok_cc ? (s11_t - s11_0) * rg_cc : 0.0f);
-  s22[p.k] = s22_0 + (ok_cc ? (s22_t - s22_0) * rg_cc : 0.0f);
-  s12[p.k] = s12_0 + (ok_ff ? (s12_t - s12_0) * rg_ff : 0.0f);
-  al[p.k] = ok_cc ? g2cc * rg_cc : a_max;
+  s11 = s11 + (ok_cc ? (s11_t - s11) * rg_cc : 0.0f);
+  s22 = s22 + (ok_cc ? (s22_t - s22) * rg_cc : 0.0f);
+  s12 = s12 + (ok_ff ? (s12_t - s12) * rg_ff : 0.0f);
+  return ok_cc ? g2cc * rg_cc : a_max;
+}
+
+// σ relaxation at every point of an nx×ny array, neighbours by index wrap.
+__global__ void __launch_bounds__(BX * BY) evp_stress(
+    const float* __restrict__ prm,
+    const float* __restrict__ P, const float* __restrict__ Pff,
+    const float* __restrict__ gcc, const float* __restrict__ gff,
+    const float* __restrict__ u, const float* __restrict__ v,
+    float* __restrict__ s11, float* __restrict__ s22,
+    float* __restrict__ s12, float* __restrict__ al, int nx, int ny) {
+  Point p;
+  if (!locate(nx, ny, p)) return;
+
+  // U[a][b] = u at (i + a - 1, j + b - 1); V likewise
+  const int rows[3] = {p.row_m, p.row_0, p.row_p};
+  const int cols[3] = {p.jm, p.j, p.jp};
+  float U[3][3], V[3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      U[a][b] = u[rows[a] + cols[b]];
+      V[a][b] = v[rows[a] + cols[b]];
+    }
+  }
+  float s11_k = s11[p.k], s22_k = s22[p.k], s12_k = s12[p.k];
+  const float al_k = stress_point(prm, U, V, P[p.k], Pff[p.k], gcc[p.k], gff[p.k],
+                                  s11_k, s22_k, s12_k);
+  s11[p.k] = s11_k;
+  s22[p.k] = s22_k;
+  s12[p.k] = s12_k;
+  al[p.k] = al_k;
+}
+
+// The semi-implicit u update at one (f,c) point of the padded kernels
+// (pallas_evp_padded.py:308-323).  Suffixes name the neighbour a value is
+// taken at: _w (i−1, j), _n (i, j+1), _wn (i−1, j+1).  s11m and s12m are σ
+// already multiplied by their masks; the immersed-drag coefficients
+// imms/immn are read only with has_drag.
+__device__ __forceinline__ float u_update_point(
+    const float* __restrict__ prm, float s11m, float s11m_w, float s12m, float s12m_n,
+    float v, float v_n, float v_w, float v_wn, float ve, float ve_n, float ve_w,
+    float ve_wn, float uk, float u_n, float ue, float tau, float drag, float invm,
+    float un, float act, bool has_drag, float imms, float immn, float al, float al_w) {
+  const float inv_dt = 1.0f / prm[P_DT];
+  const float inv_dx = 1.0f / prm[P_DX];
+  const float inv_dy = 1.0f / prm[P_DY];
+  const float f_cor = prm[P_F];
+  const float rC = prm[P_RC];
+  const float div_x = (s11m - s11m_w) * inv_dx + (s12m_n - s12m) * inv_dy;
+  // (c,f) → (f,c): 0.25·((q[i,j] + q[i,j+1]) + (q[i-1,j] + q[i-1,j+1]))
+  const float v_fc = 0.25f * ((v + v_n) + (v_w + v_wn));
+  const float ve_fc = 0.25f * ((ve + ve_n) + (ve_w + ve_wn));
+  const float du = ue - uk;
+  const float dv = ve_fc - v_fc;
+  const float speed = sqrtf(du * du + dv * dv);
+  float G = f_cor * v_fc - tau * drag + rC * speed * ue * drag + div_x * invm;
+  if (has_drag) G = G - (imms * uk + immn * u_n) * invm;
+  G = G + (un - uk) * inv_dt;
+  G = invm > 0.0f ? G : 0.0f;
+  const float idtau = 0.5f * (al + al_w) * inv_dt;  // 1/Δτ
+  return (uk * idtau + G) / (idtau + rC * speed * drag) * act;
+}
+
+// The semi-implicit v update at one (c,f) point of the padded kernels
+// (pallas_evp_padded.py:325-340).  Suffixes: _s (i, j−1), _e (i+1, j),
+// _es (i+1, j−1).
+__device__ __forceinline__ float v_update_point(
+    const float* __restrict__ prm, float s22m, float s22m_s, float s12m, float s12m_e,
+    float u, float u_s, float u_e, float u_es, float ue, float ue_s, float ue_e,
+    float ue_es, float vk, float v_e, float ve, float tau, float drag, float invm,
+    float vn, float act, bool has_drag, float immw, float imme, float al, float al_s) {
+  const float inv_dt = 1.0f / prm[P_DT];
+  const float inv_dx = 1.0f / prm[P_DX];
+  const float inv_dy = 1.0f / prm[P_DY];
+  const float f_cor = prm[P_F];
+  const float rC = prm[P_RC];
+  const float div_y = (s22m - s22m_s) * inv_dy + (s12m_e - s12m) * inv_dx;
+  // (f,c) → (c,f): 0.25·((q[i,j] + q[i,j-1]) + (q[i+1,j] + q[i+1,j-1]))
+  const float u_cf = 0.25f * ((u + u_s) + (u_e + u_es));
+  const float ue_cf = 0.25f * ((ue + ue_s) + (ue_e + ue_es));
+  const float dv = ve - vk;
+  const float du = ue_cf - u_cf;
+  const float speed = sqrtf(du * du + dv * dv);
+  float G = -f_cor * u_cf - tau * drag + rC * speed * ve * drag + div_y * invm;
+  if (has_drag) G = G - (immw * vk + imme * v_e) * invm;
+  G = G + (vn - vk) * inv_dt;
+  G = invm > 0.0f ? G : 0.0f;
+  const float idtau = 0.5f * (al + al_s) * inv_dt;
+  return (vk * idtau + G) / (idtau + rC * speed * drag) * act;
 }
 
 }  // namespace csi_evp

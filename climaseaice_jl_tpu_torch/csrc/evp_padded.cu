@@ -52,7 +52,10 @@
 //
 // Arithmetic: the TPU kernel's algebra and operation order
 // (pallas_evp_padded.py:268-340), `rsqrtf` for `lax.rsqrt`, IEEE `sqrtf`
-// and division (no --use_fast_math), nvcc's default FMA contraction.
+// and division (no --use_fast_math).  The σ relaxation and the two updates
+// are evp_common.cuh's point functions, which evp_tiled_padded.cu runs too;
+// both sources are built with -fmad=false (`_build.py`), so the two kernels
+// compute the same bits at a point from the same inputs.
 
 #include "evp_common.cuh"
 
@@ -136,35 +139,12 @@ __global__ void __launch_bounds__(BX * BY) padded_u_update(
   const int kn = si * ny + jn;                        // (i, j+1)
   const int kwn = wrap(si - 1, L.nxp) * ny + jn;      // (i-1, j+1)
 
-  const float inv_dt = 1.0f / prm[P_DT];
-  const float inv_dx = 1.0f / prm[P_DX];
-  const float inv_dy = 1.0f / prm[P_DY];
-  const float f_cor = prm[P_F];
-  const float rC = prm[P_RC];
-
-  const float s11m = s11[ks] * c.msk_cc[ks];
-  const float s11m_w = s11[kw] * c.msk_cc[kw];
-  const float s12m = s12[ks] * c.msk_ff[ks];
-  const float s12m_n = s12[kn] * c.msk_ff[kn];
-  const float div_x = (s11m - s11m_w) * inv_dx + (s12m_n - s12m) * inv_dy;
-  // (c,f) → (f,c): 0.25·((q[i,j] + q[i,j+1]) + (q[i-1,j] + q[i-1,j+1]))
-  const float v_fc = 0.25f * ((v[ks] + v[kn]) + (v[kw] + v[kwn]));
-  const float ve_fc = 0.25f * ((c.ve[ks] + c.ve[kn]) + (c.ve[kw] + c.ve[kwn]));
-  const float uk = u[ks];
-  const float ue = c.ue[ks];
-  const float du = ue - uk;
-  const float dv = ve_fc - v_fc;
-  const float speed = sqrtf(du * du + dv * dv);
-  const float drag = c.drag_u[ks];
-  const float invm = c.invm_u[ks];
-
-  float G = f_cor * v_fc - c.tau_u[ks] * drag + rC * speed * ue * drag
-            + div_x * invm;
-  if (has_drag) G = G - (c.imms_u[ks] * uk + c.immn_u[ks] * u[kn]) * invm;
-  G = G + (c.un[ks] - uk) * inv_dt;
-  G = invm > 0.0f ? G : 0.0f;
-  const float idtau = 0.5f * (al[ks] + al[kw]) * inv_dt;  // 1/Δτ
-  u_out[k] = (uk * idtau + G) / (idtau + rC * speed * drag) * c.act_u[ks];
+  u_out[k] = u_update_point(
+      prm, s11[ks] * c.msk_cc[ks], s11[kw] * c.msk_cc[kw], s12[ks] * c.msk_ff[ks],
+      s12[kn] * c.msk_ff[kn], v[ks], v[kn], v[kw], v[kwn], c.ve[ks], c.ve[kn], c.ve[kw],
+      c.ve[kwn], u[ks], has_drag ? u[kn] : 0.0f, c.ue[ks], c.tau_u[ks], c.drag_u[ks],
+      c.invm_u[ks], c.un[ks], c.act_u[ks], has_drag, has_drag ? c.imms_u[ks] : 0.0f,
+      has_drag ? c.immn_u[ks] : 0.0f, al[ks], al[kw]);
 }
 
 // semi-implicit v update at (c,f) followed by the (c,f) halo fill
@@ -189,35 +169,12 @@ __global__ void __launch_bounds__(BX * BY) padded_v_update(
   const int ke = ie * ny + sj;                        // (i+1, j)
   const int kes = ie * ny + js;                       // (i+1, j-1)
 
-  const float inv_dt = 1.0f / prm[P_DT];
-  const float inv_dx = 1.0f / prm[P_DX];
-  const float inv_dy = 1.0f / prm[P_DY];
-  const float f_cor = prm[P_F];
-  const float rC = prm[P_RC];
-
-  const float s22m = s22[ks] * c.msk_cc[ks];
-  const float s22m_s = s22[kso] * c.msk_cc[kso];
-  const float s12m = s12[ks] * c.msk_ff[ks];
-  const float s12m_e = s12[ke] * c.msk_ff[ke];
-  const float div_y = (s22m - s22m_s) * inv_dy + (s12m_e - s12m) * inv_dx;
-  // (f,c) → (c,f): 0.25·((q[i,j] + q[i,j-1]) + (q[i+1,j] + q[i+1,j-1]))
-  const float u_cf = 0.25f * ((u[ks] + u[kso]) + (u[ke] + u[kes]));
-  const float ue_cf = 0.25f * ((c.ue[ks] + c.ue[kso]) + (c.ue[ke] + c.ue[kes]));
-  const float vk = v[ks];
-  const float ve = c.ve[ks];
-  const float dv = ve - vk;
-  const float du = ue_cf - u_cf;
-  const float speed = sqrtf(du * du + dv * dv);
-  const float drag = c.drag_v[ks];
-  const float invm = c.invm_v[ks];
-
-  float G = -f_cor * u_cf - c.tau_v[ks] * drag + rC * speed * ve * drag
-            + div_y * invm;
-  if (has_drag) G = G - (c.immw_v[ks] * vk + c.imme_v[ks] * v[ke]) * invm;
-  G = G + (c.vn[ks] - vk) * inv_dt;
-  G = invm > 0.0f ? G : 0.0f;
-  const float idtau = 0.5f * (al[ks] + al[kso]) * inv_dt;
-  v_out[k] = (vk * idtau + G) / (idtau + rC * speed * drag) * c.act_v[ks];
+  v_out[k] = v_update_point(
+      prm, s22[ks] * c.msk_cc[ks], s22[kso] * c.msk_cc[kso], s12[ks] * c.msk_ff[ks],
+      s12[ke] * c.msk_ff[ke], u[ks], u[kso], u[ke], u[kes], c.ue[ks], c.ue[kso], c.ue[ke],
+      c.ue[kes], v[ks], has_drag ? v[ke] : 0.0f, c.ve[ks], c.tau_v[ks], c.drag_v[ks],
+      c.invm_v[ks], c.vn[ks], c.act_v[ks], has_drag, has_drag ? c.immw_v[ks] : 0.0f,
+      has_drag ? c.imme_v[ks] : 0.0f, al[ks], al[kso]);
 }
 
 }  // namespace

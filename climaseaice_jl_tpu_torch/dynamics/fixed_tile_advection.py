@@ -1,0 +1,233 @@
+"""Fixed-tile tracer advection, the decomposition-invariant ∇·(U c): the
+gate, :func:`make_fixed_tile_div`, the CUDA kernel's wrapper and its plain
+version.
+
+Counterpart of `climaseaice_jl_tpu/dynamics/pallas_advection.py`.  The TPU
+kernel (``_adv_kernel``) runs the flux-form reconstruction of
+:mod:`..advection` on (TX+16, TY+128) tiles of the padded arrays, gathered
+with wrap into the interior along a periodic direction and clamp at the
+padded edge along a bounded one; every output reads its stencil within the
+overlap, so a point's neighbour at offset k is the gathered image of its
+padded index + k.  Both versions here read those images directly: the
+kernel (``csrc/advection_fixed.cu``, one launch per tracer, one thread per
+padded point) and the plain version, which gathers the images into arrays
+extended by 8 points on each side and runs the general path's
+reconstructions on them.
+
+Schemes: WENO 5/7/9, UpwindBiased 1/3/5/7, Centered 2/4, and
+FluxFormAdvection with separate x and y schemes.  Fluxes through peripheral
+faces are zeroed.  On uniform grids the divergence is δx(u ĉ)·(1/Δx) +
+δy(v ĉ)·(1/Δy); with array metrics [δx(Δy_fc u ĉ) + δy(Δx_cf v ĉ)]/Az_cc, the
+general path's order (`pallas_advection.py:169-185`).  Interiors equal the
+general path's values up to that reordering; in the halos the outputs come
+from the clamped or wrapped images instead of the general path's circular
+shifts over the padded extent, and the step refills them anyway.
+
+A CUDA tensor goes to the kernel, a CPU tensor to
+:func:`fixed_tile_div_reference`; a kernel that fails to build or launch
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..grids import PERIODIC
+from ..advection import (WENO, UpwindBiased, Centered, FluxFormAdvection, required_halo,
+                         reconstruct_face, _upwind_select, _weno_tables_cached)
+from .fused_evp import KernelCounter, cuda_error_string
+
+_WX = 8    # overlap of the TPU kernel's x tiles (≥ the widest stencil radius 5)
+_EXT = 8   # points by which the plain version extends its image arrays
+_KINDS = {Centered: 0, UpwindBiased: 1, WENO: 2}
+
+fixed_tile_advection_counter = KernelCounter()
+
+
+def _schemes(adv):
+    return (adv.x, adv.y) if isinstance(adv, FluxFormAdvection) else (adv, adv)
+
+
+def fixed_tile_advection_available(model):
+    """True when tracer advection can take the fixed-tile kernel
+    (`pallas_advection.py:50-79`): ``fixed_tiles`` set, a float32 grid,
+    WENO, UpwindBiased or Centered schemes, halos at least the stencil
+    radius, and TX a multiple of 8 and TY of 128."""
+    grid = model.grid
+    dyn = model.dynamics
+    adv = model.advection
+    if adv is None or dyn is None:
+        return False
+    fixed = getattr(getattr(dyn, "solver", None), "fixed_tiles", None)
+    if fixed is None:
+        return False
+    if grid.dtype != torch.float32:
+        return False
+    if not all(isinstance(s, (WENO, UpwindBiased, Centered)) for s in _schemes(adv)):
+        return False
+    r = required_halo(adv)
+    if grid.Hx < r or grid.Hy < r or r > _WX:
+        return False
+    TX, TY = fixed
+    if TY is None or TX % 8 or TY % 128:
+        return False
+    return True
+
+
+def _check_scheme(s):
+    if isinstance(s, UpwindBiased) and s.order not in (1, 3, 5, 7):
+        raise ValueError(f"unsupported UpwindBiased order {s.order} in the fixed-tile "
+                         "advection (`pallas_advection.py:89-115`)")
+    if isinstance(s, Centered) and s.order not in (2, 4):
+        raise ValueError(f"unsupported Centered order {s.order}")
+    if isinstance(s, WENO) and s.order not in (5, 7, 9):
+        raise ValueError(f"unsupported WENO order {s.order}")
+
+
+def _images(ext, n_int, H, periodic, device):
+    """Padded images of padded indices −_EXT … ext + _EXT − 1: wrap into the
+    interior where periodic, clamp at the padded edge where bounded
+    (`_tile_indices`)."""
+    k = torch.arange(-_EXT, ext + _EXT, device=device)
+    return H + torch.remainder(k - H, n_int) if periodic else torch.clamp(k, 0, ext - 1)
+
+
+def _array_metrics(grid):
+    return any(getattr(m, "dim", lambda: np.ndim(m))() != 0 for m in (grid.dx_cc, grid.dy_cc))
+
+
+def fixed_tile_div_reference(grid, schemes, u, v, c, masks, metrics):
+    """Plain PyTorch version of the kernel: ∇·(U c) on the padded shape.
+    ``masks``: (peripheral_fc, peripheral_cf) booleans; ``metrics``: (Δy_fc,
+    Δx_cf, Az_cc) padded arrays on grids with array metrics, else the 0-d
+    (1/Δx, 1/Δy)."""
+    sx, sy = schemes
+    for s in schemes:
+        _check_scheme(s)
+    ex = _images(grid.nxp, grid.Nx, grid.Hx, grid.topology[0] == PERIODIC, c.device)
+    ey = _images(grid.nyp, grid.Ny, grid.Hy, grid.topology[1] == PERIODIC, c.device)
+
+    def ext(q):
+        return q[ex][:, ey]
+
+    ue, ve, ce = ext(u), ext(v), ext(c)
+    lx, rx = reconstruct_face(sx, ce, 0)
+    cx = _upwind_select(ue, lx, rx)
+    ly, ry = reconstruct_face(sy, ce, 1)
+    cy = _upwind_select(ve, ly, ry)
+    arr = len(metrics) == 3
+    if arr:
+        dy_fc, dx_cf, az_cc = (ext(m) for m in metrics)
+        fx = dy_fc * ue * cx
+        fy = dx_cf * ve * cy
+    else:
+        fx = ue * cx
+        fy = ve * cy
+    fx = torch.where(ext(masks[0]), 0.0, fx)
+    fy = torch.where(ext(masks[1]), 0.0, fy)
+    dfx = torch.roll(fx, -1, 0) - fx
+    dfy = torch.roll(fy, -1, 1) - fy
+    if arr:
+        div = (dfx + dfy) / az_cc
+    else:
+        inv_dx, inv_dy = metrics
+        div = dfx * inv_dx + dfy * inv_dy
+    return div[_EXT:_EXT + grid.nxp, _EXT:_EXT + grid.nyp]
+
+
+# --- the kernel's wrapper -------------------------------------------------------
+
+_tables: dict = {}
+
+
+def _scheme_table(scheme, device):
+    """(kind, order, float32 table) of a scheme for the kernel: WENO's
+    ε, C[r][r], G[r] and B[r][r][r], each rounded to float32 as the plain
+    version's Python floats are where they meet a float32 tensor."""
+    _check_scheme(scheme)
+    key = (type(scheme), scheme.order, getattr(scheme, "epsilon", None), str(device))
+    if key not in _tables:
+        values = [0.0]
+        if isinstance(scheme, WENO):
+            C, G, B = _weno_tables_cached((scheme.order + 1) // 2)
+            values = ([scheme.epsilon] + [x for row in C for x in row] + list(G)
+                      + [x for Bk in B for row in Bk for x in row])
+        _tables[key] = (_KINDS[type(scheme)], scheme.order,
+                        torch.tensor(values, dtype=torch.float32, device=device))
+    return _tables[key]
+
+
+def _div_entry():
+    fn = _build.load("advection_fixed").csi_fixed_tile_div
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fixed_tile_div(grid, schemes, u, v, c, masks, metrics):
+    """∇·(U c) of tracer ``c`` on ``grid``'s padded shape (arguments as
+    :func:`fixed_tile_div_reference` takes them).  CUDA tensors go to the
+    kernel, one launch; CPU tensors to the plain version."""
+    device = c.device
+    if device.type == "cpu":
+        return fixed_tile_div_reference(grid, schemes, u, v, c, masks, metrics)
+    if device.type != "cuda":
+        raise ValueError(f"no advection kernel for device {device}")
+    arr = len(metrics) == 3
+    fields = (u, v, c) + (tuple(metrics) if arr else ())
+    for q in fields:
+        if (q.device != device or q.dtype != torch.float32 or tuple(q.shape) != grid.shape
+                or not q.is_contiguous()):
+            raise ValueError(f"advection arrays must be contiguous float32 {grid.shape} "
+                             f"tensors on {device}")
+    for m in masks:
+        if m.device != device or m.dtype != torch.bool or tuple(m.shape) != grid.shape \
+                or not m.is_contiguous():
+            raise ValueError(f"advection masks must be contiguous bool {grid.shape} tensors")
+    (kx, ox, tx), (ky, oy, ty) = (_scheme_table(s, device) for s in schemes)
+    prm = torch.zeros(2, dtype=torch.float32, device=device) if arr \
+        else torch.stack(list(metrics)).contiguous()
+    out = torch.empty(grid.shape, dtype=torch.float32, device=device)
+    ptrs = [u.data_ptr(), v.data_ptr(), c.data_ptr(), masks[0].data_ptr(),
+            masks[1].data_ptr()]
+    ptrs += [m.data_ptr() for m in metrics] if arr else [None] * 3
+    ptrs += [prm.data_ptr(), tx.data_ptr(), ty.data_ptr()]
+    fn = _div_entry()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*ptrs, kx, ox, ky, oy, out.data_ptr(), grid.nxp, grid.nyp, grid.Hx, grid.Nx,
+                 grid.Hy, grid.Ny, int(grid.topology[0] == PERIODIC),
+                 int(grid.topology[1] == PERIODIC), stream)
+    if err != 0:
+        raise RuntimeError(f"fixed-tile advection kernel launch failed: CUDA error {err} "
+                           f"({cuda_error_string('advection_fixed', err)})")
+    fixed_tile_advection_counter.calls += 1
+    fixed_tile_advection_counter.launches += 1
+    return out
+
+
+def make_fixed_tile_div(model, u, v):
+    """``div(c) -> ∇·(U c)`` on the fixed-tile route
+    (`pallas_advection.py:194-265`); the velocities, masks and metrics are
+    shared by every tracer's call."""
+    grid = model.grid
+    schemes = _schemes(model.advection)
+    f32 = grid.scalar
+    if _array_metrics(grid):
+        metrics = tuple(f32(getattr(grid, name)).expand(grid.shape).contiguous()
+                        for name in ("dy_fc", "dx_cf", "az_cc"))
+    else:
+        metrics = (1.0 / f32(grid.dx_cc), 1.0 / f32(grid.dy_cc))
+    masks = tuple(m.contiguous() for m in (model.masks.per_fc, model.masks.per_cf))
+    u, v = u.contiguous(), v.contiguous()
+
+    def div(c):
+        return fixed_tile_div(grid, schemes, u, v, c.contiguous(), masks, metrics)
+
+    return div

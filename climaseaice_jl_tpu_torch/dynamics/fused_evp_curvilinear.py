@@ -110,6 +110,8 @@ def curvilinear_fused_available(model):
         # (4.63 against 2.72 ms per call on an H100 SXM at 700 W, timed in
         # turns by chip_smoke.py phase 6)
         return False
+    if dyn.solver.fixed_tiles is not None:
+        return False   # the pinned-tile mode (`pallas_evp_curvilinear.py:69`)
     if any(t not in (PERIODIC, BOUNDED) for t in grid.topology):
         return False
     if grid.north_fold and grid.topology[1] != BOUNDED:

@@ -115,13 +115,14 @@ def padded_fused_available(model):
 
 # --- the plain version ----------------------------------------------------------
 
-def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
-    """Plain PyTorch version of the kernel: ``nsub`` substeps on padded
-    arrays with circular shifts over the padded extent, in the TPU kernel's
-    operation order (`pallas_evp_padded.py:167-372`).  The u/v halo fills
-    are the serial fills of :mod:`..fields`, which concatenate exactly as
-    the TPU kernel's `_make_fillers` (`pallas_evp_padded.py:119-164`).
-    Returns the new (u, v, σ₁₁, σ₂₂, σ₁₂, α)."""
+def padded_loop_functions(params, consts, fill_fc, fill_cf, ax=0):
+    """The padded substep's σ relaxation and u and v updates as closures
+    ``stresses(u, v, s11, s22, s12) -> (s11, s22, s12, α)``,
+    ``u_update(u, v, s11, s12, α)`` and ``v_update(u, v, s22, s12, α)``, in
+    the TPU kernel's operation order (`pallas_evp_padded.py:167-372`), with
+    circular shifts along axes ``ax`` (x) and ``ax + 1`` (y): 0 for whole
+    padded arrays, 1 for a batch of tiles.  ``fill_fc``/``fill_cf`` refill
+    the new u and v."""
     p = params
     dt = p[_P_DT]
     inv_dx = 1.0 / p[_P_DX]
@@ -133,6 +134,7 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
     a_max = p[_P_AMAX]
     d_min = p[_P_DMIN]
     repl_on = bool(p[_P_REPL] != 0)
+    X, Y = ax, ax + 1
 
     consts = tuple(consts)
     has_drag = len(consts) == N_CONSTS + N_DRAG + N_STRESS
@@ -142,12 +144,6 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
         imms_u, immn_u, immw_v, imme_v = consts[N_CONSTS:N_CONSTS + N_DRAG]
     tau_u_top, tau_v_top, ue, ve = consts[-N_STRESS:]
 
-    def fill_fc(q):
-        return fill_halos_fc(q, grid)
-
-    def fill_cf(q):
-        return fill_halos_cf(q, grid)
-
     def sp(q, axis):   # q[I-1]
         return torch.roll(q, 1, axis)
 
@@ -155,26 +151,26 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
         return torch.roll(q, -1, axis)
 
     def ixf_(q):
-        return 0.5 * (q + sp(q, 0))
+        return 0.5 * (q + sp(q, X))
 
     def iyf_(q):
-        return 0.5 * (q + sp(q, 1))
+        return 0.5 * (q + sp(q, Y))
 
     def ixyf_(q):
-        t = q + sp(q, 1)
-        return 0.25 * (t + sp(t, 0))
+        t = q + sp(q, Y)
+        return 0.25 * (t + sp(t, X))
 
     def ixyc_(q):
-        t = q + sm(q, 1)
-        return 0.25 * (t + sm(t, 0))
+        t = q + sm(q, Y)
+        return 0.25 * (t + sm(t, X))
 
     def ixf_yc_(q):
-        t = q + sm(q, 1)
-        return 0.25 * (t + sp(t, 0))
+        t = q + sm(q, Y)
+        return 0.25 * (t + sp(t, X))
 
     def ixc_yf_(q):
-        t = q + sp(q, 1)
-        return 0.25 * (t + sm(t, 0))
+        t = q + sp(q, Y)
+        return 0.25 * (t + sm(t, X))
 
     inv_dt = 1.0 / dt
     inv_dmin = 1.0 / d_min
@@ -188,9 +184,9 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
     ok_ff = gff > 0
 
     def stresses(u, v, s11, s22, s12):
-        e11 = (sm(u, 0) - u) * inv_dx
-        e22 = (sm(v, 1) - v) * inv_dy
-        eS = (u - sp(u, 1)) * inv_dy + (v - sp(v, 0)) * inv_dx   # 2ϵ̇₁₂ at ff
+        e11 = (sm(u, X) - u) * inv_dx
+        e22 = (sm(v, Y) - v) * inv_dy
+        eS = (u - sp(u, Y)) * inv_dy + (v - sp(v, X)) * inv_dx   # 2ϵ̇₁₂ at ff
         d_cc = e11 + e22
         t_cc = e11 - e22
         d_ff = ixyf_(d_cc)
@@ -226,7 +222,7 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
     def u_update(u, v, s11, s12, alpha):
         s11m = s11 * msk_cc
         s12m = s12 * msk_ff
-        div_x = (s11m - sp(s11m, 0)) * inv_dx + (sm(s12m, 1) - s12m) * inv_dy
+        div_x = (s11m - sp(s11m, X)) * inv_dx + (sm(s12m, Y) - s12m) * inv_dy
         v_fc = ixf_yc_(v)
         du = ue - u
         dv = ve_fc - v_fc
@@ -234,7 +230,7 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
         Gu = (f_cor * v_fc - tau_u_top * drag_u + rC * speed * ue * drag_u
               + div_x * invm_u)
         if has_drag:
-            Gu = Gu - (imms_u * u + immn_u * sm(u, 1)) * invm_u
+            Gu = Gu - (imms_u * u + immn_u * sm(u, Y)) * invm_u
         Gu = Gu + (un - u) * inv_dt
         Gu = torch.where(invm_u > 0, Gu, 0.0)
         idtau = ixf_(alpha) * inv_dt
@@ -244,7 +240,7 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
     def v_update(u, v, s22, s12, alpha):
         s22m = s22 * msk_cc
         s12m = s12 * msk_ff
-        div_y = (s22m - sp(s22m, 1)) * inv_dy + (sm(s12m, 0) - s12m) * inv_dx
+        div_y = (s22m - sp(s22m, Y)) * inv_dy + (sm(s12m, X) - s12m) * inv_dx
         u_cf = ixc_yf_(u)
         dv = ve - v
         du = ue_cf - u_cf
@@ -252,16 +248,23 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
         Gv = (-f_cor * u_cf - tau_v_top * drag_v + rC * speed * ve * drag_v
               + div_y * invm_v)
         if has_drag:
-            Gv = Gv - (immw_v * v + imme_v * sm(v, 0)) * invm_v
+            Gv = Gv - (immw_v * v + imme_v * sm(v, X)) * invm_v
         Gv = Gv + (vn - v) * inv_dt
         Gv = torch.where(invm_v > 0, Gv, 0.0)
         idtau = iyf_(alpha) * inv_dt
         v_new = (v * idtau + Gv) / (idtau + rC * speed * drag_v) * act_v
         return fill_cf(v_new)
 
+    return stresses, u_update, v_update
+
+
+def run_substeps(functions, carry, first, count):
+    """Substeps ``first`` … ``first + count − 1`` of the loop on
+    ``carry = (u, v, σ₁₁, σ₂₂, σ₁₂, α)``: σ relaxation, then v and u on odd
+    substeps, u and v on even ones."""
+    stresses, u_update, v_update = functions
     u, v, s11, s22, s12, alpha = carry
-    u, v = fill_fc(u), fill_cf(v)
-    for substep in range(1, nsub + 1):
+    for substep in range(first, first + count):
         s11, s22, s12, alpha = stresses(u, v, s11, s22, s12)
         if substep % 2 == 0:
             u = u_update(u, v, s11, s12, alpha)
@@ -270,6 +273,24 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
             v = v_update(u, v, s22, s12, alpha)
             u = u_update(u, v, s11, s12, alpha)
     return u, v, s11, s22, s12, alpha
+
+
+def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
+    """Plain PyTorch version of the kernel: ``nsub`` substeps on padded
+    arrays with circular shifts over the padded extent, in the TPU kernel's
+    operation order (`pallas_evp_padded.py:167-372`).  The u/v halo fills
+    are the serial fills of :mod:`..fields`, which concatenate exactly as
+    the TPU kernel's `_make_fillers` (`pallas_evp_padded.py:119-164`).
+    Returns the new (u, v, σ₁₁, σ₂₂, σ₁₂, α)."""
+    def fill_fc(q):
+        return fill_halos_fc(q, grid)
+
+    def fill_cf(q):
+        return fill_halos_cf(q, grid)
+
+    u, v, s11, s22, s12, alpha = carry
+    functions = padded_loop_functions(params, consts, fill_fc, fill_cf)
+    return run_substeps(functions, (fill_fc(u), fill_cf(v), s11, s22, s12, alpha), 1, nsub)
 
 
 # --- the kernel's wrapper -------------------------------------------------------
@@ -329,13 +350,142 @@ def padded_evp_substeps(params, consts, carry, nsub, grid):
     return carry
 
 
+# --- the fixed-tile coefficient kernel -------------------------------------------
+#
+# Counterpart of `pallas_evp_padded.py:512-621` (`_prep_kernel` run by
+# `_fixed_tile_prepare`): the ten coefficient arrays of the substep loop from
+# h and ℵ, each point from its own and its i−1, j−1 neighbours.  The TPU
+# kernel gathers (TX+16, TY+128) tiles of the padded arrays, wrapping into
+# the interior along a periodic direction and clamping at the padded edge
+# along a bounded one, and shifts inside the tile; a point's neighbours are
+# therefore the gathered images of its padded index − 1.  Both versions here
+# read those images directly (``csrc/evp_prep.cu``: one thread per padded
+# point).  Along a periodic direction the point itself is read from its
+# interior image too, as the gather does.  This differs from
+# :func:`.fused_evp.evp_coefficients`, whose shifts wrap over the padded
+# extent, in the outermost halo ring only.
+
+N_PREP_PARAMS = 7   # ρ, P★, C, c_α·Δt, Az, minimum mass, minimum concentration
+N_PREP_OUT = 10     # P, Pff, gcc, gff, drag_u, invm_u, act_u, drag_v, invm_v, act_v
+
+evp_prep_counter = KernelCounter()
+
+
+def _prep_sources(ext, n_int, H, periodic, device):
+    """Padded source index of every padded index k − 1, k = 0 … ext (entry 0
+    is the image of index −1): `_tile_indices`' wrap or clamp."""
+    k = torch.arange(-1, ext, device=device)
+    return H + torch.remainder(k - H, n_int) if periodic else torch.clamp(k, 0, ext - 1)
+
+
+def evp_prep_params(model, dt):
+    """The float32[7] parameters of the coefficient kernel, formed as
+    `pallas_evp_padded.py:595-603` forms them; ``dt`` a 0-d float32 tensor."""
+    grid = model.grid
+    dyn = model.dynamics
+    rheo = dyn.rheology
+    f32 = grid.scalar
+    return torch.stack([f32(model.sea_ice_density), f32(rheo.ice_compressive_strength),
+                        f32(rheo.ice_compaction_hardening),
+                        f32(rheo.relaxation_strength) * dt,
+                        f32(grid.dx_cc) * f32(grid.dy_cc),
+                        f32(dyn.minimum_mass), f32(dyn.minimum_concentration)])
+
+
+def evp_prep_reference(prm, h, a, grid):
+    """Plain PyTorch version of the coefficient kernel, in `_prep_kernel`'s
+    operation order (`pallas_evp_padded.py:537-555`): the ten coefficient
+    arrays on the padded shape."""
+    rho, Pstar, Chard, cadt, az, mass_min, conc_min = prm
+    ex = _prep_sources(grid.nxp, grid.Nx, grid.Hx, grid.topology[0] == PERIODIC, h.device)
+    ey = _prep_sources(grid.nyp, grid.Ny, grid.Hy, grid.topology[1] == PERIODIC, h.device)
+    he, ae = h[ex][:, ey], a[ex][:, ey]        # (nxp + 1, nyp + 1) images
+    m = he * ae * rho
+    P = Pstar * he * torch.exp(-Chard * (1 - ae))
+
+    def c(q):      # the point
+        return q[1:, 1:]
+
+    def xm(q):     # its i − 1 image
+        return q[:-1, 1:]
+
+    def ym(q):     # its j − 1 image
+        return q[1:, :-1]
+
+    def ff(q):     # ixf(iyf(q))
+        return 0.5 * (0.5 * (c(q) + ym(q)) + 0.5 * (xm(q) + q[:-1, :-1]))
+
+    m_cc, m_ff = c(m), ff(m)
+    m_fc, a_fc = 0.5 * (m_cc + xm(m)), 0.5 * (c(ae) + xm(ae))
+    m_cf, a_cf = 0.5 * (m_cc + ym(m)), 0.5 * (c(ae) + ym(ae))
+
+    def gamma2(mq):
+        ok = mq > 0
+        return torch.where(ok, cadt / (torch.where(ok, mq, 1.0) * az), -1.0)
+
+    def inv0(mq):
+        ok = mq > 0
+        return torch.where(ok, 1.0 / torch.where(ok, mq, 1.0), 0.0)
+
+    invm_u, invm_v = inv0(m_fc), inv0(m_cf)
+    act_u = ((m_fc >= mass_min) & (a_fc >= conc_min)).to(torch.float32)
+    act_v = ((m_cf >= mass_min) & (a_cf >= conc_min)).to(torch.float32)
+    return tuple(q.contiguous() for q in (
+        c(P), ff(P), gamma2(m_cc), gamma2(m_ff), invm_u * a_fc, invm_u, act_u,
+        invm_v * a_cf, invm_v, act_v))
+
+
+def _prep_entry():
+    fn = _build.load("evp_prep").csi_evp_prep
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def evp_prep(prm, h, a, grid):
+    """The ten coefficient arrays of the substep loop from h and ℵ on
+    ``grid``'s padded shape.  CUDA tensors go to the kernel
+    (``csrc/evp_prep.cu``, one launch), CPU tensors to
+    :func:`evp_prep_reference`."""
+    device = prm.device
+    if device.type == "cpu":
+        if h.device != device or a.device != device:
+            raise ValueError("coefficient tensors span devices")
+        return evp_prep_reference(prm, h, a, grid)
+    if device.type != "cuda":
+        raise ValueError(f"no coefficient kernel for device {device}")
+    if prm.dtype != torch.float32 or tuple(prm.shape) != (N_PREP_PARAMS,) \
+            or not prm.is_contiguous():
+        raise ValueError(f"prep parameters must be a contiguous float32[{N_PREP_PARAMS}]")
+    for q in (h, a):
+        if (q.device != device or q.dtype != torch.float32 or tuple(q.shape) != grid.shape
+                or not q.is_contiguous()):
+            raise ValueError(f"h and ℵ must be contiguous float32 {grid.shape} tensors "
+                             f"on {device}")
+    out = torch.empty((N_PREP_OUT,) + grid.shape, dtype=torch.float32, device=device)
+    fn = _prep_entry()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(prm.data_ptr(), h.data_ptr(), a.data_ptr(), out.data_ptr(),
+                 grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy, grid.Ny,
+                 int(grid.topology[0] == PERIODIC), int(grid.topology[1] == PERIODIC), stream)
+    if err != 0:
+        raise RuntimeError(f"EVP coefficient kernel launch failed: CUDA error {err} "
+                           f"({cuda_error_string('evp_prep', err)})")
+    evp_prep_counter.calls += 1
+    evp_prep_counter.launches += 1
+    return tuple(out.unbind(0))
+
+
 # --- the launcher ---------------------------------------------------------------
 
 def padded_evp_inputs(model, state, dt, u_start, v_start):
     """(params, consts, carry, P) of the padded substep loop, as
-    `pallas_evp_padded.py:375-509` assembles them (without its
-    ``fixed_tiles`` branch, kernel 2.4).  The carry tensors are fresh
-    copies."""
+    `pallas_evp_padded.py:375-509` assembles them; with
+    ``solver.fixed_tiles`` the coefficients come from :func:`evp_prep`
+    (kernel 2.4), as its ``fixed_tiles`` branch has them.  The carry tensors
+    are fresh copies."""
     from ..model import make_fields
 
     grid = model.grid
@@ -343,8 +493,12 @@ def padded_evp_inputs(model, state, dt, u_start, v_start):
     masks = model.masks
     f32 = grid.scalar
     dt = f32(dt)
-    (P, Pff, gcc, gff, drag_u, invm_u, act_u,
-     drag_v, invm_v, act_v) = evp_coefficients(model, state, dt)
+    if dyn.solver.fixed_tiles is not None:
+        (P, Pff, gcc, gff, drag_u, invm_u, act_u, drag_v, invm_v, act_v) = evp_prep(
+            evp_prep_params(model, dt), state.h.contiguous(), state.a.contiguous(), grid)
+    else:
+        (P, Pff, gcc, gff, drag_u, invm_u, act_u,
+         drag_v, invm_v, act_v) = evp_coefficients(model, state, dt)
     act_u = act_u * (~masks.per_fc).to(torch.float32)
     act_v = act_v * (~masks.per_cf).to(torch.float32)
     msk_cc = (~masks.solid_cc).to(torch.float32)   # 1 where σ₁₁, σ₂₂ are read

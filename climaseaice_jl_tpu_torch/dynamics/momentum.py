@@ -34,6 +34,7 @@ from .rheologies import (ElastoViscoPlasticRheology, ice_strength,
                          rheology_forcing_u, rheology_forcing_v)
 
 _FUSED_MODES = ("auto", "always", "never")
+_HALO_POLICIES = ("per_substep", "wide", "overlap")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,13 +44,37 @@ class SplitExplicitSolver:
     ``fused``: 'auto' and 'always' take the fused EVP route
     (:mod:`.fused_evp`: the CUDA kernel on CUDA tensors, its plain version on
     CPU tensors) when the configuration allows it; 'never' keeps the general
-    path."""
+    path.
+
+    ``halo_exchange``: the distributed halo policy of the JAX package
+    ('per_substep', 'wide' or 'overlap'; `momentum.py:56-61, 489-534`).
+    Only meshed grids read it, and the distributed stepper is not ported
+    yet (queue 9), so serial runs accept and ignore it, as the JAX package
+    does.
+
+    ``fixed_tiles=(TX, TY)`` (``TY=None``: y-spanning slabs) selects the
+    decomposition-invariant mode: the EVP coefficients, the EVP substep loop,
+    the tracer advection and the slab thermodynamics go through the
+    fixed-tile kernels, whose per-point arithmetic does not depend on the
+    array shape, the halo width or the launch geometry."""
     substeps: int = 120
     fused: str = "auto"
+    halo_exchange: str = "per_substep"
+    fixed_tiles: tuple | None = None
 
     def __post_init__(self):
         if self.fused not in _FUSED_MODES:
             raise ValueError(f"fused must be one of {_FUSED_MODES}, got {self.fused!r}")
+        if self.halo_exchange not in _HALO_POLICIES:
+            raise ValueError(f"halo_exchange must be one of {_HALO_POLICIES}, "
+                             f"got {self.halo_exchange!r}")
+        if self.fixed_tiles is not None:
+            tiles = tuple(self.fixed_tiles)
+            if (len(tiles) != 2 or not isinstance(tiles[0], int) or tiles[0] < 1
+                    or not (tiles[1] is None or (isinstance(tiles[1], int) and tiles[1] >= 1))):
+                raise ValueError(f"fixed_tiles must be (TX, TY) with positive integers "
+                                 f"(TY may be None), got {self.fixed_tiles!r}")
+            object.__setattr__(self, "fixed_tiles", tiles)
 
 
 @frozen_dataclass

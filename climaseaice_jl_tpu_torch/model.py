@@ -8,7 +8,12 @@ the grid's device.  The EVP substep loop of eligible models goes to a CUDA
 kernel: grids with array metrics or a north fold to
 :mod:`.dynamics.fused_evp_curvilinear`, doubly periodic rectilinear grids
 without land to :mod:`.dynamics.fused_evp`, other bounded or immersed
-rectilinear ones to :mod:`.dynamics.fused_evp_padded`.
+rectilinear ones to :mod:`.dynamics.fused_evp_padded`.  With
+``SplitExplicitSolver(fixed_tiles=…)`` (the decomposition-invariant mode) a
+rectilinear model takes the fixed-tile kernels instead: the tiled EVP loop
+(:mod:`.dynamics.fused_evp_tiled_padded`) with its coefficient kernel, the
+advection of :mod:`.dynamics.fixed_tile_advection` and the column physics of
+:mod:`.thermodynamics.fixed_tile_thermo`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,12 @@ from .dynamics.fused_evp_padded import padded_fused_available, padded_fused_mome
 from .dynamics.fused_evp_curvilinear import (curvilinear_fused_available,
                                              curvilinear_fused_momentum_step,
                                              _solid_crop_rows)
+from .dynamics.fused_evp_tiled_padded import (tiled_padded_available,
+                                              tiled_padded_momentum_step)
+from .dynamics.fixed_tile_advection import (fixed_tile_advection_available,
+                                            make_fixed_tile_div)
+from .thermodynamics.slab import SlabThermodynamics
+from .thermodynamics.fixed_tile_thermo import fixed_tile_thermo_step
 from .dynamics.stresses import place_stress
 
 
@@ -121,6 +132,7 @@ def sea_ice_model(grid: Grid,
             top_momentum_stress=place_stress(dynamics.top_momentum_stress, grid),
             bottom_momentum_stress=place_stress(dynamics.bottom_momentum_stress, grid))
 
+    fixed_tiles(grid, dynamics)
     if advection is not None:
         need = required_halo(advection)
         if min(h for h in (grid.Hx, grid.Hy) if h > 0) < need:
@@ -142,6 +154,20 @@ def sea_ice_model(grid: Grid,
                        advection=advection,
                        timestepper=timestepper,
                        forcing=None)
+
+
+def fixed_tiles(grid, dynamics):
+    """The solver's ``fixed_tiles``, or None.  Raises on grids with array
+    metrics or a north fold, whose fixed-tile kernels (the pinned tiled
+    curvilinear EVP loop, 2.7, and its ice-strength kernel, 2.8) belong to
+    the tripolar fixed-tile slice of the port."""
+    solver = getattr(dynamics, "solver", None)
+    tiles = getattr(solver, "fixed_tiles", None)
+    if tiles is not None and (grid.kind != "rectilinear" or grid.north_fold):
+        raise NotImplementedError(
+            "fixed_tiles on grids with array metrics or a north fold belongs to the "
+            "tripolar fixed-tile slice of the port (kernels 2.7 pinned and 2.8)")
+    return tiles
 
 
 def _equilibrium_top_flux(thermo, pt):
@@ -265,17 +291,24 @@ def update_state(model, state):
 def tracer_tendencies(model, state):
     """G = −∇·(U c) for h, ℵ, hs and extra tracers.
 
-    Solid-row crop: on the ≥ 32 southernmost interior rows that are land
-    across every x, every face is peripheral, so the divergence is exactly
-    zero there.  It is computed on a row-sliced view of the grid and a band
-    of zeros takes the cropped rows and the view's first Hy output rows
-    (whose stencils wrap); every kept row is bitwise the uncropped value."""
+    With ``fixed_tiles`` the divergence comes from the fixed-tile advection
+    kernel where :func:`fixed_tile_advection_available` allows it
+    (`model.py:303-310`).  Otherwise, solid-row crop: on the ≥ 32
+    southernmost interior rows that are land across every x, every face is
+    peripheral, so the divergence is exactly zero there.  It is computed on
+    a row-sliced view of the grid and a band of zeros takes the cropped rows
+    and the view's first Hy output rows (whose stencils wrap); every kept
+    row is bitwise the uncropped value.  The crop stays off under
+    ``fixed_tiles``, as in `model.py:317`."""
     grid = model.grid
     adv = model.advection
     u, v = state.u, state.v
     adv_masks = (model.masks.per_fc, model.masks.per_cf)
-    cs = model.masks.solid_rows if adv is not None else 0
-    if cs >= 32:
+    fixed = fixed_tiles(grid, model.dynamics)
+    cs = model.masks.solid_rows if adv is not None and fixed is None else 0
+    if fixed is not None and fixed_tile_advection_available(model):
+        div = make_fixed_tile_div(model, u, v)
+    elif cs >= 32:
         gc = south_crop_grid(grid, cs)
         uc, vc = u[:, cs:], v[:, cs:]
         mc = (adv_masks[0][:, cs:], adv_masks[1][:, cs:])
@@ -327,11 +360,13 @@ def dynamic_step_tracers(model, state, G, dt, base=None):
 # --- momentum dispatch --------------------------------------------------------
 
 def momentum_step(model, state, dt, u_prev=None, v_prev=None):
-    """Dispatch on the dynamics in the JAX package's order, unless ``fused``
-    is 'never': the curvilinear fused EVP route where
-    :func:`curvilinear_fused_available` allows it, else the periodic one
-    where :func:`fused_available` does, else the padded one where
-    :func:`padded_fused_available` does, else the general split-explicit
+    """Dispatch on the dynamics in the JAX package's order
+    (`model.py:401-445`), unless ``fused`` is 'never': the curvilinear fused
+    EVP route where :func:`curvilinear_fused_available` allows it; without
+    ``fixed_tiles`` the periodic one where :func:`fused_available` does, else
+    the padded one where :func:`padded_fused_available` does; with
+    ``fixed_tiles`` the tiled padded one where
+    :func:`tiled_padded_available` does; else the general split-explicit
     path."""
     dyn = model.dynamics
     if dyn is None:
@@ -341,12 +376,15 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     u_start = u_prev if u_prev is not None else state.u
     v_start = v_prev if v_prev is not None else state.v
     fused = dyn.solver.fused != "never"
+    fixed = fixed_tiles(model.grid, dyn) is not None
     if fused and curvilinear_fused_available(model):
         upd = curvilinear_fused_momentum_step(model, state, dt, u_start, v_start)
-    elif fused and fused_available(model):
+    elif fused and not fixed and fused_available(model):
         upd = fused_split_explicit_momentum_step(model, state, dt, u_start, v_start)
-    elif fused and padded_fused_available(model):
+    elif fused and not fixed and padded_fused_available(model):
         upd = padded_fused_momentum_step(model, state, dt, u_start, v_start)
+    elif fused and fixed and tiled_padded_available(model):
+        upd = tiled_padded_momentum_step(model, state, dt, u_start, v_start)
     else:
         upd = split_explicit_momentum_step(model, state, dt, u_start, v_start)
     return state.evolve(**upd)
@@ -355,9 +393,15 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
 # --- thermodynamic dispatch ---------------------------------------------------
 
 def thermodynamic_step(model, state, dt):
-    """Slab column step: bare ice, or snow on ice."""
+    """Slab column step: bare ice, or snow on ice.  A float32
+    SlabThermodynamics model with ``fixed_tiles`` runs the column step in the
+    fixed-tile kernel (`model.py:458-466`)."""
     if model.ice_thermodynamics is None:
         return state
+    if (fixed_tiles(model.grid, model.dynamics) is not None
+            and model.grid.dtype == torch.float32
+            and isinstance(model.ice_thermodynamics, SlabThermodynamics)):
+        return fixed_tile_thermo_step(model, state, dt)
     fields = make_fields(model, state)
     if model.snow_thermodynamics is None:
         h1, a1, Tu, diags = bare_ice_thermodynamic_step(model, state, fields, dt)

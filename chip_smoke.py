@@ -83,7 +83,31 @@ Phases, each of which raises (exit code 1) when it fails:
 15. halo 5 against halo 19 on the card: the fixed-tile slice for five RK3
     steps, bitwise-equal interiors of u, v, h, ℵ, σ₁₁, σ₂₂, σ₁₂ and α;
 16. the fixed-tile route on the card and on the CPU, 128² bounded + island
-    + drag in soft ice, 2 RK3 steps; bars as in phase 5.
+    + drag in soft ice, 2 RK3 steps; bars as in phase 5;
+17. the tripolar fixed-tile kernels vs their plain versions on the card, on
+    the basin of ``validation/run_distributed_basin.py:build(1152, 960,
+    fixed_tiles=(8, 128))`` in soft ice with seeded velocities, 24
+    substeps, each timed per call with its plain version: the pinned
+    curvilinear EVP loop on the 1162×1018 widened arrays (phase 2's bars
+    over the interiors; with chunks of 4 and 2 substeps, and against the
+    whole-array curvilinear kernel fed the same coefficients, bitwise or
+    within 1e-5, timed in turns with it); the ice strength on the
+    widened h, ℵ (within 2 ulp); both wind components (within 2 ulp); the
+    snow column physics with the solar FluxFunction (within 1e-5);
+18. the slice's main path: that basin at the default P★, dt 600 s, one
+    warm-up step, five timed ``cst.step`` calls and two iterations of
+    ``Simulation.run``; every field finite, halos included, h, hs ≥ 0,
+    0 ≤ ℵ ≤ 1, land empty, the fold halo of u equal to minus its mirror; per
+    step one pinned EVP call (two chunks), one ice-strength, two wind, three
+    advection and one column call, and no call of the other EVP kernels; in
+    turns with the same build without ``fixed_tiles``; one profiled step's
+    device-busy share and host waits;
+19. halo 5 against halo 19 on the card: the basin at 360×300 (the script's
+    default size), 3 steps, bitwise-equal interiors of u, v, h, ℵ, hs, σ₁₁,
+    σ₂₂, σ₁₂ and α;
+20. the tripolar fixed-tile route on the card and on the CPU, the 32×64
+    basin in soft ice with seeded velocities and 10 cm of snow, 2 steps;
+    bars as in phase 12.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and as the last line
@@ -163,6 +187,44 @@ ADV_BYTES_PER_POINT = 18
 # outputs written
 THERMO_FLOPS_PER_POINT = 254
 THERMO_ARRAYS = 12
+# csrc/evp_tiled_curvilinear.cu computes evp_curvilinear.cu's substep
+# function (CURV_FLOPS_PER_POINT_SUBSTEP) and derives its loop-invariant
+# block once per call, per padded point: the 8 metric forms, m 2, P 5, Pff 3,
+# m_ff 3, the four face averages 8, gcc and gff 4, the two 1/m 2, the two
+# drags 2, the peripheral masks 3, the σ masks 2, the immersed-drag weights
+# 4, the ocean velocity averages 6, ½P and ½Pff 2
+TC_FLOPS_PER_POINT_CALL = 54
+TC_ARRAYS_READ = 27      # 21 raw planes + 6 carried fields
+# csrc/ice_strength_fixed.cu: P★·h, 1 − ℵ, its product with −C, exp and the
+# product, per point; h and ℵ read, P written
+STRENGTH_FLOPS_PER_POINT = 5
+STRENGTH_ARRAYS = 3
+# csrc/pointwise_fixed.cu: the recorded program's operations per point, each
+# value once (the recorder shares repeated subexpressions), a clamp 2,
+# selects not counted; longitude and latitude read, the stress written
+POINTWISE_ARRAYS = 3
+# csrc/thermo_fixed.cu, snow on ice, 20 secant iterations, the basin's top
+# flux (the solar program, three series and emission, summed: F operations),
+# per padded point: the secant 2 + 22·(F + 6) + 20·6, its cap 3, the
+# interface temperature 6, conduction 5, the top flux once more F, the
+# snow-surface balance 8, the closed-form ℵ 21, the latent energies 8, the
+# volume tendency 5, the volume and concentration update 19, snow rebasing,
+# snowfall and flooding 24, the diagnostics 12; h, ℵ, hs, S, Tu, Tus and the
+# latitude read, 10 outputs written
+LAYERED_THERMO_ARRAYS = 17
+
+
+def layered_thermo_flops(F):
+    return 2 + 22 * (F + 6) + 120 + 3 + 6 + 5 + F + 8 + 21 + 8 + 5 + 19 + 24 + 12
+
+
+def program_flops(ops):
+    """Operations per point of a recorded program (a clamp 2, selects,
+    loads and stores not counted)."""
+    from climaseaice_jl_tpu_torch.dynamics import fixed_tile_pointwise as fpw
+    free = (fpw.OP_CONST, fpw.OP_ARRAY, fpw.OP_SCALAR, fpw.OP_TEMP, fpw.OP_LOAD,
+            fpw.OP_STORE, fpw.OP_WHERE)
+    return sum(2 if op == fpw.OP_CLAMP else 1 for op, _, _ in ops if op not in free)
 KM = 1000.0
 MINUTE, DAY = 60.0, 86400.0
 
@@ -242,6 +304,34 @@ def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, botto
                              ice_thermodynamics=cst.sea_ice_slab_thermodynamics(),
                              advection=cst.WENO(order=7),
                              timestepper="SplitRungeKutta3", **thermo)
+
+
+def fixed_basin(Nx, Ny, fixed_tiles=(8, 128), device="cuda", soft=False, seed=None,
+                snow=0.0, halo=5):
+    """The basin of validation/run_distributed_basin.py:build in the port;
+    ``soft`` sets P★ = 27.5, ``seed`` seeds the velocities, ``snow`` puts
+    that much snow on the ice."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import climaseaice_jl_tpu_torch as cst
+    from climaseaice_jl_tpu_torch import distributed_basin
+    model, state = distributed_basin.build(Nx, Ny, fixed_tiles=fixed_tiles, halo=halo,
+                                           device=device)
+    if soft:
+        dyn = model.dynamics
+        model = dataclasses.replace(model, dynamics=dataclasses.replace(
+            dyn, rheology=dataclasses.replace(dyn.rheology, ice_compressive_strength=27.5)))
+    if seed is None and not snow:
+        return model, state
+    g = model.grid
+    kw = dict(h=g.interior(state.h), a=g.interior(state.a),
+              hs=snow * (g.interior(state.a) > 0).to(torch.float32))
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        kw.update({c: torch.as_tensor(0.05 * rng.standard_normal(g.interior_shape),
+                                      dtype=torch.float32, device=device) for c in "uv"})
+    return model, cst.initial_state(model, **kw)
 
 
 def anticyclone_wind(cst):
@@ -1144,6 +1234,255 @@ def main(argv=None):
                           torch.as_tensor(finals["cuda"][name]))
         check(name, rel, bar)
 
+    # --- 17. the tripolar fixed-tile kernels vs their plain versions ---------------------------
+    from climaseaice_jl_tpu_torch import distributed_basin
+    from climaseaice_jl_tpu_torch.dynamics import fixed_tile_pointwise as fpw
+    from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ftc
+    tc_counter = ftc.tiled_curvilinear_evp_counter
+    strength_counter = ftc.ice_strength_counter
+    pw_counter = fpw.fixed_tile_pointwise_counter
+    tsub, dt = 24, 600.0
+    model, state = fixed_basin(1152, 960, soft=True, seed=9, snow=0.1)
+    plan = ftc._fixed_plan(model.grid, tsub, fixed, widen_fold=True)
+    params, planes, carry, wgrid, flags = ftc.tiled_curvilinear_inputs(
+        model, state, dt, state.u, state.v, Hw=2 * plan[0] + 5)
+    WI = wgrid.interior
+    points = wgrid.nxp * wgrid.nyp
+    print(f"[17] tripolar fixed-tile kernels vs plain versions, basin {model.grid.Nx}×"
+          f"{model.grid.Ny} widened to {wgrid.nxp}×{wgrid.nyp} (plan K, TX, TY, Wx, Wy = "
+          f"{plan}), soft ice, {tsub} substeps, on {card}:")
+    tc_counter.reset()
+    out = ftc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry], tsub,
+                                             wgrid, plan, flags)
+    tc_launches_per_call = tc_counter.launches
+    chunked = [ftc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry],
+                                                  tsub, wgrid, plan, flags, chunk=c)
+               for c in (4, 2)]
+    ref = ftc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, tsub, wgrid,
+                                                       plan, flags)
+    p18, c_consts, c_planes = ftc.curvilinear_consts(params, planes, wgrid, plan, flags)
+    whole = fused_evp_curvilinear.curvilinear_evp_substeps(p18, c_consts,
+                                                           [q.clone() for q in carry], tsub,
+                                                           wgrid, c_planes)
+    torch.cuda.synchronize()
+    print(f"  pinned curvilinear EVP ({tc_launches_per_call} launches a call), interiors:")
+    worst_rel = worst_abs = 0.0
+    for name, r, o, bar in zip(names[:2] + names[4:], ref, out,
+                               (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
+        if not torch.isfinite(WI(o)).all():
+            raise AssertionError(f"{name} from the pinned curvilinear kernel is not finite")
+        rel, abs_err = rel_diff(WI(r), WI(o))
+        check(name, rel, bar)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    same_plain = all(torch.equal(WI(r), WI(o)) for r, o in zip(ref, out))
+    same_chunks = all(torch.equal(WI(x), WI(o)) for c in chunked for x, o in zip(c, out))
+    same_whole = all(torch.equal(WI(w), WI(o)) for w, o in zip(whole, out))
+    print(f"    bitwise: plain version {same_plain}, chunks of 12, 4 and 2 {same_chunks}, "
+          f"whole-array kernel on the same coefficients {same_whole}")
+    # The fold halo evolves exactly only where the arithmetic is exactly
+    # mirror-antisymmetric; the reference's own contract is bitwise equality
+    # at one chunk length (`pallas_evp_tiled_curvilinear.py:89-93`), which
+    # phase 19 holds.  Other chunk lengths and the whole-array kernel are
+    # held within 1e-5, with where they part.
+    ref4 = ftc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, tsub, wgrid,
+                                                        plan, flags, chunk=4)
+    for label, other, base in (("chunks of 4", chunked[0], out), ("chunks of 2", chunked[1], out),
+                               ("2.6", whole, out), ("plain, chunks of 4", ref4, ref)):
+        for name, w, o in zip(names[:2] + names[4:], other, base):
+            d = (WI(w).double() - WI(o).double()).abs()
+            if d.max() > 0:
+                i, j = divmod(int(d.argmax()), d.shape[1])
+                print(f"    {label}: {name} max rel diff {rel_diff(WI(o), WI(w))[0]:.3e} at "
+                      f"interior ({i}, {j}), {wgrid.Ny - 1 - j} rows below the seam")
+            check(f"{name}/{label}", rel_diff(WI(o), WI(w))[0], 1e-5)
+    work = [q.clone() for q in carry]
+    work_whole = [q.clone() for q in carry]
+    kernel_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps(
+        params, planes, work, tsub, wgrid, plan, flags), 20)
+    plain_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps_reference(
+        params, planes, carry, tsub, wgrid, plan, flags), 2)
+    bytes_ms, ops_ms = bounds_ms(
+        ((TC_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + ftc.N_PARAMS) * 4,
+        (CURV_FLOPS_PER_POINT_SUBSTEP * tsub + TC_FLOPS_PER_POINT_CALL) * points)
+    route_turns = []
+    for name in ("pinned", "whole-array", "pinned", "whole-array"):
+        if name == "pinned":
+            turn_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps(
+                params, planes, work, tsub, wgrid, plan, flags), 20)
+        else:
+            turn_ms = cuda_ms(lambda: fused_evp_curvilinear.curvilinear_evp_substeps(
+                p18, c_consts, work_whole, tsub, wgrid, c_planes), 20)
+        route_turns.append(f"{name} {turn_ms:.4f}")
+    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms; in turns with the whole-array kernel, ms per "
+          f"call (20 calls): {', '.join(route_turns)}")
+    tc_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    tc_shape = (f"{wgrid.nxp}x{wgrid.nyp} widened (1152x960 tripolar basin, land, fold, "
+                f"drag), {tsub} substeps")
+    del out, chunked, ref, ref4, whole, work, work_whole, c_consts
+
+    # 2.8: the ice strength on the widened h, ℵ
+    prm = ftc.ice_strength_params(model)
+    hw, aw = planes[ftc.C_H], planes[ftc.C_A]
+    out = ftc.fixed_tile_P(prm, hw, aw)
+    ref = ftc.fixed_tile_P_reference(prm, hw, aw)
+    torch.cuda.synchronize()
+    ulps = max_ulp(ref, out)
+    print(f"  ice strength: at most {ulps} ulp apart (bar 2), bitwise {torch.equal(ref, out)}")
+    if ulps > 2:
+        raise AssertionError(f"the ice-strength kernel is {ulps} ulp from its plain version")
+    kernel_ms = cuda_ms(lambda: ftc.fixed_tile_P(prm, hw, aw), 50)
+    plain_ms = cuda_ms(lambda: ftc.fixed_tile_P_reference(prm, hw, aw), 20)
+    bytes_ms, ops_ms = bounds_ms((STRENGTH_ARRAYS * points + 2) * 4,
+                                 STRENGTH_FLOPS_PER_POINT * points)
+    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms")
+    strength_timing = (*rel_diff(ref, out)[::-1], kernel_ms, plain_ms, bytes_ms, ops_ms)
+    del planes, carry
+
+    # 2.10: both wind components on the basin's coordinates
+    g = model.grid
+    gpoints = g.nxp * g.nyp
+    lon, lat = g.lon_cc.contiguous(), g.lat_cc.contiguous()
+    t = state.clock.time
+    for comp, fn in enumerate(distributed_basin.WINDS):
+        out = fpw.fixed_tile_pointwise(fn, fixed, (lon, lat), scalars=(t,))
+        ref = fpw.fixed_tile_pointwise_reference(fn, (lon, lat), (t,))
+        torch.cuda.synchronize()
+        ulps = max_ulp(ref, out)
+        print(f"  wind {'xy'[comp]}: at most {ulps} ulp apart (bar 2), bitwise "
+              f"{torch.equal(ref, out)}")
+        if ulps > 2:
+            raise AssertionError(f"the pointwise kernel is {ulps} ulp from its plain version")
+        if comp == 0:
+            wind_err = rel_diff(ref, out)[::-1]
+    wind_fn = distributed_basin.WINDS[0]
+    rec = fpw.pointwise_recording(wind_fn, 2, 1, lon.device)
+    kernel_ms = cuda_ms(lambda: fpw.fixed_tile_pointwise(wind_fn, fixed, (lon, lat),
+                                                         scalars=(t,)), 50)
+    plain_ms = cuda_ms(lambda: fpw.fixed_tile_pointwise_reference(wind_fn, (lon, lat), (t,)),
+                       20)
+    bytes_ms, ops_ms = bounds_ms(POINTWISE_ARRAYS * gpoints * 4 + 4,
+                                 program_flops(rec.ops) * gpoints)
+    print(f"    kernel {kernel_ms:.4f} ms/call ({len(rec.ops)} program steps, "
+          f"{program_flops(rec.ops)} operations a point), plain {plain_ms:.4f} ms/call, "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms")
+    wind_timing = (*wind_err, kernel_ms, plain_ms, bytes_ms, ops_ms)
+
+    # 2.11 with the solar FluxFunction: the snow column under the basin's fluxes
+    dt_t = g.scalar(dt)
+    out = fixed_tile_thermo.thermo_column(model, state, dt_t)
+    ref = fixed_tile_thermo.thermo_column_reference(model, state, dt_t)
+    torch.cuda.synchronize()
+    print("  snow column physics with the solar FluxFunction, Semtner series + emission:")
+    flux_rel = flux_abs = 0.0
+    for name, q in out.items():
+        if not torch.isfinite(q).all():
+            raise AssertionError(f"{name} (FluxFunction) from the column kernel is not finite")
+        rel, abs_err = rel_diff(ref[name].broadcast_to(g.shape), q)
+        check(name, rel, 1e-5)
+        flux_rel, flux_abs = max(flux_rel, rel), max(flux_abs, abs_err)
+    solar = fixed_tile_thermo.flux_recording(model.top_heat_flux[0], g,
+                                             fixed_tile_thermo._present(model))
+    F = program_flops(solar.ops) + 5 + 3       # the sums and emission
+    kernel_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column(model, state, dt_t), 50)
+    plain_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column_reference(model, state, dt_t),
+                       5)
+    bytes_ms, ops_ms = bounds_ms(LAYERED_THERMO_ARRAYS * gpoints * 4,
+                                 layered_thermo_flops(F) * gpoints)
+    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({layered_thermo_flops(F)} operations a point)")
+    flux_timing = (flux_abs, flux_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    del model, state, out, ref
+
+    # --- 18. the tripolar fixed-tile basin: the slice's main path ----------------------------
+    model, state = distributed_basin.build(1152, 960, fixed_tiles=fixed)
+    grid = model.grid
+    state = cst.step(model, state, dt)                  # warm-up
+    torch.cuda.synchronize()
+    counters = dict(tiled_curvilinear=tc_counter, strength=strength_counter, wind=pw_counter,
+                    adv=adv_counter, thermo=thermo_counter, curvilinear=curv_counter,
+                    tiled_padded=tiled_counter, padded=padded_counter, periodic=counter,
+                    prep=prep_counter)
+    for c in counters.values():
+        c.reset()
+    state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
+    sim = cst.Simulation(model, state, dt=dt, stop_iteration=int(state.clock.iteration) + 2)
+    sim.run()
+    state = sim.state
+    torch.cuda.synchronize()
+    n_steps = steps + 2
+    calls = {k: c.calls for k, c in counters.items()}
+    expected = dict(tiled_curvilinear=n_steps, strength=n_steps, wind=2 * n_steps,
+                    adv=3 * n_steps, thermo=n_steps, curvilinear=0, tiled_padded=0, padded=0,
+                    periodic=0, prep=0)
+    if calls != expected or tc_counter.launches != n_steps * tc_launches_per_call:
+        raise AssertionError(f"tripolar fixed-tile route calls {calls}, pinned EVP launches "
+                             f"{tc_counter.launches}; expected {expected} and "
+                             f"{n_steps * tc_launches_per_call}")
+    check_basin_state(model, state)
+    basin_launches = {k: counters[k].launches
+                      for k in ("tiled_curvilinear", "strength", "wind", "adv", "thermo")}
+    device_ms, syncs, table = profile_device_ms(cst, model, state, dt)
+    basin_points = grid.Nx * grid.Ny
+    print(f"[18] slice main path, tripolar fixed-tile basin {grid.Nx}×{grid.Ny}, "
+          f"fixed_tiles={fixed}, dt {dt:g} s: {step_ms:.2f} ms/step (CUDA events; host "
+          f"{host_ms:.2f} ms/step), {basin_points / step_ms * 1e3:.4e} points/s; in {steps} "
+          f"steps + 2 Simulation iterations calls {calls}, launches {basin_launches}; one "
+          f"profiled step {device_ms:.3f} ms of device time, busy "
+          f"{100 * device_ms / step_ms:.1f} % of a step, {syncs} host waits on a device "
+          f"value, on {card}")
+    print("\n".join(table.splitlines()[:16]))
+    eager, eager_state = distributed_basin.build(1152, 960)
+    eager_state = cst.step(eager, eager_state, dt)      # warm-up
+    turns = []
+    for name, m, s in (("fixed", model, state), ("eager", eager, eager_state),
+                       ("fixed", model, state), ("eager", eager, eager_state)):
+        _, turn_ms, _ = timed_steps(cst, m, s, dt, steps)
+        turns.append(f"{name} {turn_ms:.2f}")
+    print(f"    in turns with the build without fixed_tiles (whole-array EVP, eager winds and "
+          f"column physics), ms/step (CUDA events): {', '.join(turns)}")
+    if args.profile:
+        profiles.append(f"tripolar fixed-tile basin step on {card}: {device_ms:.3f} ms of "
+                        f"device time\n{table}\n")
+        with open(args.profile, "w") as f:
+            f.write("\n".join(profiles))
+    del model, state, sim, eager, eager_state
+
+    # --- 19. halo 5 against halo 19 on the card, the basin ------------------------------------
+    basin_names = ("u", "v", "h", "a", "hs", "sig11", "sig22", "sig12", "alpha")
+    finals = []
+    for halo in (5, 19):
+        m, s = fixed_basin(360, 300, halo=halo)
+        for _ in range(3):
+            s = cst.step(m, s, dt)
+        finals.append({n: m.grid.interior(getattr(s, n)) for n in basin_names})
+    torch.cuda.synchronize()
+    for name in basin_names:
+        if not torch.equal(finals[0][name], finals[1][name]):
+            diff = (finals[0][name] - finals[1][name]).abs().max().item()
+            raise AssertionError(f"{name}: halo 5 and halo 19 differ by {diff:.3e}")
+    print("[19] halo 5 vs halo 19, 360×300 tripolar fixed-tile basin, 3 steps: u, v, h, ℵ, hs, "
+          "σ₁₁, σ₂₂, σ₁₂, α interiors bitwise equal")
+    del finals
+
+    # --- 20. card vs CPU, the tripolar fixed-tile route -------------------------------------
+    finals = {}
+    for device in ("cuda", "cpu"):
+        m, s = fixed_basin(32, 64, device=device, soft=True, seed=8, snow=0.1)
+        for _ in range(2):
+            s = cst.step(m, s, dt)
+        if device == "cuda":
+            check_basin_state(m, s)
+        finals[device] = state_to_numpy(s)
+    print("[20] 32×64 tripolar fixed-tile basin, soft ice, 10 cm of snow, 2 steps, card "
+          "(kernels) vs CPU (plain versions):")
+    for name, bar in (("u", 1e-4), ("v", 1e-4), ("h", 1e-5), ("a", 1e-5), ("hs", 1e-5),
+                      ("sig11", 4e-3), ("sig22", 4e-3), ("sig12", 4e-3), ("alpha", 4e-3)):
+        rel, _ = rel_diff(torch.as_tensor(finals["cpu"][name]),
+                          torch.as_tensor(finals["cuda"][name]))
+        check(name, rel, bar)
+
     print(card)
     print(json.dumps({"kernels": [
         kernel_entry("evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp.cu",
@@ -1152,13 +1491,12 @@ def main(argv=None):
         kernel_entry("padded_evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp_padded.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:167", "_padded_kernel",
                      padded_launches, *padded_timing, f"{padded_shape}, {nsub} substeps"),
-        dict(kernel_entry("curvilinear_evp_substeps",
-                          "climaseaice_jl_tpu_torch/csrc/evp_curvilinear.cu",
-                          "climaseaice_jl_tpu/dynamics/pallas_evp_curvilinear.py:202",
-                          "_curvilinear_kernel", curv_launches, *curv_timing,
-                          "1162x970 padded (1152x960 tripolar basin, land, fold, drag, "
-                          f"f planes), {nsub} substeps"),
-             also_serves="climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662"),
+        kernel_entry("curvilinear_evp_substeps",
+                     "climaseaice_jl_tpu_torch/csrc/evp_curvilinear.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_curvilinear.py:202",
+                     "_curvilinear_kernel", curv_launches, *curv_timing,
+                     "1162x970 padded (1152x960 tripolar basin, land, fold, drag, f planes), "
+                     "120 substeps"),
         kernel_entry("evp_prep", "climaseaice_jl_tpu_torch/csrc/evp_prep.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:512", "_prep_kernel",
                      fixed_launches["prep"], *prep_timing, shape),
@@ -1174,6 +1512,26 @@ def main(argv=None):
                           "climaseaice_jl_tpu/dynamics/pallas_pointwise.py:69",
                           "fixed_tile_pointwise_multi", fixed_launches["thermo"],
                           *thermo_timing, f"{shape}, bare ice"),
+             carries="climaseaice_jl_tpu/thermodynamics/pallas_thermo.py:169"),
+        kernel_entry("tiled_curvilinear_evp_substeps",
+                     "climaseaice_jl_tpu_torch/csrc/evp_tiled_curvilinear.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662",
+                     "_tiled_curv_kernel", basin_launches["tiled_curvilinear"], *tc_timing,
+                     tc_shape),
+        kernel_entry("fixed_tile_P", "climaseaice_jl_tpu_torch/csrc/ice_strength_fixed.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:1022",
+                     "_p_kernel", basin_launches["strength"], *strength_timing,
+                     "1162x1018 widened (1152x960 tripolar basin)"),
+        kernel_entry("fixed_tile_pointwise", "climaseaice_jl_tpu_torch/csrc/pointwise_fixed.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_pointwise.py:28",
+                     "fixed_tile_pointwise", basin_launches["wind"], *wind_timing,
+                     "1162x970 padded (1152x960 tripolar basin), the x wind"),
+        dict(kernel_entry("thermo_column_flux_function",
+                          "climaseaice_jl_tpu_torch/csrc/thermo_fixed.cu",
+                          "climaseaice_jl_tpu/dynamics/pallas_pointwise.py:69",
+                          "fixed_tile_pointwise_multi", basin_launches["thermo"], *flux_timing,
+                          "1162x970 padded (1152x960 tripolar basin), snow, solar "
+                          "FluxFunction"),
              carries="climaseaice_jl_tpu/thermodynamics/pallas_thermo.py:169"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

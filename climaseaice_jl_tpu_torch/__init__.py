@@ -13,10 +13,14 @@ tripolar grids (and rectilinear ones with a north fold) in
 in :mod:`.dynamics.fused_evp`, other bounded and immersed rectilinear grids
 in :mod:`.dynamics.fused_evp_padded`; on CPU tensors the same routes run
 the kernels' plain PyTorch versions.  ``SplitExplicitSolver(fixed_tiles=…)``
-selects the decomposition-invariant mode on rectilinear grids: the EVP
-coefficients, the tiled EVP loop, the tracer advection and the column
-thermodynamics each run in a kernel whose per-point arithmetic does not
-depend on the array shape or the halo width.
+selects the decomposition-invariant mode: the EVP loop with its
+coefficients (pinned curvilinear tiles on grids with array metrics or a
+north fold, with the ice strength), the tracer advection, the column
+thermodynamics and pointwise forcing callables
+(:mod:`.dynamics.fixed_tile_pointwise`) each run in a kernel whose
+per-point arithmetic does not depend on the array shape or the halo width.
+:mod:`.distributed_basin` builds the tripolar basin of
+`validation/run_distributed_basin.py` in this mode.
 """
 
 from .grids import (RectilinearGrid, LatitudeLongitudeGrid, CurvilinearGrid,

@@ -10,11 +10,13 @@
 // snowfall, flooding, and the diagnostics mf_ice, mf_snow, mf_snowfall,
 // Qtop and Qbot.
 //
-// The external heat fluxes come as small postfix programs (csrc's Op
-// below, built by fixed_tile_thermo.py): constants, arrays, 0-d device
-// values (a FieldTimeSeries resolved at the clock's time, read through its
-// pointer), radiative emission c·(T + T_r)⁴, and sums in the order
-// heat_bcs.getflux adds them.
+// The external heat fluxes come as small postfix programs
+// (pointwise_program.cuh, built by fixed_tile_thermo.py): constants, arrays,
+// 0-d device values (a FieldTimeSeries resolved at the clock's time, read
+// through its pointer), radiative emission c·(T + T_r)⁴, the recorded
+// operations of FluxFunction callables (the surface temperature is the
+// program's argument T, so a temperature-dependent flux is re-evaluated at
+// every secant iterate), and sums in the order heat_bcs.getflux adds them.
 //
 // What bounds it on an H100: for the bare-ice slice with 20 secant
 // iterations the column needs 254 float32 operations per point (counted
@@ -36,11 +38,13 @@
 // (`_build.py`): no multiply-add is contracted, so a point's bits do not
 // depend on the launch, the array shape or the halo width.
 
-#include <cuda_runtime.h>
+#include "pointwise_program.cuh"
 
 namespace {
 
-constexpr int MAX_OPS = 16, MAX_K = 48, MAX_PTRS = 24;
+using namespace csi_prog;
+
+constexpr int MAX_OPS = 48, MAX_K = 64, MAX_PTRS = 32;
 constexpr int BLOCK = 256;
 
 // constants (fixed_tile_thermo._K_NAMES), then the programs' own
@@ -48,36 +52,16 @@ enum K { K_HC, K_RHOI, K_NEGKI, K_T0, K_SLOPE, K_L0, K_KL, K_TREF, K_KS, K_KI, K
          K_RHOSL, K_RHOIL, K_FLOOD, K_RHOW };
 // pointers (fixed_tile_thermo._P_NAMES), then the programs' own
 enum P { P_H, P_A, P_HS, P_S, P_TU, P_TUS, P_DT, P_TB };
-enum Op { OP_CONST, OP_ARRAY, OP_SCALAR, OP_EMISSION, OP_ADD };
-
-struct Prog {
-  int n;
-  int op[MAX_OPS], a[MAX_OPS], b[MAX_OPS];
-};
 
 struct Args {
   int layered, n, prescribed, iterations, dt_number, hc_pos, tb_array;
-  Prog top, bottom, snow;
+  Prog<MAX_OPS> top, bottom, snow;
   float k[MAX_K];
   const float* p[MAX_PTRS];
 };
 
-__device__ float flux(const Prog& g, const Args& A, int pt, float T) {
-  float st[MAX_OPS];
-  int top = 0;
-  for (int q = 0; q < g.n; ++q) {
-    switch (g.op[q]) {
-      case OP_CONST: st[top++] = A.k[g.a[q]]; break;
-      case OP_ARRAY: st[top++] = A.p[g.a[q]][pt]; break;
-      case OP_SCALAR: st[top++] = A.p[g.a[q]][0]; break;
-      case OP_EMISSION: st[top++] = A.k[g.a[q]] * powf(T + A.k[g.b[q]], 4.0f); break;
-      default: {
-        const float b = st[--top];
-        st[top - 1] = st[top - 1] + b;
-      }
-    }
-  }
-  return st[0];
+__device__ __forceinline__ float flux(const Prog<MAX_OPS>& g, const Args& A, int pt, float T) {
+  return run(g, A.k, A.p, pt, T);
 }
 
 // x / c for a Python number c, as PyTorch's CUDA division computes it
@@ -240,18 +224,6 @@ __global__ void __launch_bounds__(BLOCK) thermo_column(const __grid_constant__ A
   for (int q = 0; q < 10; ++q) out[q * plane + pt] = outs[q];
 }
 
-int read_prog(const int* ints, int n_ints, int& at, Prog& g) {
-  if (at >= n_ints) return -1;
-  g.n = ints[at++];
-  if (g.n < 1 || g.n > MAX_OPS || at + 3 * g.n > n_ints) return -1;
-  for (int q = 0; q < g.n; ++q) {
-    g.op[q] = ints[at++];
-    g.a[q] = ints[at++];
-    g.b[q] = ints[at++];
-  }
-  return 0;
-}
-
 }  // namespace
 
 // The column step over n = ints[1] padded points into `out` (8 planes for
@@ -274,8 +246,9 @@ extern "C" int csi_thermo_fixed(const int* ints, int n_ints, const float* consts
   A.hc_pos = ints[5];
   A.tb_array = ints[6];
   int at = 7;
-  if (read_prog(ints, n_ints, at, A.top) || read_prog(ints, n_ints, at, A.bottom) ||
-      read_prog(ints, n_ints, at, A.snow))
+  if (csi_prog::read_prog(ints, n_ints, at, A.top) ||
+      csi_prog::read_prog(ints, n_ints, at, A.bottom) ||
+      csi_prog::read_prog(ints, n_ints, at, A.snow))
     return -1;
   for (int q = 0; q < n_k; ++q) A.k[q] = consts[q];
   for (int q = 0; q < n_p; ++q) A.p[q] = static_cast<const float*>(ptrs[q]);

@@ -19,9 +19,11 @@ fold-filled velocities, as on the TPU.
 On the TPU the whole-array kernel (2.6) is limited by VMEM and by f being a
 scalar, so the tripolar basin takes the chunked kernel (2.7), whose tiles,
 chunk plan and self-evolving fold halo exist for VMEM and for meshes.  The
-CUDA kernel keeps its state in device memory and has neither limit; the
-chunked design and the meshed fold belong to the distributed slice
-(queue 9).
+CUDA kernel keeps its state in device memory and has neither limit; under
+``fixed_tiles`` the pinned plan of 2.7 has its own kernel
+(:mod:`.fused_evp_tiled_curvilinear`, sharing this kernel's per-point code),
+and the unpinned chunked design and the meshed fold belong to the
+distributed slice (queue 9).
 
 :func:`curvilinear_evp_substeps` picks by the tensors' device: CUDA tensors
 go to the kernel, CPU tensors to :func:`curvilinear_evp_substeps_reference`.
@@ -111,7 +113,7 @@ def curvilinear_fused_available(model):
         # turns by chip_smoke.py phase 6)
         return False
     if dyn.solver.fixed_tiles is not None:
-        return False   # the pinned-tile mode (`pallas_evp_curvilinear.py:69`)
+        return False   # the pinned route (`pallas_evp_curvilinear.py:69`)
     if any(t not in (PERIODIC, BOUNDED) for t in grid.topology):
         return False
     if grid.north_fold and grid.topology[1] != BOUNDED:

@@ -145,6 +145,36 @@ def fill_halos_many(qs, locs, grid: Grid):
     return [_fill(q, grid, loc) for q, loc in zip(qs, locs)]
 
 
+# --- local-only fills ---------------------------------------------------------
+# The JAX package's `fill_halos_*_local` (`fields.py:342-403`) refresh the
+# physical boundaries of a shard without exchanging its mesh-split sides: the
+# walls, and the Zipper fold where x is not split.  A grid of this package is
+# never a shard, so they are the serial fills, the fold included; a sharded
+# grid (one that names mesh axes) belongs to the distributed slice (queue 9).
+
+def _fill_local(q, grid: Grid, loc: str):
+    if getattr(grid, "mesh_axes", None) is not None:
+        raise NotImplementedError("local fills of a sharded grid belong to the distributed "
+                                  "slice of the port (queue 9)")
+    return _fill(q, grid, loc)
+
+
+def fill_halos_cc_local(q, grid: Grid):
+    return _fill_local(q, grid, "cc")
+
+
+def fill_halos_fc_local(q, grid: Grid):
+    return _fill_local(q, grid, "fc")
+
+
+def fill_halos_cf_local(q, grid: Grid):
+    return _fill_local(q, grid, "cf")
+
+
+def fill_halos_ff_local(q, grid: Grid):
+    return _fill_local(q, grid, "ff")
+
+
 # --- peripheral masks ---------------------------------------------------------
 
 def _solid_base(grid: Grid):

@@ -533,6 +533,29 @@ def _extend_mask(mask, grid):
     return mask
 
 
+def repad_metric(grid: Grid, m, Hy: int, xface: bool, yface: bool):
+    """``m`` (a metric, or a centred plane such as ``lat_cc``) of ``grid``
+    padded anew with ``Hy`` halo rows: the interior kept, x halos wrapped or
+    edge-clamped, y halos edge-clamped, and on a folded grid the exact fold
+    images north of the seam with the y-face seam row symmetrised
+    (:func:`_fold_metric_halo`).  Computed in the grid dtype, as
+    `pallas_evp_tiled_curvilinear.py:399-433` computes it; 0-d metrics pass
+    through."""
+    if m is None or m.dim() == 0:
+        return m
+    Nx, Ny, Hx = grid.Nx, grid.Ny, grid.Hx
+    q = grid.interior(m.broadcast_to(grid.shape)).cpu().numpy()
+    if grid.topology[0] == PERIODIC:
+        left, right = q[Nx - Hx:], q[:Hx]
+    else:
+        left, right = np.repeat(q[:1], Hx, 0), np.repeat(q[-1:], Hx, 0)
+    q = np.concatenate([left, q, right], 0)
+    full = np.concatenate([np.repeat(q[:, :1], Hy, 1), q, np.repeat(q[:, -1:], Hy, 1)], 1)
+    if grid.north_fold:
+        full = _fold_metric_halo(full, Nx, Hx, Ny, Hy, xface, yface)
+    return torch.as_tensor(full, device=m.device)
+
+
 def south_crop_grid(g: Grid, cs: int):
     """View of ``g``'s padded rows [cs, nyp): the same halos and Ny − cs
     interior rows, metric tensors sliced (no copy).  Passes over the view

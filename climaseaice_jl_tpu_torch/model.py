@@ -10,10 +10,12 @@ kernel: grids with array metrics or a north fold to
 without land to :mod:`.dynamics.fused_evp`, other bounded or immersed
 rectilinear ones to :mod:`.dynamics.fused_evp_padded`.  With
 ``SplitExplicitSolver(fixed_tiles=…)`` (the decomposition-invariant mode) a
-rectilinear model takes the fixed-tile kernels instead: the tiled EVP loop
-(:mod:`.dynamics.fused_evp_tiled_padded`) with its coefficient kernel, the
-advection of :mod:`.dynamics.fixed_tile_advection` and the column physics of
-:mod:`.thermodynamics.fixed_tile_thermo`.
+model takes the fixed-tile kernels instead: on grids with array metrics or a
+north fold the pinned curvilinear EVP loop with its ice strength
+(:mod:`.dynamics.fused_evp_tiled_curvilinear`), on rectilinear ones the
+tiled EVP loop (:mod:`.dynamics.fused_evp_tiled_padded`) with its
+coefficient kernel; the advection of :mod:`.dynamics.fixed_tile_advection`
+and the column physics of :mod:`.thermodynamics.fixed_tile_thermo`.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from .dynamics.fused_evp_curvilinear import (curvilinear_fused_available,
                                              _solid_crop_rows)
 from .dynamics.fused_evp_tiled_padded import (tiled_padded_available,
                                               tiled_padded_momentum_step)
+from .dynamics.fused_evp_tiled_curvilinear import (tiled_curvilinear_available,
+                                                   tiled_curvilinear_momentum_step)
 from .dynamics.fixed_tile_advection import (fixed_tile_advection_available,
                                             make_fixed_tile_div)
 from .thermodynamics.slab import SlabThermodynamics
@@ -157,16 +161,15 @@ def sea_ice_model(grid: Grid,
 
 
 def fixed_tiles(grid, dynamics):
-    """The solver's ``fixed_tiles``, or None.  Raises on grids with array
-    metrics or a north fold, whose fixed-tile kernels (the pinned tiled
-    curvilinear EVP loop, 2.7, and its ice-strength kernel, 2.8) belong to
-    the tripolar fixed-tile slice of the port."""
+    """The solver's ``fixed_tiles``, or None.  Raises on a sharded grid (one
+    that names mesh axes): the meshed fixed-tile kernels belong to the
+    distributed slice of the port (queue 9)."""
     solver = getattr(dynamics, "solver", None)
     tiles = getattr(solver, "fixed_tiles", None)
-    if tiles is not None and (grid.kind != "rectilinear" or grid.north_fold):
+    if tiles is not None and getattr(grid, "mesh_axes", None) is not None:
         raise NotImplementedError(
-            "fixed_tiles on grids with array metrics or a north fold belongs to the "
-            "tripolar fixed-tile slice of the port (kernels 2.7 pinned and 2.8)")
+            "fixed_tiles on a sharded grid belongs to the distributed slice of the port "
+            "(queue 9)")
     return tiles
 
 
@@ -362,12 +365,13 @@ def dynamic_step_tracers(model, state, G, dt, base=None):
 def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     """Dispatch on the dynamics in the JAX package's order
     (`model.py:401-445`), unless ``fused`` is 'never': the curvilinear fused
-    EVP route where :func:`curvilinear_fused_available` allows it; without
-    ``fixed_tiles`` the periodic one where :func:`fused_available` does, else
-    the padded one where :func:`padded_fused_available` does; with
-    ``fixed_tiles`` the tiled padded one where
-    :func:`tiled_padded_available` does; else the general split-explicit
-    path."""
+    EVP route where :func:`curvilinear_fused_available` allows it (never
+    with ``fixed_tiles``); the pinned tiled curvilinear one where
+    :func:`tiled_curvilinear_available` does (only with ``fixed_tiles``);
+    without ``fixed_tiles`` the periodic one where :func:`fused_available`
+    does, else the padded one where :func:`padded_fused_available` does; with
+    ``fixed_tiles`` the tiled padded one where :func:`tiled_padded_available`
+    does; else the general split-explicit path."""
     dyn = model.dynamics
     if dyn is None:
         return state
@@ -379,6 +383,8 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     fixed = fixed_tiles(model.grid, dyn) is not None
     if fused and curvilinear_fused_available(model):
         upd = curvilinear_fused_momentum_step(model, state, dt, u_start, v_start)
+    elif fused and tiled_curvilinear_available(model):
+        upd = tiled_curvilinear_momentum_step(model, state, dt, u_start, v_start)
     elif fused and not fixed and fused_available(model):
         upd = fused_split_explicit_momentum_step(model, state, dt, u_start, v_start)
     elif fused and not fixed and padded_fused_available(model):

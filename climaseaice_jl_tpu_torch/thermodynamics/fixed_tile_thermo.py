@@ -14,16 +14,21 @@ plain version is those slab functions themselves
 (:func:`thermo_column_reference`).
 
 The kernel takes flux specifications that are numbers, arrays, 0-d
-tensors, FieldTimeSeries, RadiativeEmission, and tuples of them (summed in
-their order, as :func:`.heat_bcs.getflux` sums them); the top conditions
+tensors, FieldTimeSeries, RadiativeEmission, FluxFunctions and plain flux
+callables, and tuples of them (summed in their order, as
+:func:`.heat_bcs.getflux` sums them); the top conditions
 MeltingConstrainedFluxBalance and PrescribedTemperature, the bottom ones
 IceWaterThermalEquilibrium and PrescribedTemperature, snowfall as a number,
 an array or a series.  A series is resolved once per call at the clock's
 time into a 0-d device tensor that the kernel reads through its pointer, so
-nothing is read back to the host.  A FluxFunction (a Python callable of the
-surface temperature) cannot enter the kernel: under ``fixed_tiles`` it
-raises NotImplementedError on either device; it belongs to the tripolar
-fixed-tile slice of the port.
+nothing is read back to the host.  A FluxFunction's callable is recorded
+once (:mod:`..dynamics.fixed_tile_pointwise`, as `pallas_thermo.py:120-123,
+154-157` re-traces it) on placeholders for the surface temperature, the
+grid's ``lat_cc``/``lon_cc``, ``fields.h``, ``a``, ``hs``, ``S``, ``Tu``,
+``Tus``, the clock's time and each series value at that time; its program
+joins the flux programs and is evaluated at every secant iterate, as
+emission is.  A callable outside the op set raises NotImplementedError on
+either device.
 
 The configuration's numbers enter as the plain version forms them: a
 product of two Python numbers (ρs·ℒ₀, ρi·ℒ₀, ε·σ, 1 − ρi/ρw, the latent
@@ -34,12 +39,15 @@ tensor.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
 
 from .. import _build
 from ..dynamics.fused_evp import KernelCounter, cuda_error_string
+from ..dynamics.fixed_tile_pointwise import (OP_CONST, OP_ARRAY, OP_SCALAR, OP_EMISSION, OP_ADD,
+                                             OP_TEMP, MAX_REGS, PLACEHOLDER_SHAPE, record)
 from .heat_bcs import (FluxFunction, RadiativeEmission, PrescribedTemperature,
                        MeltingConstrainedFluxBalance, IceWaterThermalEquilibrium,
                        bottom_temperature, _as_grid_value)
@@ -55,9 +63,7 @@ _K_NAMES = ("hc", "rho_i", "neg_k_ice", "T0", "slope", "L0", "kL", "Tref", "k_sn
             "k_ice", "rho_s", "rho_s_L0", "rho_i_L0", "flood", "rho_w")
 # pointer slots before the flux programs' own (enum P)
 _P_NAMES = ("h", "a", "hs", "S", "Tu", "Tus", "dt", "Tb")
-# flux program operations (enum Op)
-_OP_CONST, _OP_ARRAY, _OP_SCALAR, _OP_EMISSION, _OP_ADD = range(5)
-_MAX_OPS, _MAX_K, _MAX_PTRS = 16, 48, 24
+_MAX_OPS, _MAX_K, _MAX_PTRS = 48, 64, 32   # csrc/thermo_fixed.cu's limits
 
 fixed_tile_thermo_counter = KernelCounter()
 
@@ -69,22 +75,111 @@ def _number(x, what):
     return float(x)
 
 
-def _check_flux(spec, what):
-    """Raise NotImplementedError for what the kernel cannot take."""
+# --- recorded flux callables -------------------------------------------------------
+
+_STATE_NAMES = ("h", "a", "hs", "S", "Tu", "Tus")
+_recordings = weakref.WeakKeyDictionary()
+
+
+class _Standin:
+    """An argument of a recorded flux callable: the attributes in ``slots``
+    are placeholders (made at first read), the others come from ``base`` or,
+    without one, raise NotImplementedError."""
+
+    def __init__(self, rec, what, slots, base=None, **fixed):
+        self._rec, self._what, self._slots, self._base = rec, what, slots, base
+        self._made = {}
+        self.__dict__.update(fixed)
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if name in self._slots:
+            if name not in self._made:
+                slot, shape = self._slots[name]
+                self._made[name] = self._rec.placeholder(slot, shape)
+            return self._made[name]
+        if self._base is not None:
+            return getattr(self._base, name)
+        raise NotImplementedError(f"a fixed-tile flux reads {self._what}.{name}")
+
+
+class _SeriesStandin:
+    """A FieldTimeSeries in a recorded flux: its value at the clock's time."""
+
+    def __init__(self, rec, series, clock):
+        self._rec, self._series, self._clock = rec, series, clock
+        self._value = None
+
+    def at_time(self, t):
+        if t is not self._clock.time:
+            raise NotImplementedError("a fixed-tile flux reads a series at another time "
+                                      "than the clock's")
+        if self._value is None:
+            self._value = self._rec.placeholder(("series", self._series), ())
+        return self._value
+
+    def __call__(self, grid, Tu, clock, fields):
+        return self.at_time(clock.time)
+
+
+def _parameters_standin(p, rec, clock):
+    if hasattr(p, "at_time"):
+        return _SeriesStandin(rec, p, clock)
+    if isinstance(p, (tuple, list)):
+        return type(p)(_parameters_standin(q, rec, clock) for q in p)
+    return p
+
+
+def flux_recording(spec, grid, present):
+    """The program of a FluxFunction (or a plain flux callable) on ``grid``
+    with the state fields ``present``, recorded once per flux and layout.
+    Raises NotImplementedError where it leaves the op set."""
+    func, params = ((spec.func, spec.parameters) if isinstance(spec, FluxFunction)
+                    else (spec, None))
+    planes = tuple(n for n in ("lat_cc", "lon_cc") if getattr(grid, n, None) is not None)
+
+    def make(rec):
+        arr = PLACEHOLDER_SHAPE
+        g = _Standin(rec, "grid", {n: (("grid", n), arr) for n in planes}, base=grid,
+                     shape=arr, interior_shape=arr)
+        clock = _Standin(rec, "clock", {"time": (("time",), ())})
+        fields = _Standin(rec, "fields", {n: (("field", n), arr) for n in present})
+        args = [g, rec.placeholder(("temp",), arr), clock, fields]
+        if params is not None:
+            args.append(_parameters_standin(params, rec, clock))
+        return args
+
+    key = (str(grid.device), planes, present)
+    per_spec = _recordings.setdefault(spec, {})
+    if key not in per_spec:
+        per_spec[key] = record(func, make, grid.device)
+    return per_spec[key]
+
+
+def _present(model):
+    layered = model.snow_thermodynamics is not None
+    return tuple(n for n in _STATE_NAMES if layered or n not in ("hs", "Tus"))
+
+
+def _recorded(spec):
+    return isinstance(spec, FluxFunction) or (callable(spec) and not hasattr(spec, "at_time"))
+
+
+def _check_flux(spec, model):
+    """Record every flux callable (raising where one leaves the op set)."""
     if isinstance(spec, tuple):
         for s in spec:
-            _check_flux(s, what)
-    elif isinstance(spec, FluxFunction) or (callable(spec) and not hasattr(spec, "at_time")):
-        raise NotImplementedError(
-            f"a FluxFunction or callable {what} under fixed_tiles belongs to the tripolar "
-            "fixed-tile slice of the port (the open part of kernel 2.11)")
+            _check_flux(s, model)
+    elif _recorded(spec):
+        flux_recording(spec, model.grid, _present(model))
 
 
 def check_fixed_tile_thermo(model):
     """Raise NotImplementedError where the model's column physics is
     outside what the fixed-tile kernel takes (checked on either device)."""
-    _check_flux(model.top_heat_flux, "top heat flux")
-    _check_flux(model.bottom_heat_flux, "bottom heat flux")
+    _check_flux(model.top_heat_flux, model)
+    _check_flux(model.bottom_heat_flux, model)
     for thermo in (model.ice_thermodynamics, model.snow_thermodynamics):
         if thermo is None:
             continue
@@ -129,10 +224,12 @@ class _Program:
     """The kernel's arguments: integer header and flux programs, float32
     constants and device pointers."""
 
-    def __init__(self):
+    def __init__(self, model):
+        self.model = model
         self.k = [0.0] * len(_K_NAMES)
         self.ptrs = [None] * len(_P_NAMES)
         self.keep = []          # tensors whose pointers the launch uses
+        self.n_regs = 0         # registers of the recorded fluxes
 
     def const(self, value):
         self.k.append(float(value))
@@ -146,32 +243,58 @@ class _Program:
     def flux(self, spec, grid, clock):
         """Postfix operations of a flux specification: (op, a, b) triples."""
         if spec is None:
-            return [(_OP_CONST, self.const(0.0), 0)]
+            return [(OP_CONST, self.const(0.0), 0)]
         if isinstance(spec, tuple):        # 0 + f₁ + f₂ + … in order
-            ops = [(_OP_CONST, self.const(0.0), 0)]
+            ops = [(OP_CONST, self.const(0.0), 0)]
             for s in spec:
-                ops += self.flux(s, grid, clock) + [(_OP_ADD, 0, 0)]
+                ops += self.flux(s, grid, clock) + [(OP_ADD, 0, 0)]
             return ops
         if isinstance(spec, RadiativeEmission):
             c1 = (_number(spec.emissivity, "an emissivity")
                   * _number(spec.stefan_boltzmann_constant, "the Stefan-Boltzmann constant"))
             Tr = _number(spec.reference_temperature, "a reference temperature")
-            return [(_OP_EMISSION, self.const(c1), self.const(Tr))]
+            return [(OP_EMISSION, self.const(c1), self.const(Tr))]
         if hasattr(spec, "at_time"):
             return [self.value(spec.at_time(clock.time), grid)]
+        if _recorded(spec):
+            return self.recorded(spec, grid, clock)
         return [self.value(spec, grid)]
+
+    def recorded(self, spec, grid, clock):
+        """A recorded flux's operations, its inputs bound to this call's
+        state, grid planes, clock time and series values."""
+        rec = flux_recording(spec, grid, _present(self.model))
+
+        def slot(s):
+            kind = s[0]
+            if kind == "temp":
+                return (OP_TEMP, 0)
+            if kind == "field":
+                return (OP_ARRAY, _P_NAMES.index(s[1]))
+            if kind == "grid":
+                plane = getattr(grid, s[1]).to(torch.float32).broadcast_to(grid.shape)
+                return (OP_ARRAY, self.pointer(plane.contiguous()))
+            t = clock.time if kind == "time" else s[1].at_time(clock.time)
+            return (OP_SCALAR, self.pointer(t.to(torch.float32).contiguous()))
+
+        ops = rec.bind(self.const, slot, self.pointer, reg_base=self.n_regs)
+        self.n_regs += rec.n_regs
+        if self.n_regs > MAX_REGS:
+            raise NotImplementedError(f"flux callables needing more than {MAX_REGS} registers "
+                                      "in all")
+        return ops
 
     def value(self, x, grid):
         """One operation pushing a number, a 0-d tensor or an array."""
         if not isinstance(x, torch.Tensor) and not hasattr(x, "shape"):
-            return (_OP_CONST, self.const(_number(x, "a flux value")), 0)
+            return (OP_CONST, self.const(_number(x, "a flux value")), 0)
         t = _as_grid_value(x, grid)
         if t.dim() == 0:
-            return (_OP_SCALAR, self.pointer(t.to(torch.float32).contiguous()), 0)
+            return (OP_SCALAR, self.pointer(t.to(torch.float32).contiguous()), 0)
         if tuple(t.shape) != grid.shape:
             raise NotImplementedError(f"a flux array of shape {tuple(t.shape)} on a grid of "
                                       f"{grid.shape}")
-        return (_OP_ARRAY, self.pointer(t.contiguous()), 0)
+        return (OP_ARRAY, self.pointer(t.contiguous()), 0)
 
 
 def _program(model, state, dt):
@@ -179,7 +302,7 @@ def _program(model, state, dt):
     pt = model.phase_transitions
     ice, snow = model.ice_thermodynamics, model.snow_thermodynamics
     layered = snow is not None
-    prog = _Program()
+    prog = _Program(model)
     L0 = _number(pt.reference_latent_heat, "the latent heat")
     rho_i = _number(model.sea_ice_density, "the ice density")
     values = dict(

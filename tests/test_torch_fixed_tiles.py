@@ -28,6 +28,19 @@ SIZE = (48, 128)     # TY = 128 is the smallest y tile the JAX gate takes
 FIELDS = ("u", "v", "h", "a", "sig11", "sig22", "sig12", "alpha")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's PyTorch CPU work on one intra-op thread.  The tier-1
+    run puts six test workers on the machine's cores, and PyTorch's OpenMP
+    pool spins while it waits for threads that are not scheduled: under
+    that load the plain tile emulation ran hundreds of times slower with
+    the default pool than with one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _grid(lib, topology=("bounded", "bounded"), land=True, halo=5, size=SIZE, **kw):
     Nx, Ny = size
     g = lib.RectilinearGrid(size=size, x=(0, 2 * km * Nx), y=(0, 2 * km * Ny), halo=halo,
@@ -138,14 +151,20 @@ def test_gates_match_jax(case):
 
 
 def test_fixed_tiles_refused_on_array_metric_grids():
-    """fixed_tiles on a grid with array metrics names the tripolar slice."""
-    g = cst.LatitudeLongitudeGrid((48, 32), latitude=(50.0, 80.0), halo=5,
-                                  dtype="float32", topology=("periodic", "bounded"),
-                                  device="cpu")
-    dyn = cst.SeaIceMomentumEquation(
-        solver=cst.SplitExplicitSolver(8, fixed_tiles=(8, 128)))
-    with pytest.raises(NotImplementedError, match="tripolar fixed-tile slice"):
-        cst.sea_ice_model(g, dynamics=dyn, advection=cst.WENO(order=7))
+    """fixed_tiles on a grid with array metrics builds and takes the pinned
+    curvilinear route, which refuses it only where its single-trigger-tile
+    wall rule does (two y tiles on a band with a north wall); no fixed-tile
+    route leaves it to the general path silently."""
+    from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ttc
+    for Ny, takes in ((32, True), (128, False)):
+        g = cst.LatitudeLongitudeGrid((48, Ny), latitude=(50.0, 80.0), halo=5,
+                                      dtype="float32", topology=("periodic", "bounded"),
+                                      device="cpu")
+        dyn = cst.SeaIceMomentumEquation(
+            solver=cst.SplitExplicitSolver(8, fixed_tiles=(8, 128)))
+        m = cst.sea_ice_model(g, dynamics=dyn, advection=cst.WENO(order=7))
+        assert ttc.tiled_curvilinear_available(m) is takes
+        assert not ttiled.tiled_padded_available(m)
 
 
 # --- 2.4: the EVP coefficients --------------------------------------------------------
@@ -366,14 +385,20 @@ def test_thermo_matches_jax(layered):
 
 
 def test_thermo_flux_function_raises():
-    """A FluxFunction under fixed_tiles raises on the CPU too, naming the
-    tripolar slice."""
-    ff = cst.FluxFunction(func=lambda grid, Tu, clock, fields: -10.0 + 0 * Tu,
+    """A FluxFunction whose callable leaves the op set of the recorded flux
+    programs raises under fixed_tiles on the CPU too, naming the operation;
+    one inside it runs through the column physics."""
+    ff = cst.FluxFunction(func=lambda grid, Tu, clock, fields: -10.0 + 0 * torch.tanh(Tu),
                           top_temperature_dependent=True)
     m = _model(cst, device="cpu", top_heat_flux=(ff, -5.0))
     s = _initial(cst, m)
-    with pytest.raises(NotImplementedError, match="tripolar fixed-tile slice"):
+    with pytest.raises(NotImplementedError, match="tanh"):
         cst.step(m, s, 120.0)
+    ff = cst.FluxFunction(func=lambda grid, Tu, clock, fields: -10.0 + 0 * Tu,
+                          top_temperature_dependent=True)
+    m = _model(cst, device="cpu", top_heat_flux=(ff, -5.0))
+    s = cst.step(m, _initial(cst, m), 120.0)
+    assert torch.isfinite(s.h).all() and torch.isfinite(s.Tu).all()
 
 
 # --- the slice as a whole ------------------------------------------------------------

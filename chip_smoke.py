@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py              # the whole check, one card
     python3 chip_smoke.py --profile F  # also write torch.profiler tables of
-                                       # one flagship, one bounded, one
-                                       # tripolar basin and one fixed-tile
-                                       # step to file F
+                                       # one flagship (512² and 2048²), one
+                                       # bounded, one tripolar basin and one
+                                       # fixed-tile step to file F
 
 Drives the port (``climaseaice_jl_tpu_torch``) through the entry points a
 user calls and holds its CUDA kernels against their plain PyTorch versions.
@@ -19,8 +19,11 @@ Phases, each of which raises (exit code 1) when it fails:
    warm-up step and five timed steps; the state must stay finite with
    h ≥ 0 and 0 ≤ ℵ ≤ 1, and the EVP wrapper must have been called 3 times
    per step with 3·120 kernel launches per call;
-4. one flagship step at 1024² (above the TPU kernel's whole-array limit):
-   finite, and through the kernel;
+4. the dispatch boundary between the periodic kernels: one flagship step
+   at 512² (262,144 points) goes through ``csrc/evp.cu`` (2.1) only, one at
+   768² (589,824 points, above the 571,099 points where the JAX package
+   switches) through ``csrc/evp_tiled.cu`` (2.2) only, and one at 4096²
+   through 2.2, finite;
 5. the same port on the card and on the CPU (the plain version), 128² soft
    ice, 2 RK3 steps; bars as in phase 2 and 1e-5 for h/ℵ;
 6. the padded EVP kernel vs its plain version on the card: the bounded and
@@ -107,7 +110,20 @@ Phases, each of which raises (exit code 1) when it fails:
     σ₂₂, σ₁₂ and α;
 20. the tripolar fixed-tile route on the card and on the CPU, the 32×64
     basin in soft ice with seeded velocities and 10 cm of snow, 2 steps;
-    bars as in phase 12.
+    bars as in phase 12;
+21. the tiled EVP kernel (2.2) vs its plain version on the card: the
+    flagship at 2048² in soft ice with seeded velocities, 120 substeps;
+    bitwise, or within phase 2's bars, with the largest ulp difference
+    printed; times per call of both and the bound; then 2.1 on the same
+    grid timed in turns with 2.2, each fed its own inputs, and how far the
+    two functions' results lie apart (a record, not a bar);
+22. the slice's main path: ``bench.py:build(2048, 120)`` at the default P★,
+    one warm-up step, five timed ``cst.step`` calls and two iterations of
+    ``Simulation.run``; finite and physical; per step 3 calls of 2.2 (one
+    coefficient launch and one per chunk each) and none of 2.1 or the other
+    EVP kernels; one profiled step's device-busy share;
+23. the same port on the card and on the CPU, 768² soft ice (through 2.2
+    and its plain version), 12 substeps, 2 RK3 steps; bars as in phase 5.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and as the last line
@@ -146,6 +162,12 @@ FLOPS_PER_POINT_CALL = 2
 EVP_ARRAYS_READ = 18     # 12 constants + 6 carried fields
 EVP_ARRAYS_WRITTEN = 6
 EVP_PARAMS = 18
+# csrc/evp_tiled.cu computes evp.cu's substep function and derives its
+# coefficients once per call, per point: the four face averages 8, m_ff 4,
+# Pff 4, gcc and gff 2, the two 1/m 2, the two drags 2, ½P and ½Pff 2; it
+# reads m, ℵ, P, uⁿ, vⁿ and the 6 carried fields and writes those 6
+TILED_FLOPS_PER_POINT_CALL = 24
+TILED_ARRAYS_READ = 11
 # csrc/evp_padded.cu with immersed drag: σ relaxation 72, masked σ 3, each
 # update 40 (evp.cu's 35 and the immersed drag 5); 145 without drag; per
 # call ½P, ½Pff and the two transverse averages of the ocean velocity 6
@@ -645,7 +667,7 @@ def main(argv=None):
     import climaseaice_jl_tpu_torch as cst
     from climaseaice_jl_tpu_torch import _build
     from climaseaice_jl_tpu_torch.dynamics import (fused_evp, fused_evp_curvilinear,
-                                                   fused_evp_padded)
+                                                   fused_evp_padded, fused_evp_tiled)
     from climaseaice_jl_tpu_torch.arctic_basin import basin_model, basin_state
     from climaseaice_jl_tpu_torch.convert import state_to_numpy
 
@@ -654,6 +676,7 @@ def main(argv=None):
     card = card_name_and_power_limit()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     counter = fused_evp.evp_counter
+    tiled_evp_counter = fused_evp_tiled.tiled_evp_counter
     padded_counter = fused_evp_padded.padded_evp_counter
     profiles = []
 
@@ -704,31 +727,39 @@ def main(argv=None):
     state = cst.step(model, state, dt)                  # warm-up
     torch.cuda.synchronize()
     counter.reset()
+    tiled_evp_counter.reset()
     state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
     main_calls, main_launches = counter.calls, counter.launches
     check_state(model, state)
     flag_state = state
-    if main_calls != 3 * steps or main_launches != 3 * steps * 3 * nsub:
-        raise AssertionError(f"EVP wrapper: {main_calls} calls, {main_launches} launches; "
-                             f"expected {3 * steps} and {9 * steps * nsub}")
+    if (main_calls != 3 * steps or main_launches != 3 * steps * 3 * nsub
+            or tiled_evp_counter.calls):
+        raise AssertionError(f"EVP wrapper: {main_calls} calls, {main_launches} launches, "
+                             f"tiled {tiled_evp_counter.calls} calls; expected "
+                             f"{3 * steps}, {9 * steps * nsub} and 0")
     print(f"[3] main path {N}² flagship: {step_ms:.2f} ms/step (CUDA events; host "
           f"{host_ms:.2f} ms/step), {points / step_ms * 1e3:.4e} points/s, "
           f"EVP {main_calls} calls / {main_launches} launches in {steps} steps, on {card}")
     if args.profile:
         profiles.append(profile_step(cst, model, state, dt, f"{N}² flagship step", card))
 
-    # --- 4. no size gate ------------------------------------------------------------
-    big = flagship(cst, 1024, nsub)
-    big_state = flagship_state(cst, big)
-    counter.reset()
-    t0 = time.perf_counter()
-    big_state = cst.step(big, big_state, dt)
-    torch.cuda.synchronize()
-    if counter.calls != 3:
-        raise AssertionError(f"1024² step made {counter.calls} EVP kernel calls, expected 3")
-    check_state(big, big_state)
-    print(f"[4] 1024² step through the kernel: finite, {time.perf_counter() - t0:.2f} s")
-    del big, big_state
+    # --- 4. the dispatch boundary between 2.1 and 2.2 ------------------------------------
+    for n, expected in ((512, (3, 0)), (768, (0, 3)), (4096, (0, 3))):
+        big = flagship(cst, n, nsub)
+        big_state = flagship_state(cst, big)
+        counter.reset()
+        tiled_evp_counter.reset()
+        t0 = time.perf_counter()
+        big_state = cst.step(big, big_state, dt)
+        torch.cuda.synchronize()
+        calls = (counter.calls, tiled_evp_counter.calls)
+        if calls != expected:
+            raise AssertionError(f"{n}² step: {calls[0]} calls of 2.1 and {calls[1]} of 2.2, "
+                                 f"expected {expected[0]} and {expected[1]}")
+        check_state(big, big_state)
+        print(f"[4] {n}² step ({n * n} points): {calls[0]} calls of 2.1, {calls[1]} of 2.2, "
+              f"finite and physical, {time.perf_counter() - t0:.2f} s")
+        del big, big_state
 
     # --- 5. card vs CPU -------------------------------------------------------------
     finals = {}
@@ -1159,7 +1190,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     counters = dict(tiled=tiled_counter, prep=prep_counter, adv=adv_counter,
                     thermo=thermo_counter, padded=padded_counter, periodic=counter,
-                    curvilinear=curv_counter)
+                    periodic_tiled=tiled_evp_counter, curvilinear=curv_counter)
     for c in counters.values():
         c.reset()
     state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
@@ -1170,7 +1201,8 @@ def main(argv=None):
     n_steps = steps + 2
     calls = {k: c.calls for k, c in counters.items()}
     expected = dict(tiled=3 * n_steps, prep=3 * n_steps, adv=6 * n_steps,
-                    thermo=3 * n_steps, padded=0, periodic=0, curvilinear=0)
+                    thermo=3 * n_steps, padded=0, periodic=0, periodic_tiled=0,
+                    curvilinear=0)
     if calls != expected or tiled_counter.launches != 3 * n_steps * tiled_launches_per_call:
         raise AssertionError(f"fixed-tile route calls {calls}, tiled launches "
                              f"{tiled_counter.launches}; expected {expected} and "
@@ -1403,7 +1435,7 @@ def main(argv=None):
     counters = dict(tiled_curvilinear=tc_counter, strength=strength_counter, wind=pw_counter,
                     adv=adv_counter, thermo=thermo_counter, curvilinear=curv_counter,
                     tiled_padded=tiled_counter, padded=padded_counter, periodic=counter,
-                    prep=prep_counter)
+                    periodic_tiled=tiled_evp_counter, prep=prep_counter)
     for c in counters.values():
         c.reset()
     state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
@@ -1415,7 +1447,7 @@ def main(argv=None):
     calls = {k: c.calls for k, c in counters.items()}
     expected = dict(tiled_curvilinear=n_steps, strength=n_steps, wind=2 * n_steps,
                     adv=3 * n_steps, thermo=n_steps, curvilinear=0, tiled_padded=0, padded=0,
-                    periodic=0, prep=0)
+                    periodic=0, periodic_tiled=0, prep=0)
     if calls != expected or tc_counter.launches != n_steps * tc_launches_per_call:
         raise AssertionError(f"tripolar fixed-tile route calls {calls}, pinned EVP launches "
                              f"{tc_counter.launches}; expected {expected} and "
@@ -1483,6 +1515,125 @@ def main(argv=None):
                           torch.as_tensor(finals["cuda"][name]))
         check(name, rel, bar)
 
+    # --- 21. the tiled EVP kernel (2.2) vs its plain version ------------------------------
+    N2, dt = 2048, 120.0
+    names = ("u", "v", "sig11", "sig22", "sig12", "alpha")
+    bars = (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)
+    model = flagship(cst, N2, nsub, P_star=27.5)
+    state = flagship_state(cst, model, velocity_seed=9)
+    params, inputs, carry, _ = fused_evp_tiled.tiled_evp_inputs(model, state, dt, state.u,
+                                                                state.v)
+    tiled_evp_counter.reset()
+    out = fused_evp_tiled.tiled_evp_substeps(params, *inputs, [q.clone() for q in carry], nsub)
+    t22_launches_per_call = tiled_evp_counter.launches
+    ref = fused_evp_tiled.tiled_evp_substeps_reference(params, *inputs, carry, nsub)
+    torch.cuda.synchronize()
+    print(f"[21] tiled EVP kernel (2.2) vs plain version, {N2}² soft ice, seeded velocities, "
+          f"{nsub} substeps ({t22_launches_per_call} launches):")
+    worst_rel = worst_abs = 0.0
+    for name, r, o, bar in zip(names, ref, out, bars):
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name} from the tiled EVP kernel is not finite")
+        rel, abs_err = rel_diff(r, o)
+        check(name, rel, bar)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    print(f"    bitwise: {all(torch.equal(r, o) for r, o in zip(ref, out))}; largest "
+          f"difference {max(max_ulp(r, o) for r, o in zip(ref, out))} ulp")
+    work = [q.clone() for q in carry]
+    kernel_ms = cuda_ms(lambda: fused_evp_tiled.tiled_evp_substeps(params, *inputs, work, nsub),
+                        10)
+    plain_ms = cuda_ms(lambda: fused_evp_tiled.tiled_evp_substeps_reference(
+        params, *inputs, carry, nsub), 2)
+    points = N2 * N2
+    bytes_ms, ops_ms = bounds_ms(
+        ((TILED_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + EVP_PARAMS) * 4,
+        (FLOPS_PER_POINT_SUBSTEP * nsub + TILED_FLOPS_PER_POINT_CALL) * points)
+    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms (operations {ops_ms:.4f}, bytes {bytes_ms:.4f}) on "
+          f"{card}")
+    t22_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    # 2.1 on the same grid, fed its own inputs: a record of how far the two
+    # functions lie apart, and their times in turns
+    r_params, r_consts, r_carry, _ = fused_evp.evp_inputs(model, state, dt, state.u, state.v)
+    rich = fused_evp.evp_substeps(r_params, r_consts, [q.clone() for q in r_carry], nsub)
+    torch.cuda.synchronize()
+    apart = ", ".join(f"{name} {rel_diff(o, r)[0]:.3e}" for name, o, r in zip(names, out, rich))
+    print(f"    2.1 against 2.2, relative to 2.2's largest value: {apart}")
+    r_work = [q.clone() for q in r_carry]
+    turns = []
+    for name in ("2.2", "2.1", "2.2", "2.1"):
+        if name == "2.2":
+            turn_ms = cuda_ms(lambda: fused_evp_tiled.tiled_evp_substeps(params, *inputs, work,
+                                                                         nsub), 10)
+        else:
+            turn_ms = cuda_ms(lambda: fused_evp.evp_substeps(r_params, r_consts, r_work, nsub),
+                              10)
+        turns.append(f"{name} {turn_ms:.4f}")
+    print(f"    in turns, ms per call (CUDA events, 10 calls): {', '.join(turns)}, on {card}")
+    del model, state, params, inputs, carry, out, ref, work, r_consts, r_carry, rich, r_work
+
+    # --- 22. the periodic flagship above the whole-array limit: the slice's main path ------
+    model = flagship(cst, N2, nsub)
+    state = flagship_state(cst, model)
+    state = cst.step(model, state, dt)                  # warm-up
+    torch.cuda.synchronize()
+    counters = dict(periodic_tiled=tiled_evp_counter, periodic=counter, padded=padded_counter,
+                    curvilinear=curv_counter, tiled_padded=tiled_counter,
+                    tiled_curvilinear=tc_counter)
+    for c in counters.values():
+        c.reset()
+    state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
+    sim = cst.Simulation(model, state, dt=dt, stop_iteration=int(state.clock.iteration) + 2)
+    sim.run()
+    state = sim.state
+    torch.cuda.synchronize()
+    n_steps = steps + 2
+    calls = {k: c.calls for k, c in counters.items()}
+    t22_main_launches = tiled_evp_counter.launches
+    expected = dict.fromkeys(counters, 0)
+    expected["periodic_tiled"] = 3 * n_steps
+    if calls != expected or t22_main_launches != 3 * n_steps * t22_launches_per_call:
+        raise AssertionError(f"{N2}² flagship EVP calls {calls}, 2.2 launches "
+                             f"{t22_main_launches}; expected {expected} and "
+                             f"{3 * n_steps * t22_launches_per_call}")
+    check_state(model, state)
+    device_ms, syncs, table = profile_device_ms(cst, model, state, dt)
+    print(f"[22] slice main path {N2}² flagship: {step_ms:.2f} ms/step (CUDA events; host "
+          f"{host_ms:.2f} ms/step), {points / step_ms * 1e3:.4e} points/s; 2.2 "
+          f"{calls['periodic_tiled']} calls / {t22_main_launches} launches in {steps} steps + 2 "
+          f"Simulation iterations, no other EVP kernel; one profiled step {device_ms:.3f} ms "
+          f"of device time, busy {100 * device_ms / step_ms:.1f} % of a step, {syncs} host "
+          f"waits on a device value, on {card}")
+    print("\n".join(table.splitlines()[:16]))
+    if args.profile:
+        profiles.append(f"{N2}² flagship step on {card}: {device_ms:.3f} ms of device time\n"
+                        f"{table}\n")
+        with open(args.profile, "w") as f:
+            f.write("\n".join(profiles))
+    del model, state, sim
+
+    # --- 23. card vs CPU above the whole-array limit -----------------------------------------
+    finals = {}
+    for device in ("cuda", "cpu"):
+        m = flagship(cst, 768, 12, P_star=27.5, device=device)
+        s = flagship_state(cst, m, velocity_seed=10)
+        tiled_evp_counter.reset()
+        for _ in range(2):
+            s = cst.step(m, s, dt)
+        if device == "cuda":
+            if tiled_evp_counter.calls != 6:
+                raise AssertionError(f"768² card run: {tiled_evp_counter.calls} calls of 2.2, "
+                                     "expected 6")
+            check_state(m, s)
+        finals[device] = state_to_numpy(s)
+    print("[23] 768² soft ice, 12 substeps, 2 RK3 steps, card (2.2) vs CPU (its plain "
+          "version):")
+    for name, bar in (("u", 1e-4), ("v", 1e-4), ("h", 1e-5), ("a", 1e-5), ("sig11", 4e-3),
+                      ("sig22", 4e-3), ("sig12", 4e-3), ("alpha", 4e-3)):
+        rel, _ = rel_diff(torch.as_tensor(finals["cpu"][name]),
+                          torch.as_tensor(finals["cuda"][name]))
+        check(name, rel, bar)
+
     print(card)
     print(json.dumps({"kernels": [
         kernel_entry("evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp.cu",
@@ -1533,6 +1684,9 @@ def main(argv=None):
                           "1162x970 padded (1152x960 tripolar basin), snow, solar "
                           "FluxFunction"),
              carries="climaseaice_jl_tpu/thermodynamics/pallas_thermo.py:169"),
+        kernel_entry("tiled_evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp_tiled.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_tiled.py:193", "_tiled_kernel",
+                     t22_main_launches, *t22_timing, f"{N2}x{N2}, {nsub} substeps"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,19 +26,21 @@ SOURCES = {"evp": "evp.cu", "evp_padded": "evp_padded.cu",
            "evp_tiled_padded": "evp_tiled_padded.cu",
            "advection_fixed": "advection_fixed.cu", "thermo_fixed": "thermo_fixed.cu",
            "evp_tiled_curvilinear": "evp_tiled_curvilinear.cu",
-           "ice_strength_fixed": "ice_strength_fixed.cu", "pointwise_fixed": "pointwise_fixed.cu"}
+           "ice_strength_fixed": "ice_strength_fixed.cu", "pointwise_fixed": "pointwise_fixed.cu",
+           "evp_tiled": "evp_tiled.cu"}
 
 # no --use_fast_math: it would change the divides and square roots
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# The decomposition-invariant kernels (and the padded and curvilinear
-# kernels, whose device code the tiled ones share) contract no multiply-add:
-# each operation rounds on its own, as in their plain PyTorch versions,
-# whatever the compiler would fuse at a given call site.
+# The tiled kernels, periodic and decomposition-invariant (and the padded
+# and curvilinear kernels, whose device code the tiled ones share), contract
+# no multiply-add: each operation rounds on its own, as in their plain
+# PyTorch versions, whatever the compiler would fuse at a given call site.
 EXACT_FLAGS = ("-fmad=false",)
 SOURCE_FLAGS = {name: EXACT_FLAGS for name in (
     "evp_padded", "evp_curvilinear", "evp_prep", "evp_tiled_padded", "advection_fixed",
-    "thermo_fixed", "evp_tiled_curvilinear", "ice_strength_fixed", "pointwise_fixed")}
+    "thermo_fixed", "evp_tiled_curvilinear", "ice_strength_fixed", "pointwise_fixed",
+    "evp_tiled")}
 
 
 def flags(name: str) -> tuple:

@@ -1,7 +1,7 @@
-// Shared by evp.cu, evp_padded.cu and evp_tiled_padded.cu: the params
-// layout, the thread layout, periodic point location, the σ relaxation at
-// one point and the kernel that runs it over an array, and the padded
-// kernels' u and v updates at one point.
+// Shared by evp.cu, evp_padded.cu, evp_tiled_padded.cu and evp_tiled.cu:
+// the params layout, the thread layout, periodic point location and the
+// tiles' index rules, the σ relaxation at one point and the kernel that
+// runs it over an array, and the u and v updates at one point.
 //
 // `stress_point` computes, from the 3×3 u, v neighbourhood of a point, what
 // the TPU kernels' `stresses` computes with circular rolls
@@ -10,8 +10,8 @@
 // with neighbours found by index wrap: evp.cu on interior-only periodic
 // arrays, evp_padded.cu on whole padded arrays, where the wrap over the
 // padded extent matches `pltpu.roll` on the halo ring.  evp_tiled_padded.cu
-// runs `stress_point`, `u_update_point` and `v_update_point` on tiles in
-// shared memory.
+// and evp_tiled.cu run `stress_point`, `u_update_point` and
+// `v_update_point` on tiles in shared memory.
 
 #pragma once
 
@@ -34,6 +34,17 @@ struct Point {
   int row_m, row_0, row_p;  // i-1, i, i+1 rows (periodic), times ny
   int jm, jp;             // j-1, j+1 (periodic)
 };
+
+// g wrapped into [0, n), and g clamped to [lo, hi]: the tiled kernels'
+// index rules
+__device__ __forceinline__ int wrapi(int g, int n) {
+  const int r = g % n;
+  return r < 0 ? r + n : r;
+}
+
+__device__ __forceinline__ int clampi(int g, int lo, int hi) {
+  return g < lo ? lo : (g > hi ? hi : g);
+}
 
 __device__ __forceinline__ bool locate(int nx, int ny, Point& p) {
   p.j = blockIdx.x * BX + threadIdx.x;

@@ -82,15 +82,6 @@ struct Fields {
   float *u, *v, *s11, *s22, *s12, *al;
 };
 
-__device__ __forceinline__ int clampi(int g, int lo, int hi) {
-  return g < lo ? lo : (g > hi ? hi : g);
-}
-
-__device__ __forceinline__ int wrapi(int g, int n) {
-  const int r = g % n;
-  return r < 0 ? r + n : r;
-}
-
 // padded index of a carried field's image at interior coordinate g
 __device__ __forceinline__ int carry_index(int g, int H, int N, int periodic) {
   return H + (periodic ? wrapi(g, N) : clampi(g, 0, N - 1));

@@ -1,11 +1,17 @@
-"""Fused split-explicit αEVP substep loop: the gate, the launcher, the CUDA
+"""Fused split-explicit αEVP substep loop: the gate, the dispatch between
+the whole-array and the tiled loop, the launcher, the whole-array CUDA
 kernel's wrapper and its plain version.
 
-Counterpart of `climaseaice_jl_tpu/dynamics/pallas_evp.py`.  The kernel
-(``csrc/evp.cu``) replaces the TPU kernel ``_evp_kernel``: the whole substep
-loop on interior-only, doubly periodic, uniform-metric float32 arrays with
-circular shifts, so the arrays need no halos at all.  Uniform-metric forms
-(exact on uniform grids):
+Counterpart of `climaseaice_jl_tpu/dynamics/pallas_evp.py`.  Two kernels
+compute the loop on interior-only, doubly periodic, uniform-metric float32
+arrays with circular shifts, so the arrays need no halos at all:
+``csrc/evp.cu`` replaces the TPU kernel ``_evp_kernel`` (2.1, twelve
+constants prepared by the launcher) and runs grids of up to
+``_MAX_POINTS_RICH`` points; ``csrc/evp_tiled.cu``
+(:mod:`.fused_evp_tiled`) replaces ``_tiled_kernel`` (2.2, coefficients
+derived from m, ℵ and P in its own forms) and runs larger ones, as the JAX
+dispatcher does (`pallas_evp.py:440-466`).  Uniform-metric forms (exact on
+uniform grids):
 
     ϵ̇₁₁ = δxᶜu/Δx          ϵ̇₂₂ = δyᶜv/Δy       ϵ̇₁₂ = (δyᶠu/Δy + δxᶠv/Δx)/2
     ∂ⱼσ₁ⱼ = δxᶠσ₁₁/Δx + δyᶜσ₁₂/Δy
@@ -46,6 +52,27 @@ LAUNCHES_PER_SUBSTEP = 3
 _MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y; the kernel puts x there
 _BLOCK_X_ROWS = 8     # evp.cu's BY
 
+# Where the JAX package's function changes (`pallas_evp.py:66-73`): up to
+# _MAX_POINTS_RICH points it runs 2.1, above it 2.2, which derives its
+# coefficients in other forms, up to _MAX_POINTS_TILED.  The limits come
+# from the TPU's memory at JAX's default CSI_VMEM_LIMIT_MB = 126,
+# (126 − 4)·2²⁰ // (56·4) points, and 8192²; they are kept because they
+# mark where the function changes, so that both packages compute the same
+# function at every size.  This package reads no environment variable.
+_MAX_POINTS_RICH = 571_099
+_MAX_POINTS_TILED = 8192 * 8192
+CHUNK_SUBSTEPS = 15   # the TPU kernel's cap on K (`pallas_evp_tiled.py:44`)
+
+
+def pick_chunk(nsub):
+    """The largest divisor of ``nsub`` in [2, CHUNK_SUBSTEPS], or None
+    (`pallas_evp_tiled.py:47-58`).  The JAX package runs its tiled kernels
+    only for substep counts that have one."""
+    for K in range(min(CHUNK_SUBSTEPS, nsub), 1, -1):
+        if nsub % K == 0:
+            return K
+    return None
+
 
 @dataclasses.dataclass
 class KernelCounter:
@@ -78,12 +105,14 @@ def _scalar(x):
 def fused_available(model):
     """True when the model matches the fused EVP configuration.
 
-    The physics conditions of the JAX gate (`pallas_evp.py:91-136`) without
-    its TPU-only ones: the (8, 128) alignment matched the TPU's vector
-    tiling, and the point-count gate kept the whole state inside 128 MB of
-    VMEM.  The CUDA kernel indexes any Nx×Ny (one thread per point, ragged
-    edges masked) and keeps its state in device memory, so it has neither
-    limit."""
+    The conditions of the JAX gate (`pallas_evp.py:91-136`) but its (8, 128)
+    alignment, which matched the TPU's vector tiling (both CUDA kernels
+    index any Nx×Ny), and the tile plan's fit (`_tiled_eligible`), which
+    the CUDA kernel's own plan does not need.  Above ``_MAX_POINTS_RICH``
+    points, where the route runs 2.2, the gate refuses what JAX's refuses:
+    a substep count without a chunk length (:func:`pick_chunk`) and grids
+    above ``_MAX_POINTS_TILED`` points; the step then takes the next route,
+    as in JAX."""
     grid = model.grid
     dyn = model.dynamics
     if dyn is None or not isinstance(dyn.rheology, ElastoViscoPlasticRheology):
@@ -97,6 +126,10 @@ def fused_available(model):
     if grid.dtype != torch.float32:
         return False
     if not all(_scalar(m) for m in (grid.dx_cc, grid.dy_cc)):
+        return False
+    points = grid.Nx * grid.Ny
+    if points > _MAX_POINTS_RICH and (pick_chunk(dyn.solver.substeps) is None
+                                      or points > _MAX_POINTS_TILED):
         return False
 
     top = dyn.top_momentum_stress
@@ -417,18 +450,12 @@ def evp_params(model, dt, tau_u_top, tau_v_top, rC, ue, ve, dx=None, dy=None, f=
     ])
 
 
-def evp_inputs(model, state, dt, u_start, v_start):
-    """(params, consts, carry, P) of the substep loop: the constants
-    prepared on padded arrays (correct halos) and cropped to contiguous
-    interiors, as `pallas_evp.py:354-438` does, and the padded ice strength
-    P for the state.  The carry tensors are fresh copies."""
-    grid = model.grid
+def periodic_params(model, dt):
+    """The float32[18] params vector of the periodic routes: the model's
+    scalar top stress, bottom drag and ocean velocity; ``dt`` a 0-d float32
+    tensor."""
     dyn = model.dynamics
-    f32 = grid.scalar
-    dt = f32(dt)
-    I = grid.interior
-    (P_pad, Pff_pad, gcc, gff, drag_u, invm_u, act_u,
-     drag_v, invm_v, act_v) = evp_coefficients(model, state, dt)
+    f32 = model.grid.scalar
 
     def value(x):
         return f32(0.0 if x is None else x)
@@ -443,26 +470,51 @@ def evp_inputs(model, state, dt, u_start, v_start):
         rC, ue, ve = f32(bottom.rho_e * bottom.Cd), f32(bottom.ue), f32(bottom.ve)
     else:
         rC = ue = ve = f32(0.0)
-    params = evp_params(model, dt, tau_u_top, tau_v_top, rC, ue, ve)
+    return evp_params(model, dt, tau_u_top, tau_v_top, rC, ue, ve)
 
+
+def evp_inputs(model, state, dt, u_start, v_start):
+    """(params, consts, carry, P) of the whole-array substep loop: the
+    constants prepared on padded arrays (correct halos) and cropped to
+    contiguous interiors, as `pallas_evp.py:354-438` does, and the padded
+    ice strength P for the state.  The carry tensors are fresh copies."""
+    grid = model.grid
+    dt = grid.scalar(dt)
+    I = grid.interior
+    (P_pad, Pff_pad, gcc, gff, drag_u, invm_u, act_u,
+     drag_v, invm_v, act_v) = evp_coefficients(model, state, dt)
     consts = tuple(I(q).contiguous() for q in (
         P_pad, Pff_pad, gcc, gff, drag_u, invm_u, act_u, u_start,
         drag_v, invm_v, act_v, v_start))
-    carry = tuple(I(q).clone(memory_format=torch.contiguous_format)
-                  for q in (u_start, v_start, state.sig11, state.sig22,
-                            state.sig12, state.alpha))
-    return params, consts, carry, P_pad
+    carry = carry_inputs(model, state, u_start, v_start)
+    return periodic_params(model, dt), consts, carry, P_pad
+
+
+def carry_inputs(model, state, u_start, v_start):
+    """Fresh contiguous interior copies of (u, v, σ₁₁, σ₂₂, σ₁₂, α)."""
+    I = model.grid.interior
+    return tuple(I(q).clone(memory_format=torch.contiguous_format)
+                 for q in (u_start, v_start, state.sig11, state.sig22, state.sig12,
+                           state.alpha))
 
 
 def fused_split_explicit_momentum_step(model, state, dt, u_start, v_start):
-    """Run the whole substep loop through :func:`evp_substeps`; returns the
-    same update dict as the general `split_explicit_momentum_step`.  Like the
-    JAX launcher it leaves ``Delta``, ``zeta_cc`` and ``zeta_ff`` as they
-    were."""
+    """Run the whole substep loop, returning the same update dict as the
+    general `split_explicit_momentum_step`.  Up to ``_MAX_POINTS_RICH``
+    points through :func:`evp_substeps` (2.1), above them through
+    :func:`.fused_evp_tiled.tiled_evp_substeps` (2.2), as
+    `pallas_evp.py:440-466` switches.  Like the JAX launcher it leaves
+    ``Delta``, ``zeta_cc`` and ``zeta_ff`` as they were."""
     grid = model.grid
-    params, consts, carry, P_pad = evp_inputs(model, state, dt, u_start, v_start)
-    u_i, v_i, s11_i, s22_i, s12_i, al_i = evp_substeps(
-        params, consts, carry, model.dynamics.solver.substeps)
+    nsub = model.dynamics.solver.substeps
+    if grid.Nx * grid.Ny <= _MAX_POINTS_RICH:
+        params, consts, carry, P_pad = evp_inputs(model, state, dt, u_start, v_start)
+        out = evp_substeps(params, consts, carry, nsub)
+    else:
+        from .fused_evp_tiled import tiled_evp_inputs, tiled_evp_substeps
+        params, inputs, carry, P_pad = tiled_evp_inputs(model, state, dt, u_start, v_start)
+        out = tiled_evp_substeps(params, *inputs, carry, nsub)
+    u_i, v_i, s11_i, s22_i, s12_i, al_i = out
 
     def repad(filler, q_int, old):
         q = old.clone()

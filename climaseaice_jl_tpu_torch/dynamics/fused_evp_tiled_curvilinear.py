@@ -56,8 +56,8 @@ from .rheologies import ElastoViscoPlasticRheology
 from .stresses import SemiImplicitStress, StressFunction, _value
 from .fused_evp import (KernelCounter, _scalar, _P_DT, _P_F, _P_RC, _P_EINV2, _P_AMIN,
                         _P_AMAX, _P_CALPHA, _P_DMIN, _P_MASSMIN, _P_CONCMIN, _P_REPL,
-                        N_PARAMS as _N_BASE, cuda_error_string, evp_params)
-from .fused_evp_tiled_padded import pick_chunk
+                        N_PARAMS as _N_BASE, cuda_error_string, evp_params,
+                        pick_chunk)
 
 WY = 64           # the pinned y overlap (`pallas_evp_tiled_curvilinear.py:291`)
 CHUNK_CAP = 24    # the TPU tier's own cap on K (`:102`)
@@ -90,7 +90,7 @@ def _wx(K):
 
 def _fixed_plan(grid, nsub, fixed, widen_fold=False):
     """The pinned plan (K, TX, TY, Wx, Wy) of `_fixed_plan` (`:271-307`), or
-    None: K from :func:`.fused_evp_tiled_padded.pick_chunk`, TX a multiple
+    None: K from :func:`.fused_evp.pick_chunk`, TX a multiple
     of 8 and TY of 128 (kept so that the same configurations take the route
     in both packages), and the wall fills' single-trigger-tile conditions.
     The TPU's VMEM budget is dropped: the CUDA kernel's state is in device

@@ -37,24 +37,14 @@ import torch
 from .. import _build
 from ..grids import PERIODIC
 from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff
-from .fused_evp import KernelCounter, check_kernel_args, cuda_error_string
+from .fused_evp import KernelCounter, check_kernel_args, cuda_error_string, pick_chunk
 from .fused_evp_padded import (N_CONSTS, N_DRAG, N_STRESS, N_CARRY, padded_evp_inputs,
                                padded_fused_available, padded_loop_functions, run_substeps)
 
-CHUNK_SUBSTEPS = 15   # the TPU kernel's cap on K (`pallas_evp_tiled.py:44`)
 WY = 64               # y overlap of 2-D tiles (`pallas_evp_tiled_padded.py:61`)
 _TX_CHOICES = (1024, 768, 512, 384, 256, 192, 128, 96, 64, 32, 16, 8)
 
 tiled_padded_evp_counter = KernelCounter()
-
-
-def pick_chunk(nsub):
-    """The largest divisor of ``nsub`` in [2, CHUNK_SUBSTEPS], or None
-    (`pallas_evp_tiled.py:47-58`)."""
-    for K in range(min(CHUNK_SUBSTEPS, nsub), 1, -1):
-        if nsub % K == 0:
-            return K
-    return None
 
 
 # --- the gate -----------------------------------------------------------------

@@ -7,8 +7,10 @@ configuration, the state a separate dataclass of tensors, and
 the grid's device.  The EVP substep loop of eligible models goes to a CUDA
 kernel: grids with array metrics or a north fold to
 :mod:`.dynamics.fused_evp_curvilinear`, doubly periodic rectilinear grids
-without land to :mod:`.dynamics.fused_evp`, other bounded or immersed
-rectilinear ones to :mod:`.dynamics.fused_evp_padded`.  With
+without land to :mod:`.dynamics.fused_evp` (the whole-array loop up to
+571,099 points, the tiled loop of :mod:`.dynamics.fused_evp_tiled` above,
+where the JAX package switches too), other bounded or immersed rectilinear
+ones to :mod:`.dynamics.fused_evp_padded`.  With
 ``SplitExplicitSolver(fixed_tiles=…)`` (the decomposition-invariant mode) a
 model takes the fixed-tile kernels instead: on grids with array metrics or a
 north fold the pinned curvilinear EVP loop with its ice strength

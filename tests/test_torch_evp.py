@@ -180,7 +180,7 @@ def test_port_imports_no_jax():
 
     names = {path.name for path in _port_sources()}
     assert {"fused_evp_tiled_curvilinear.py", "fixed_tile_pointwise.py", "fixed_tile_thermo.py",
-            "distributed_basin.py", "chip_smoke.py"} <= names
+            "distributed_basin.py", "fused_evp_tiled.py", "chip_smoke.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

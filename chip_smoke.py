@@ -123,7 +123,35 @@ Phases, each of which raises (exit code 1) when it fails:
     coefficient launch and one per chunk each) and none of 2.1 or the other
     EVP kernels; one profiled step's device-busy share;
 23. the same port on the card and on the CPU, 768² soft ice (through 2.2
-    and its plain version), 12 substeps, 2 RK3 steps; bars as in phase 5.
+    and its plain version), 12 substeps, 2 RK3 steps; bars as in phase 5;
+24. kernels 2.7 and 2.9 on one shard of the distributed step: shard (1, 1)
+    of a (2, 2) mesh of the basin of phase 17 with halos 2·24+3 (the
+    'wide' policy), soft ice, seeded velocities, 24 substeps; no wrap along
+    the split directions, the walls gated on the shard's position, no
+    refill of the fold split across x; each bitwise against its plain
+    version (2.7 over the interiors, 2.9 over the padded arrays), timed per
+    call with its plain version and its bound;
+25. the distributed step (``parallel.make_distributed_step``) on four gloo
+    ranks sharing the card, after asking gloo whether its send and receive
+    take CUDA tensors: the basin of phase 18 at the default P★, dt 600 s, 3
+    steps on (1, 4) and on (2, 2), with and without the immersed drag;
+    interiors of u, v, h, ℵ, hs, σ₁₁, σ₂₂, σ₁₂ and α bitwise equal to the
+    serial card run, except with the drag on (2, 2), where the fold halo
+    evolving without refills is not an exact mirror (the drag samples each
+    face at its own index) and the pole rows' non-contractive αEVP
+    amplifies the seed: per field the count of points that differ, the
+    largest differences off and in the top 12 rows and the deepest row are
+    printed, every such point must lie in the top 51 rows, and off the top
+    12 rows the run must meet `run_distributed_basin.py:279-286`'s bars
+    (u, v below 2e-2, h, ℵ, hs below 5e-3 of the field's largest value;
+    `distributed_basin.xsplit_drag_band`); a band of 1e-7 of the largest
+    value is not met and stands open in ROADMAP.md §3; every rank runs 2.7
+    (without refills where x is split), 2.8, 2.9, 2.10 and 2.11 and none of
+    the other EVP kernels; each rank's device, ms per step and bytes sent
+    per step;
+26. a 128² doubly periodic float64 run under the 'per_substep' policy on
+    the same ranks, 5 steps, within rtol 1e-7, atol 1e-9 of the serial card
+    run (`tests/test_distributed.py:81`'s contract).
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and as the last line
@@ -354,6 +382,37 @@ def fixed_basin(Nx, Ny, fixed_tiles=(8, 128), device="cuda", soft=False, seed=No
         kw.update({c: torch.as_tensor(0.05 * rng.standard_normal(g.interior_shape),
                                       dtype=torch.float32, device=device) for c in "uv"})
     return model, cst.initial_state(model, **kw)
+
+
+def rectilinear_contractive(device="cuda", N=128):
+    """A doubly periodic float64 rectilinear run in the contractive regime
+    (α⁺ = 1e4), as `tests/test_distributed.py:_build` sets it, at N², under
+    the 'per_substep' halo policy: the general path, its fills exchanging
+    on a shard.  Module-level, so that spawned ranks can build it."""
+    import torch
+    import climaseaice_jl_tpu_torch as cst
+    L = 20 * KM
+    grid = cst.RectilinearGrid(size=(N, N), x=(-L / 2, L / 2), y=(-L / 2, L / 2), halo=5,
+                               topology=("periodic", "periodic"), device=device)
+    dynamics = cst.SeaIceMomentumEquation(
+        rheology=cst.ElastoViscoPlasticRheology(max_relaxation_parameter=1e4),
+        coriolis=cst.FPlane(f=1e-4), top_momentum_stress={"u": 0.01, "v": 0.01},
+        bottom_momentum_stress=cst.SemiImplicitStress(),
+        solver=cst.SplitExplicitSolver(substeps=10, halo_exchange="per_substep"))
+    model = cst.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
+                              advection=cst.WENO(order=7), timestepper="ForwardEuler")
+
+    def h0(x, y):
+        return 0.3 + 0.005 * (torch.sin(60 * x / L) + torch.sin(30 * y / L))
+
+    return model, cst.initial_state(model, h=h0, a=1.0, u=0.1)
+
+
+def shard_of(q, shard, nx, ny, H):
+    """Shard ``shard``'s window of a padded array whose halos are ``H``
+    wide: its interior and H-wide halos."""
+    ix, iy = shard
+    return q[ix * nx:ix * nx + nx + 2 * H, iy * ny:iy * ny + ny + 2 * H].contiguous()
 
 
 def anticyclone_wind(cst):
@@ -1634,6 +1693,177 @@ def main(argv=None):
                           torch.as_tensor(finals["cuda"][name]))
         check(name, rel, bar)
 
+    # --- 24. kernels 2.7 and 2.9 on one shard of the distributed basin ------------------------
+    from climaseaice_jl_tpu_torch.parallel import launch, strip_halos
+    from climaseaice_jl_tpu_torch.parallel.stepper import ProcessMesh, _local_grid
+    tsub, dt, mesh_shape, shard = 24, 600.0, (2, 2), (1, 1)
+    names = ("u", "v", "sig11", "sig22", "sig12", "alpha")
+    Hm = 2 * tsub + 3                     # the wide halo of the distributed step
+    model, state = fixed_basin(1152, 960, soft=True, seed=9, snow=0.1, halo=Hm)
+    g = model.grid
+    nx, ny = g.Nx // mesh_shape[0], g.Ny // mesh_shape[1]
+    lgrid = _local_grid(g, nx, ny, *shard, ("x", "y"), mesh_shape,
+                        ProcessMesh(mesh_shape, shard, g.device, transport=False))
+    LI = lgrid.interior
+    params, planes, carry, _, flags = ftc.tiled_curvilinear_inputs(model, state, dt, state.u,
+                                                                    state.v)
+    planes = tuple(shard_of(q, shard, nx, ny, Hm) for q in planes)
+    carry = tuple(shard_of(q, shard, nx, ny, Hm) for q in carry)
+    plan = ftc._fixed_plan(lgrid, tsub, fixed)
+    geo = ftc._geometry(lgrid)
+    tc_counter.reset()
+    out = ftc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry], tsub,
+                                             lgrid, plan, flags)
+    mesh_launches_per_call = tc_counter.launches
+    ref = ftc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, tsub, lgrid,
+                                                       plan, flags)
+    torch.cuda.synchronize()
+    print(f"[24] kernels 2.7 and 2.9 on shard {shard} of a {mesh_shape} mesh of the basin "
+          f"{g.Nx}×{g.Ny} ({lgrid.nxp}×{lgrid.nyp} padded, halos {Hm}; wrap {geo.wrap}, wall "
+          f"gates {geo.gates}, fold refilled {geo.refill}), soft ice, {tsub} substeps, on {card}:")
+    if mesh_launches_per_call != 1 + 3 * tsub:
+        raise AssertionError(f"2.7 on the shard launched {mesh_launches_per_call} times, "
+                             f"expected {1 + 3 * tsub} (no refill of the fold split across x)")
+    worst_rel = worst_abs = 0.0
+    for name, r, o, bar in zip(names, ref, out, (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
+        if not torch.isfinite(LI(o)).all():
+            raise AssertionError(f"{name} from 2.7 on the shard is not finite")
+        rel, abs_err = rel_diff(LI(r), LI(o))
+        check(name, rel, bar)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    if not all(torch.equal(LI(r), LI(o)) for r, o in zip(ref, out)):
+        raise AssertionError("2.7 on the shard is not bitwise its plain version")
+    print(f"  2.7: interiors bitwise equal to the plain version; {mesh_launches_per_call} "
+          f"launches a call (no refill)")
+    points = lgrid.nxp * lgrid.nyp
+    work = [q.clone() for q in carry]
+    kernel_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps(
+        params, planes, work, tsub, lgrid, plan, flags), 20)
+    plain_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps_reference(
+        params, planes, carry, tsub, lgrid, plan, flags), 2)
+    bytes_ms, ops_ms = bounds_ms(
+        ((TC_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + ftc.N_PARAMS) * 4,
+        (CURV_FLOPS_PER_POINT_SUBSTEP * tsub + TC_FLOPS_PER_POINT_CALL) * points)
+    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms > ops_ms else 'operations'})")
+    tcm_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    tcm_shape = (f"{lgrid.nxp}x{lgrid.nyp} shard {shard} of a 2x2 mesh of the 1152x960 basin, "
+                 f"halos {Hm}, {tsub} substeps")
+    del out, ref, work, planes, carry
+    schemes = (model.advection, model.advection)
+    u, v, h = (shard_of(q, shard, nx, ny, Hm) for q in (state.u, state.v, state.h))
+    masks = tuple(shard_of(m, shard, nx, ny, Hm) for m in (model.masks.per_fc,
+                                                          model.masks.per_cf))
+    metrics = tuple(lgrid.scalar(getattr(lgrid, n)).expand(lgrid.shape).contiguous()
+                    for n in ("dy_fc", "dx_cf", "az_cc"))
+    out = fixed_tile_advection.fixed_tile_div(lgrid, schemes, u, v, h, masks, metrics)
+    ref = fixed_tile_advection.fixed_tile_div_reference(lgrid, schemes, u, v, h, masks, metrics)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"2.9 on the shard is {max_ulp(ref, out)} ulp from its plain "
+                             "version over the padded arrays")
+    kernel_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div(lgrid, schemes, u, v, h,
+                                                                     masks, metrics), 50)
+    plain_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div_reference(
+        lgrid, schemes, u, v, h, masks, metrics), 5)
+    bytes_ms, ops_ms = bounds_ms(ADV_BYTES_PER_POINT * points, ADV_FLOPS_PER_POINT * points)
+    print(f"  2.9 (WENO-7, x split: no wrap): bitwise equal to the plain version over the "
+          f"padded arrays; kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms")
+    advm_timing = (0.0, 0.0, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    del model, state, u, v, h, masks, metrics, out, ref
+
+    # --- 25-26. the distributed step: four gloo ranks on the card ------------------------------
+    probe = launch.probe_device_tensors("cuda")
+    print(f"[25] gloo send/recv of a CUDA tensor (two ranks): {probe}")
+    steps = 3
+    basin_names = ("u", "v", "h", "a", "hs", "sig11", "sig22", "sig12", "alpha")
+    runs = [("(1, 4), drag", (1, 4), True), ("(2, 2), no drag", (2, 2), False),
+            ("(2, 2), drag", (2, 2), True)]
+    cases = [dict(build=distributed_basin.build,
+                  kwargs=dict(Nx=1152, Ny=960, fixed_tiles=fixed, drag=drag), mesh=mesh,
+                  steps=steps, dt=dt, names=basin_names) for _, mesh, drag in runs]
+    rect_steps = 5
+    cases.append(dict(build=rectilinear_contractive, mesh=(2, 2), steps=rect_steps, dt=60.0,
+                      names=("u", "v", "h", "a")))
+    t0 = time.perf_counter()
+    results = launch.run_cases(cases, 4, timeout=900)
+    spawn_s = time.perf_counter() - t0
+    serial = {}
+    for drag in (True, False):
+        m, s = distributed_basin.build(1152, 960, fixed_tiles=fixed, drag=drag)
+        for _ in range(steps):
+            s = cst.step(m, s, dt)
+        si = strip_halos(m, s)
+        serial[drag] = {n: getattr(si, n).cpu().numpy() for n in basin_names}
+    del m, s, si
+    K = fused_evp.pick_chunk(tsub)
+    print(f"    4 ranks spawned on {card}, {len(cases)} runs in {spawn_s:.1f} s:")
+    dist_launches = {}
+    for (label, mesh, drag), res in zip(runs, results):
+        x_split = mesh[0] > 1
+        per_call = 1 + 3 * tsub + (0 if x_split else -(-tsub // K))
+        for r in res["records"]:
+            calls, launches = r["calls"], r["launches"]
+            if any(calls[k] for k in ("2.1", "2.2", "2.3", "2.4", "2.5", "2.6")):
+                raise AssertionError(f"{label}: rank {r['rank']} called {calls}")
+            if any(calls[k] == 0 for k in ("2.7", "2.8", "2.9", "2.10", "2.11")):
+                raise AssertionError(f"{label}: rank {r['rank']} skipped a kernel: {calls}")
+            if calls["2.7"] != steps or launches["2.7"] != steps * per_call:
+                raise AssertionError(f"{label}: rank {r['rank']} 2.7 calls {calls['2.7']}, "
+                                     f"launches {launches['2.7']}; expected {steps} and "
+                                     f"{steps * per_call}")
+            print(f"    {label}, rank {r['rank']} shard {tuple(r['index'])}: ms/step "
+                  f"{', '.join(f'{t:.1f}' for t in r['ms_per_step'])}; 2.7 launches a step "
+                  f"{launches['2.7'] // steps} (refills {launches['2.7'] // steps - 1 - 3 * tsub})"
+                  f"; {r['bytes_per_step'] / 1e6:.3f} MB sent a step "
+                  f"({'via host' if r['stage'] else 'device to device'}), "
+                  f"on {r['device']} ({r['device_name']})")
+        if label == "(2, 2), drag":
+            dist_launches = {k: sum(r["launches"][k] for r in res["records"])
+                             for k in ("2.7", "2.9")}
+        for name in basin_names:
+            if not np.isfinite(res["fields"][name]).all():
+                raise AssertionError(f"{label}: {name} is not finite")
+        cmp = distributed_basin.compare(serial[drag], res["fields"])
+        parted = {n: c for n, c in cmp.items() if c["points"]}
+        if not parted:
+            print(f"  {label}: u, v, h, ℵ, hs, σ₁₁, σ₂₂, σ₁₂, α bitwise equal to the serial "
+                  "card run")
+            continue
+        print(f"  {label}: fields that part from the serial card run (points; largest "
+              f"difference over the field's largest value off and in the top "
+              f"{distributed_basin.CAP} rows; deepest differing row below the top): "
+              + "; ".join(f"{n} {c['points']}, {c['rel_err']:.3e}, {c['cap_rel_err']:.3e}, "
+                          f"{c['deepest_row']}" for n, c in parted.items()))
+        if not (drag and x_split):
+            raise AssertionError(f"{label}: parts from serial: {parted}")
+        if not distributed_basin.xsplit_drag_band(cmp, Hm, 300.0):   # the build's α⁺
+            raise AssertionError(f"{label}: outside the band (top {Hm} rows; off the top "
+                                 f"{distributed_basin.CAP} rows u, v < 2e-2, h, ℵ, hs < 5e-3): "
+                                 f"{parted}")
+        print(f"    within the band: every differing point in the top {Hm} rows, and off "
+              f"the top {distributed_basin.CAP} rows u, v < 2e-2, h, ℵ, hs < 5e-3")
+    rect = results[-1]
+    m, s = rectilinear_contractive()
+    for _ in range(rect_steps):
+        s = cst.step(m, s, 60.0)
+    si = strip_halos(m, s)
+    print(f"[26] 128² periodic rectilinear, float64, 'per_substep' on (2, 2), {rect_steps} "
+          "steps, against the serial card run (rtol 1e-7, atol 1e-9):")
+    for name in ("u", "v", "h", "a"):
+        ref, got = getattr(si, name).cpu().numpy(), rect["fields"][name]
+        err = np.abs(got - ref).max()
+        print(f"  {name:6s} max abs diff {err:.3e}")
+        if not np.allclose(got, ref, rtol=1e-7, atol=1e-9):
+            raise AssertionError(f"{name}: per_substep distributed run outside rtol 1e-7, "
+                                 f"atol 1e-9 of serial ({err:.3e})")
+    r = rect["records"][0]
+    print(f"    rank 0: ms/step {', '.join(f'{t:.1f}' for t in r['ms_per_step'])}, "
+          f"{r['bytes_per_step'] / 1e6:.3f} MB sent a step, on {r['device']} "
+          f"({r['device_name']})")
+    del m, s, si, results
+
     print(card)
     print(json.dumps({"kernels": [
         kernel_entry("evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp.cu",
@@ -1687,6 +1917,13 @@ def main(argv=None):
         kernel_entry("tiled_evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp_tiled.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_tiled.py:193", "_tiled_kernel",
                      t22_main_launches, *t22_timing, f"{N2}x{N2}, {nsub} substeps"),
+        kernel_entry("tiled_curvilinear_evp_substeps_meshed",
+                     "climaseaice_jl_tpu_torch/csrc/evp_tiled_curvilinear.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662",
+                     "_tiled_curv_kernel", dist_launches["2.7"], *tcm_timing, tcm_shape),
+        kernel_entry("fixed_tile_div_meshed", "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_advection.py:142", "_adv_kernel",
+                     dist_launches["2.9"], *advm_timing, f"{tcm_shape}, WENO-7"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

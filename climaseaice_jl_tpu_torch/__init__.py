@@ -20,7 +20,14 @@ thermodynamics and pointwise forcing callables
 (:mod:`.dynamics.fixed_tile_pointwise`) each run in a kernel whose
 per-point arithmetic does not depend on the array shape or the halo width.
 :mod:`.distributed_basin` builds the tripolar basin of
-`validation/run_distributed_basin.py` in this mode.
+`validation/run_distributed_basin.py` in this mode.  :mod:`.parallel` steps
+a model over a mesh of ``torch.distributed`` ranks, each rank's shard on its
+own device (:func:`.parallel.make_distributed_step`); in the fixed-tile
+mode the result equals the serial step's bit for bit, except with an
+immersed drag on a mesh that splits the north fold across x: there the
+fold halo, which evolves without refills, is not an exact mirror (the drag
+samples each face at its own index), and the result parts from the serial
+one in the rows next to the fold.
 """
 
 from .grids import (RectilinearGrid, LatitudeLongitudeGrid, CurvilinearGrid,
@@ -42,5 +49,6 @@ from .dynamics import (FPlane, LatitudeCoriolis, SemiImplicitStress, StressFunct
                        SplitExplicitSolver, ImmersedDrag, ImmersedStressBC)
 from .simulation import (Simulation, Callback, IterationInterval, TimeInterval,
                          time_step)
+from .parallel import make_distributed_step, strip_halos, unstrip_halos
 
 __version__ = "0.1.0"

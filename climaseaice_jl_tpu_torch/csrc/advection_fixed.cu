@@ -7,9 +7,12 @@
 // fluxes u·ĉ and v·ĉ zeroed through peripheral faces, and their divergence:
 // δx(fx)·(1/Δx) + δy(fy)·(1/Δy) on uniform grids, [δx(Δy_fc·u·ĉ) +
 // δy(Δx_cf·v·ĉ)]/Az_cc with array metrics.  The TPU kernel gathers
-// halo-extended tiles (wrap into the interior along a periodic direction,
-// clamp at the padded edge along a bounded one) and shifts inside them; here
-// a thread reads the images of its stencil's padded indices directly.
+// halo-extended tiles (wrap into the interior along a periodic direction
+// that is not split across ranks, clamp at the padded edge otherwise:
+// `pallas_advection.py:217-218`) and shifts inside them; here a thread reads
+// the images of its stencil's padded indices directly.  On one rank's shard
+// of the distributed step a split direction does not wrap: its halos hold
+// the neighbouring ranks' values.
 //
 // What bounds it on an H100: per point the WENO-7 function needs 1023
 // float32 operations, two one-sided reconstructions of 253 at each of its
@@ -48,8 +51,10 @@ struct Scheme {
   const float* tab;   // WENO: ε, C[r][r], G[r], B[r][r][r]
 };
 
-__device__ __forceinline__ int image(int k, int ext, int H, int N, int periodic) {
-  if (periodic) {
+// the padded index that stands at padded index k: its interior image where
+// the direction wraps, k clamped at the padded edge where it does not
+__device__ __forceinline__ int image(int k, int ext, int H, int N, int wrap) {
+  if (wrap) {
     const int r = (k - H) % N;
     return H + (r < 0 ? r + N : r);
   }
@@ -139,16 +144,16 @@ __global__ void __launch_bounds__(BX * BY) fixed_tile_div(
     const uint8_t* __restrict__ per_fc, const uint8_t* __restrict__ per_cf,
     const float* __restrict__ dy_fc, const float* __restrict__ dx_cf,
     const float* __restrict__ az_cc, const float* __restrict__ prm, Scheme sx, Scheme sy,
-    float* __restrict__ out, int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int per_x,
-    int per_y) {
+    float* __restrict__ out, int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int wrap_x,
+    int wrap_y) {
   const int j = blockIdx.x * BX + threadIdx.x;
   const int i = blockIdx.y * BY + threadIdx.y;
   if (i >= nxp || j >= nyp) return;
   // images of i + k and j + k, k = −R … R
   int ix[2 * R + 1], iy[2 * R + 1];
   for (int k = -R; k <= R; ++k) {
-    ix[k + R] = image(i + k, nxp, Hx, Nx, per_x);
-    iy[k + R] = image(j + k, nyp, Hy, Ny, per_y);
+    ix[k + R] = image(i + k, nxp, Hx, Nx, wrap_x);
+    iy[k + R] = image(j + k, nyp, Hy, Ny, wrap_y);
   }
   const int row0 = ix[R] * nyp, col0 = iy[R];
   float cs[2 * R + 1];
@@ -184,20 +189,21 @@ __global__ void __launch_bounds__(BX * BY) fixed_tile_div(
 
 // ∇·(U c) on the padded (nxp, nyp) arrays into `out` on `stream`.  dy_fc,
 // dx_cf and az_cc are null on uniform grids, where prm holds (1/Δx, 1/Δy).
-// Scheme kinds: 0 Centered, 1 UpwindBiased, 2 WENO.  Returns 0, or the
+// Scheme kinds: 0 Centered, 1 UpwindBiased, 2 WENO.  `wrap_*`: 1 where the
+// direction is periodic and not split across ranks.  Returns 0, or the
 // cudaGetLastError() after the launch.
 extern "C" int csi_fixed_tile_div(
     const float* u, const float* v, const float* c, const uint8_t* per_fc,
     const uint8_t* per_cf, const float* dy_fc, const float* dx_cf, const float* az_cc,
     const float* prm, const float* tab_x, const float* tab_y, int kind_x, int order_x,
     int kind_y, int order_y, float* out, int nxp, int nyp, int Hx, int Nx, int Hy, int Ny,
-    int per_x, int per_y, void* stream) {
+    int wrap_x, int wrap_y, void* stream) {
   const Scheme sx{kind_x, order_x, tab_x}, sy{kind_y, order_y, tab_y};
   const dim3 block(BX, BY);
   const dim3 grid((nyp + BX - 1) / BX, (nxp + BY - 1) / BY);
   fixed_tile_div<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       u, v, c, per_fc, per_cf, dy_fc, dx_cf, az_cc, prm, sx, sy, out, nxp, nyp, Hx, Nx, Hy,
-      Ny, per_x, per_y);
+      Ny, wrap_x, wrap_y);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,7 +29,16 @@
 //     outermost rows, which read clamped neighbours, lose two rows of
 //     validity a substep: the 2K+5 rows cover K substeps.  Before each chunk
 //     of K substeps one launch refills u, v, σ₁₁, σ₂₂ and σ₁₂ with the
-//     serial fills and the fold (`refill`, `:1199-1212`).
+//     local fills and the fold (`refill`, `:1199-1212`).
+//   * on one rank's shard of the distributed step (the caller's halos are
+//     2·substeps+3 wide along the directions split across ranks) a split
+//     direction is indexed by clamp, not wrap (`:1116-1117`); the wall fills
+//     and the immersed drag's walls apply only on the shards touching that
+//     global edge, four gates for west, east, south and north (`_G_W…_G_N`,
+//     `:1133-1142`); a fold split across x is never refilled: its halo
+//     evolves through every substep inside the wide y halo, and the caller
+//     exchanges u and v once after the loop (`:1199-1211`, `:1254-1259`).
+//     On a serial grid every gate is 1.
 //
 // What bounds it on an H100: the whole-array kernel's function (its file
 // counts 185 float32 operations per point and substep with drag and 16 per
@@ -70,8 +79,9 @@ struct Planes {
 };
 
 struct Geo {
-  Layout L;
+  Layout L;                      // L.per_x, L.per_y: 1 where the direction wraps
   int bnd_x, bnd_y;              // 1 where the direction is bounded
+  int gw, ge, gs, gn;            // 1 where the shard touches that global edge
   int immersed, has_drag, f_plane;
 };
 
@@ -83,8 +93,9 @@ __device__ __forceinline__ bool locate(const Layout& L, int& i, int& j, int& k) 
   return true;
 }
 
-// padded index i + d along a direction: wrapped into the interior where
-// periodic, clamped at the padded edge where bounded
+// padded index i + d along a direction: wrapped into the interior where it
+// wraps (periodic and not split across ranks), clamped at the padded edge
+// otherwise
 __device__ __forceinline__ int at(int i, int d, int H, int N, int ext, int periodic) {
   return periodic ? H + mod(i + d - H, N) : min(max(i + d, 0), ext - 1);
 }
@@ -176,8 +187,8 @@ __global__ void __launch_bounds__(BX * BY) tc_prep(const float* __restrict__ prm
     auto imm = [&](int dx, int dy) {
       const int gx = h.x(dx) - L.Hx, gy = h.y(dy) - L.Hy;
       bool wall = false;
-      if (G.bnd_x) wall = wall || gx <= 0 || gx >= L.Nx;
-      if (G.bnd_y) wall = wall || gy <= 0 || (!L.fold && gy >= L.Ny);
+      if (G.bnd_x) wall = wall || (G.gw && gx <= 0) || (G.ge && gx >= L.Nx);
+      if (G.bnd_y) wall = wall || (G.gs && gy <= 0) || (!L.fold && G.gn && gy >= L.Ny);
       return per_ff(dx, dy) > 0.5f && !wall;
     };
     auto wx = [&](int dx, int dy) {
@@ -200,21 +211,57 @@ __global__ void __launch_bounds__(BX * BY) tc_prep(const float* __restrict__ prm
   }
 }
 
-// The serial fills of u, v, σ₁₁, σ₂₂ and σ₁₂ with the fold (the local
-// refills between chunks), each from `in` into `out`.
+// Source index of padded index i along one direction of the local fill
+// (fields.fill_halos_*_local), or -1 where it writes zero: wrap where the
+// direction wraps; where it is bounded, the wall fills on the shards that
+// touch the wall (g_lo, g_hi); a periodic direction split across ranks
+// keeps its halo.
+__device__ __forceinline__ int local_source(int i, int H, int N, int wrap, int bnd,
+                                            int g_lo, int g_hi, bool face) {
+  if (H == 0) return i;
+  if (wrap) return i < H ? i + N : (i >= H + N ? i - N : i);
+  if (!bnd) return i;
+  if (face) return ((g_lo && i < H) || (g_hi && i > H + N)) ? -1 : i;
+  if (g_lo && i < H) return H;
+  if (g_hi && i >= H + N) return H + N - 1;
+  return i;
+}
+
+// The local fill of `in` at padded (i, j) for a field at (xface, yface):
+// the x fill, the y fill, then on the northernmost shard of a folded grid
+// the Zipper fold with sign `sign` (−1 for u and v, +1 for σ), the y-face
+// seam row projected onto its symmetry.  Used only where x is not split.
+__device__ __forceinline__ float local_fill_value(const Geo& G, const float* in, int i, int j,
+                                                  bool xface, bool yface, float sign) {
+  const Layout& L = G.L;
+  const int ny = L.nyp;
+  const int seam = L.Hy + L.Ny;
+  const int si = local_source(i, L.Hx, L.Nx, L.per_x, G.bnd_x, G.gw, G.ge, xface);
+  if (L.fold && G.gn && j >= seam) {
+    const int m = fold_column(L, i, xface);
+    if (!yface) return sign * in[m * ny + 2 * seam - 1 - j];
+    if (j > seam) return sign * in[m * ny + 2 * seam - j];
+    return 0.5f * (in[si * ny + seam] + sign * in[m * ny + seam]);
+  }
+  const int sj = local_source(j, L.Hy, L.Ny, L.per_y, G.bnd_y, G.gs, G.gn, yface);
+  return (si < 0 || sj < 0) ? 0.0f : in[si * ny + sj];
+}
+
+// The local refills of u, v, σ₁₁, σ₂₂ and σ₁₂ between chunks, each from
+// `in` into `out`.
 struct Five {
   const float* in[5];
   float* out[5];
 };
 
-__global__ void __launch_bounds__(BX * BY) tc_refill(Five F, Layout L) {
+__global__ void __launch_bounds__(BX * BY) tc_refill(Five F, Geo G) {
   int i, j, k;
-  if (!locate(L, i, j, k)) return;
-  F.out[0][k] = fill_value(L, F.in[0], i, j, true, false, -1.0f);    // u (f,c)
-  F.out[1][k] = fill_value(L, F.in[1], i, j, false, true, -1.0f);    // v (c,f)
-  F.out[2][k] = fill_value(L, F.in[2], i, j, false, false, 1.0f);    // σ₁₁
-  F.out[3][k] = fill_value(L, F.in[3], i, j, false, false, 1.0f);    // σ₂₂
-  F.out[4][k] = fill_value(L, F.in[4], i, j, true, true, 1.0f);      // σ₁₂ (f,f)
+  if (!locate(G.L, i, j, k)) return;
+  F.out[0][k] = local_fill_value(G, F.in[0], i, j, true, false, -1.0f);    // u (f,c)
+  F.out[1][k] = local_fill_value(G, F.in[1], i, j, false, true, -1.0f);    // v (c,f)
+  F.out[2][k] = local_fill_value(G, F.in[2], i, j, false, false, 1.0f);    // σ₁₁
+  F.out[3][k] = local_fill_value(G, F.in[3], i, j, false, false, 1.0f);    // σ₂₂
+  F.out[4][k] = local_fill_value(G, F.in[4], i, j, true, true, 1.0f);      // σ₁₂ (f,f)
 }
 
 __global__ void __launch_bounds__(BX * BY) tc_stress(
@@ -233,7 +280,8 @@ __global__ void __launch_bounds__(BX * BY) tc_stress(
 
 // u update at (i, j), with the gated wall fill of `_make_fillers`: zero
 // beyond a bounded x wall face, the first or last interior row copied
-// beyond a bounded y edge (none on the folded north edge)
+// beyond a bounded y edge (none on the folded north edge), each on the
+// shards touching that wall
 __global__ void __launch_bounds__(BX * BY) tc_u_update(
     const float* __restrict__ prm, Metrics m, Consts c, Geo G,
     const float* __restrict__ u, const float* __restrict__ v,
@@ -244,13 +292,13 @@ __global__ void __launch_bounds__(BX * BY) tc_u_update(
   int i, j, k;
   if (!locate(L, i, j, k)) return;
   Here h = image(L, i, j);
-  if (G.bnd_x && (i < L.Hx || i > L.Hx + L.Nx)) {
+  if (G.bnd_x && ((G.gw && i < L.Hx) || (G.ge && i > L.Hx + L.Nx))) {
     u_out[k] = 0.0f;
     return;
   }
   if (G.bnd_y) {
-    if (j < L.Hy) h.j = L.Hy;
-    else if (!L.fold && j >= L.Hy + L.Ny) h.j = L.Hy + L.Ny - 1;
+    if (G.gs && j < L.Hy) h.j = L.Hy;
+    else if (!L.fold && G.gn && j >= L.Hy + L.Ny) h.j = L.Hy + L.Ny - 1;
   }
   u_out[k] = u_at(prm, m, c, G.has_drag, u, v, s11, s22, s12, al, h.k(0, 0), h.k(-1, 0),
                   h.k(0, 1), h.k(-1, 1));
@@ -268,13 +316,13 @@ __global__ void __launch_bounds__(BX * BY) tc_v_update(
   int i, j, k;
   if (!locate(L, i, j, k)) return;
   Here h = image(L, i, j);
-  if (G.bnd_y && (j < L.Hy || (!L.fold && j > L.Hy + L.Ny))) {
+  if (G.bnd_y && ((G.gs && j < L.Hy) || (!L.fold && G.gn && j > L.Hy + L.Ny))) {
     v_out[k] = 0.0f;
     return;
   }
   if (G.bnd_x) {
-    if (i < L.Hx) h.i = L.Hx;
-    else if (i >= L.Hx + L.Nx) h.i = L.Hx + L.Nx - 1;
+    if (G.gw && i < L.Hx) h.i = L.Hx;
+    else if (G.ge && i >= L.Hx + L.Nx) h.i = L.Hx + L.Nx - 1;
   }
   v_out[k] = v_at(prm, m, c, G.has_drag, u, v, s11, s22, s12, al, h.k(0, 0), h.k(0, -1),
                   h.k(1, 0), h.k(1, -1));
@@ -283,23 +331,27 @@ __global__ void __launch_bounds__(BX * BY) tc_v_update(
 }  // namespace
 
 // Runs `nsub` substeps on u, v, s11, s22, s12, al (each nxp×nyp, y
-// contiguous) on `stream`, refilling the fold halos before every `chunk`
-// substeps on a folded grid.  `planes`: a host array of the N_PLANES raw
-// plane pointers (C_FCOR null for a scalar f); `scratch`: 5 arrays of the
-// shape; `work`: N_FORMS + N_DERIVED arrays of the shape.  The results are
-// left in the caller's arrays.  Returns 0, the first nonzero
-// cudaGetLastError() after a launch, or -1 for arguments it cannot take.
+// contiguous) on `stream`, refilling the halos before every `chunk`
+// substeps where `refill` (a folded grid whose x is not split across
+// ranks).  `wrap_*`: the direction wraps; `bnd_*`: it is bounded; `g*`: the
+// shard touches the west, east, south, north global edge (all 1 on a serial
+// grid).  `planes`: a host array of the N_PLANES raw plane pointers (C_FCOR
+// null for a scalar f); `scratch`: 5 arrays of the shape; `work`: N_FORMS +
+// N_DERIVED arrays of the shape.  The results are left in the caller's
+// arrays.  Returns 0, the first nonzero cudaGetLastError() after a launch,
+// or -1 for arguments it cannot take.
 extern "C" int csi_evp_tiled_curvilinear_substeps(
     const float* params, const float* const* planes, float* u, float* v, float* s11,
     float* s22, float* s12, float* al, float* scratch, float* work, int nxp, int nyp,
-    int Hx, int Nx, int Hy, int Ny, int per_x, int per_y, int fold, int immersed,
-    int has_drag, int nsub, int chunk, void* stream) {
+    int Hx, int Nx, int Hy, int Ny, int wrap_x, int wrap_y, int bnd_x, int bnd_y, int fold,
+    int gw, int ge, int gs, int gn, int refill, int immersed, int has_drag, int nsub,
+    int chunk, void* stream) {
   if (chunk < 1 || nsub < 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Planes P;
   for (int q = 0; q < N_PLANES; ++q) P.p[q] = planes[q];
-  const Layout L{nxp, nyp, Hx, Nx, Hy, Ny, per_x, per_y, fold};
-  const Geo G{L, !per_x, !per_y, immersed, has_drag, P.p[C_FCOR] != nullptr};
+  const Layout L{nxp, nyp, Hx, Nx, Hy, Ny, wrap_x, wrap_y, fold};
+  const Geo G{L, bnd_x, bnd_y, gw, ge, gs, gn, immersed, has_drag, P.p[C_FCOR] != nullptr};
   const long long n = static_cast<long long>(nxp) * nyp;
   float* forms = work;
   float* der = work + N_FORMS * n;
@@ -333,13 +385,13 @@ extern "C" int csi_evp_tiled_curvilinear_substeps(
     oth[q] = scratch + q * n;
   }
   for (int s = 1; s <= nsub; ++s) {
-    if (fold && (s - 1) % chunk == 0) {
+    if (refill && (s - 1) % chunk == 0) {
       Five F;
       for (int q = 0; q < 5; ++q) {
         F.in[q] = cur[q];
         F.out[q] = oth[q];
       }
-      tc_refill<<<grid, block, 0, st>>>(F, L);
+      tc_refill<<<grid, block, 0, st>>>(F, G);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
       for (int q = 0; q < 5; ++q) {
         float* t = cur[q];

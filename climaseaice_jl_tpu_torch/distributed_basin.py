@@ -1,5 +1,17 @@
 """The tripolar basin of the distributed validation: the configuration of
-`validation/run_distributed_basin.py:build` in this package, run serially.
+`validation/run_distributed_basin.py:build` in this package, and its run
+serially and over a mesh of ranks (:func:`run_distributed`, the script's
+``main``):
+
+    python -m climaseaice_jl_tpu_torch.distributed_basin --size 1152x960 \
+        --mesh 2x2 --fixed-tiles 8x128 [--no-drag] [--steps 3] [--device cpu]
+
+spawns Px·Py ranks on this machine, steps the basin serially and
+distributed, and with ``--fixed-tiles`` gates bit-for-bit equality of u, v,
+h, ℵ and hs, as the script does (`run_distributed_basin.py:270-286`),
+except with the immersed drag on a mesh that splits the fold across x:
+that run is held to :func:`xsplit_drag_band`.  There is no NetCDF output
+(queue 6).
 
 A land-masked ``TripolarGrid`` (45°N to the fold, cap from 65°N, halo 5)
 with the script's own idealised continents and the pole-row cells as land;
@@ -20,7 +32,10 @@ same bits.
 
 from __future__ import annotations
 
+import argparse
+import json
 import math
+import sys
 
 import numpy as np
 import torch
@@ -113,10 +128,11 @@ def basin_land(grid):
 
 
 def build(Nx, Ny, substeps=24, max_relaxation=300.0, fixed_tiles=None, thermo=True,
-          halo=5, device=None):
+          halo=5, device=None, drag=True):
     """``(model, state)`` of `run_distributed_basin.py:build(Nx, Ny, substeps,
     max_relaxation, fixed_tiles, thermo)` on ``device`` (default the card);
-    ``halo`` other than 5 serves the halo-width invariance checks."""
+    ``halo`` other than 5 serves the halo-width invariance checks, and
+    ``drag=False`` leaves out the immersed drag."""
     grid = TripolarGrid((Nx, Ny), southernmost_latitude=45.0, transition_latitude=65.0,
                         halo=halo, dtype="float32", device=device)
     land = basin_land(grid)
@@ -134,7 +150,7 @@ def build(Nx, Ny, substeps=24, max_relaxation=300.0, fixed_tiles=None, thermo=Tr
         coriolis=FPlane(f=1.4e-4),
         top_momentum_stress={"u": StressFunction(func=wind_u), "v": StressFunction(func=wind_v)},
         bottom_momentum_stress=SemiImplicitStress(),
-        immersed_drag=ImmersedDrag(coefficient=1e-3),
+        immersed_drag=ImmersedDrag(coefficient=1e-3) if drag else None,
         solver=SplitExplicitSolver(
             substeps=substeps, fixed_tiles=fixed_tiles,
             halo_exchange="wide" if fixed_tiles else "per_substep",
@@ -163,3 +179,122 @@ def build(Nx, Ny, substeps=24, max_relaxation=300.0, fixed_tiles=None, thermo=Tr
     if thermo:
         init["hs"] = 0.0
     return model, initial_state(model, **init)
+
+
+# the rows next to the grid poles, reported apart (`run_distributed_basin.py:233-240`)
+CAP = 12
+GATED = ("u", "v", "h", "a", "hs")
+
+
+def compare(serial, distributed):
+    """Per field of ``serial`` (interior-only numpy arrays, as is
+    ``distributed``): the count of points that differ, the largest
+    difference off and in the ``CAP`` rows next to the pole over the
+    field's largest value, and the deepest differing row counted down from
+    the top one (-1 where none differs)."""
+    out = {}
+    for name, ref in serial.items():
+        got = distributed[name]
+        d = np.abs(got.astype(np.float64) - ref) / max(np.abs(ref).max(), 1e-8)
+        rows = np.flatnonzero((got != ref).any(axis=0))
+        out[name] = dict(points=int((got != ref).sum()), rel_err=float(d[:, :-CAP].max()),
+                         cap_rel_err=float(d[:, -CAP:].max()),
+                         deepest_row=int(ref.shape[1] - 1 - rows.min()) if len(rows) else -1)
+    return out
+
+
+def within_bars(rel_err, max_relaxation):
+    """The script's bars where serial and distributed need not agree bit for
+    bit (`run_distributed_basin.py:279-286`), on the largest differences
+    off the ``CAP`` rows: u, v below 2e-2 and h, ℵ, hs below 5e-3 at
+    α⁺ = 300; 5e-3 and 1e-4 in the contractive regime (α⁺ ≥ 1e3)."""
+    vel, tracer = (5e-3, 1e-4) if max_relaxation >= 1e3 else (2e-2, 5e-3)
+    return all(rel_err[k] < (vel if k in ("u", "v") else tracer)
+               for k in GATED if k in rel_err)
+
+
+def xsplit_drag_band(cmp, rows, max_relaxation):
+    """Whether a fixed-tile run with the immersed drag and the fold split
+    across x stays in its band: every differing point in the top ``rows``
+    rows (the fold halo, which evolves there without refills and is not an
+    exact mirror where the drag samples a face at its own index) and the
+    script's bars off the ``CAP`` rows (:func:`within_bars`)."""
+    return (all(c["deepest_row"] < rows for c in cmp.values())
+            and within_bars({n: c["rel_err"] for n, c in cmp.items()}, max_relaxation))
+
+
+def run_distributed(Nx, Ny, mesh=(1, 4), steps=3, dt=600.0, fixed_tiles=None, thermo=True,
+                    drag=True, max_relaxation=300.0, substeps=24, device=None, timeout=None):
+    """The basin stepped ``steps`` times serially on ``device`` (default the
+    card) and on a ``mesh`` of Px·Py spawned ranks (on the CPU where
+    ``device`` is, else on their default devices).
+    Returns the serial and gathered interior-only fields (numpy; the y-face
+    fields keep the seam row), each rank's record (ms per step, kernel calls
+    and launches, bytes sent per step) and the comparison (:func:`compare`)."""
+    from .model import step
+    from .parallel import launch, strip_halos
+    kw = dict(Nx=Nx, Ny=Ny, substeps=substeps, fixed_tiles=fixed_tiles, thermo=thermo,
+              drag=drag, max_relaxation=max_relaxation)
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    names = ("u", "v", "h", "a") + (("hs",) if thermo else ()) + (
+        "sig11", "sig22", "sig12", "alpha")
+    case = dict(build=build, kwargs=kw, mesh=tuple(mesh), steps=steps, dt=dt, names=names,
+                device="cpu" if on_cpu else None)
+    result = launch.run_cases([case], mesh[0] * mesh[1], timeout=timeout)[0]
+    model, state = build(device=device, **kw)
+    for _ in range(steps):
+        state = step(model, state, dt)
+    serial_state = strip_halos(model, state)
+    serial = {n: getattr(serial_state, n).cpu().numpy() for n in names}
+    return dict(serial=serial, distributed=result["fields"], records=result["records"],
+                comparison=compare(serial, result["fields"]))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="The tripolar basin serially and over a mesh of "
+                                             "ranks, compared (run_distributed_basin.py).")
+    ap.add_argument("--size", default="360x300")
+    ap.add_argument("--mesh", default="1x4", help="PxxPy, e.g. 2x2")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--dt", type=float, default=600.0)
+    ap.add_argument("--substeps", type=int, default=24)
+    ap.add_argument("--alpha-max", type=float, default=300.0)
+    ap.add_argument("--fixed-tiles", default=None, help="TXxTY, e.g. 8x128: the "
+                    "decomposition-invariant mode, gated bit for bit")
+    ap.add_argument("--no-thermo", action="store_true")
+    ap.add_argument("--no-drag", action="store_true", help="leave out the immersed drag")
+    ap.add_argument("--device", default=None, help="the serial run's device (default the card)")
+    ap.add_argument("--timeout", type=float, default=1800.0,
+                    help="seconds the ranks may take before they are stopped")
+    args = ap.parse_args(argv)
+    Nx, Ny = map(int, args.size.split("x"))
+    mesh = tuple(map(int, args.mesh.split("x")))
+    fixed = tuple(map(int, args.fixed_tiles.split("x"))) if args.fixed_tiles else None
+    out = run_distributed(Nx, Ny, mesh, args.steps, args.dt, fixed, not args.no_thermo,
+                          not args.no_drag, args.alpha_max, args.substeps, args.device,
+                          args.timeout)
+    cmp = out["comparison"]
+    errs = {n: c["rel_err"] for n, c in cmp.items()}
+    print(json.dumps({
+        "grid": f"{Nx}x{Ny} tripolar immersed", "mesh": list(mesh), "steps": args.steps,
+        "dt_s": args.dt, "fixed_tiles": args.fixed_tiles, "thermo": not args.no_thermo,
+        "drag": not args.no_drag, "serial_vs_distributed_rel_err": errs,
+        "pole_cap_band_rel_err": {n: c["cap_rel_err"] for n, c in cmp.items()},
+        "bitwise_equal": {n: c["points"] == 0 for n, c in cmp.items()},
+        "deepest_differing_row": {n: c["deepest_row"] for n, c in cmp.items()},
+        "devices": [r["device"] for r in out["records"]],
+        "ms_per_step": [r["ms_per_step"] for r in out["records"]],
+        "bytes_per_step": [r["bytes_per_step"] for r in out["records"]],
+        "staged_through_host": [r["stage"] for r in out["records"]]}))
+    if fixed is not None and mesh[0] > 1 and not args.no_drag:
+        ok = xsplit_drag_band(cmp, 2 * args.substeps + 3, args.alpha_max)
+    elif fixed is not None:
+        ok = all(cmp[n]["points"] == 0 for n in GATED if n in cmp)
+    else:
+        ok = within_bars(errs, args.alpha_max)
+    print("OK" if ok else "MISMATCH")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,7 +12,9 @@ padded index + k.  Both versions here read those images directly: the
 kernel (``csrc/advection_fixed.cu``, one launch per tracer, one thread per
 padded point) and the plain version, which gathers the images into arrays
 extended by 8 points on each side and runs the general path's
-reconstructions on them.
+reconstructions on them.  On one rank's shard of the distributed step a
+direction split across ranks does not wrap (`pallas_advection.py:217-218`):
+its halos hold the neighbouring ranks' values, and the images clamp.
 
 Schemes: WENO 5/7/9, UpwindBiased 1/3/5/7, Centered 2/4, and
 FluxFormAdvection with separate x and y schemes.  Fluxes through peripheral
@@ -37,6 +39,7 @@ import torch
 
 from .. import _build
 from ..grids import PERIODIC
+from ..fields import _meshed
 from ..advection import (WENO, UpwindBiased, Centered, FluxFormAdvection, required_halo,
                          reconstruct_face, _upwind_select, _weno_tables_cached)
 from .fused_evp import KernelCounter, cuda_error_string
@@ -88,12 +91,17 @@ def _check_scheme(s):
         raise ValueError(f"unsupported WENO order {s.order}")
 
 
-def _images(ext, n_int, H, periodic, device):
+def _wraps(grid, dim):
+    """True where direction ``dim`` is periodic and not split across ranks."""
+    return grid.topology[dim] == PERIODIC and not _meshed(grid, dim)
+
+
+def _images(ext, n_int, H, wrap, device):
     """Padded images of padded indices −_EXT … ext + _EXT − 1: wrap into the
-    interior where periodic, clamp at the padded edge where bounded
+    interior where the direction wraps, clamp at the padded edge otherwise
     (`_tile_indices`)."""
     k = torch.arange(-_EXT, ext + _EXT, device=device)
-    return H + torch.remainder(k - H, n_int) if periodic else torch.clamp(k, 0, ext - 1)
+    return H + torch.remainder(k - H, n_int) if wrap else torch.clamp(k, 0, ext - 1)
 
 
 def _array_metrics(grid):
@@ -108,8 +116,8 @@ def fixed_tile_div_reference(grid, schemes, u, v, c, masks, metrics):
     sx, sy = schemes
     for s in schemes:
         _check_scheme(s)
-    ex = _images(grid.nxp, grid.Nx, grid.Hx, grid.topology[0] == PERIODIC, c.device)
-    ey = _images(grid.nyp, grid.Ny, grid.Hy, grid.topology[1] == PERIODIC, c.device)
+    ex = _images(grid.nxp, grid.Nx, grid.Hx, _wraps(grid, 0), c.device)
+    ey = _images(grid.nyp, grid.Ny, grid.Hy, _wraps(grid, 1), c.device)
 
     def ext(q):
         return q[ex][:, ey]
@@ -202,8 +210,7 @@ def fixed_tile_div(grid, schemes, u, v, c, masks, metrics):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, kx, ox, ky, oy, out.data_ptr(), grid.nxp, grid.nyp, grid.Hx, grid.Nx,
-                 grid.Hy, grid.Ny, int(grid.topology[0] == PERIODIC),
-                 int(grid.topology[1] == PERIODIC), stream)
+                 grid.Hy, grid.Ny, int(_wraps(grid, 0)), int(_wraps(grid, 1)), stream)
     if err != 0:
         raise RuntimeError(f"fixed-tile advection kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('advection_fixed', err)})")

@@ -21,9 +21,9 @@ scalar, so the tripolar basin takes the chunked kernel (2.7), whose tiles,
 chunk plan and self-evolving fold halo exist for VMEM and for meshes.  The
 CUDA kernel keeps its state in device memory and has neither limit; under
 ``fixed_tiles`` the pinned plan of 2.7 has its own kernel
-(:mod:`.fused_evp_tiled_curvilinear`, sharing this kernel's per-point code),
-and the unpinned chunked design and the meshed fold belong to the
-distributed slice (queue 9).
+(:mod:`.fused_evp_tiled_curvilinear`, sharing this kernel's per-point code,
+serial and on the shards of the distributed step), and the unpinned
+chunked design on shards is not ported (queue 9).
 
 :func:`curvilinear_evp_substeps` picks by the tensors' device: CUDA tensors
 go to the kernel, CPU tensors to :func:`curvilinear_evp_substeps_reference`.
@@ -96,10 +96,11 @@ def curvilinear_fused_available(model):
     The physics conditions of the JAX gates of kernels 2.6 and 2.7
     (`pallas_evp_curvilinear.py:52-114`, `pallas_evp_tiled_curvilinear.py:310-394`)
     without their TPU-only ones: the VMEM budgets, the tile and chunk plans
-    and the 50 M-point HBM cap kept the state on chip or in tiles, and the
-    mesh and ``fixed_tiles`` conditions guard the distributed modes
-    (queue 9).  The CUDA kernel keeps its state in device memory and
-    indexes any nxp×nyp, so it has no size limit."""
+    and the 50 M-point HBM cap kept the state on chip or in tiles.  A
+    shard's model never asks this gate (:func:`..model.meshed_momentum_route`
+    dispatches it, as the JAX gate's mesh condition sends it elsewhere).
+    The CUDA kernel keeps its state in device memory and indexes any
+    nxp×nyp, so it has no size limit."""
     grid = model.grid
     dyn = model.dynamics
     if dyn is None or not isinstance(dyn.rheology, ElastoViscoPlasticRheology):

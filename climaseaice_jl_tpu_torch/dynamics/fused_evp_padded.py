@@ -68,9 +68,11 @@ def padded_fused_available(model):
 
     The physics conditions of the JAX gate (`pallas_evp_padded.py:46-116`)
     without its TPU-only ones: the scoped-VMEM budget kept the whole padded
-    state on chip, and the mesh test guards the distributed wide-halo mode
-    (queue 9).  The CUDA kernel keeps its state in device memory and indexes
-    any nxp×nyp (ragged edges masked), so it has no size limit."""
+    state on chip.  A shard's model never takes this route: where the JAX
+    package would run the meshed kernel, the distributed step raises
+    (queue 9, :func:`..model.meshed_momentum_route`).  The CUDA kernel keeps
+    its state in device memory and indexes any nxp×nyp (ragged edges
+    masked), so it has no size limit."""
     grid = model.grid
     dyn = model.dynamics
     if dyn is None or not isinstance(dyn.rheology, ElastoViscoPlasticRheology):

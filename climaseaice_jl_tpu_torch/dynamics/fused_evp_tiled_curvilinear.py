@@ -29,11 +29,17 @@ chunk.  A point's value depends only on its domain of dependence, so the
 interiors agree whatever the tiles.  The ice-strength kernel
 (``csrc/ice_strength_fixed.cu``) is one thread per point.
 
+On a shard's grid (:mod:`..parallel.stepper`, the 'wide' halo policy, halos
+of 2·substeps+3 along the split directions) the route runs unwidened: a
+split direction does not wrap, the wall fills and the immersed drag's walls
+apply only on the shards at the global edges, and a fold split across x is
+never refilled: its halo evolves through every substep, and one joint
+exchange of u and v follows the loop.
+
 A CUDA tensor goes to the kernels, a CPU tensor to the plain versions; a
-kernel that fails to build or launch raises.  Meshed grids and the chunked,
-non-pinned plan belong to the distributed slice (queue 9): on one card the
-whole-array route (:mod:`.fused_evp_curvilinear`) computes the function of
-the unpinned tiled kernel.
+kernel that fails to build or launch raises.  The unpinned plan (without
+``fixed_tiles``) on a shard is not ported (queue 9); on one card the
+whole-array route (:mod:`.fused_evp_curvilinear`) computes its function.
 """
 
 from __future__ import annotations
@@ -46,10 +52,10 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..grids import PERIODIC, BOUNDED, _METRIC_LOCS, repad_metric
+from ..grids import PERIODIC, BOUNDED, _curvilinear_with_halo
 from ..fields import (FILLERS, fill_halos_cc, fill_halos_ff, fill_halos_cc_local,
                       fill_halos_fc_local, fill_halos_cf_local, fill_halos_ff_local,
-                      _maybe_fold)
+                      fill_halos_uv, _maybe_fold, _meshed)
 from .coriolis import FPlane, LatitudeCoriolis, coriolis_f_cc
 from .momentum import SplitExplicitSolver, ImmersedDrag
 from .rheologies import ElastoViscoPlasticRheology
@@ -113,19 +119,21 @@ def _fixed_plan(grid, nsub, fixed, widen_fold=False):
     return K, TX, TY, Wx, Wy
 
 
-def tiled_curvilinear_available(model):
-    """True when the model takes this route: ``fixed_tiles`` set and the
-    physics conditions of the JAX gate (`:310-394`), a pinned plan
-    included.  Dropped: the TPU-only VMEM budget and 50 M-point cap; the
-    meshed conditions (this package has no sharded grids).  Without
-    ``fixed_tiles`` the whole-array route computes the function on one card,
-    so this route is not taken."""
+def tiled_curvilinear_envelope(model):
+    """The physics conditions of the JAX gate (`:310-394`) without the tile
+    plan: an αEVP split-explicit solver with a chunk length, a grid with
+    array metrics or a fold, float32, periodic or bounded sides, ImmersedDrag
+    or none, scalar, array or StressFunction stresses, an FPlane, a
+    LatitudeCoriolis on a grid with latitudes or no Coriolis, no free drift,
+    no user forcing; on a shard the 'wide' halo policy and, where the fold is
+    split across x, a y halo of at least 2·substeps+3 rows.  Dropped: the
+    TPU-only VMEM budget and 50 M-point cap."""
     grid = model.grid
     dyn = model.dynamics
     if dyn is None or not isinstance(dyn.rheology, ElastoViscoPlasticRheology):
         return False
     solver = dyn.solver
-    if not isinstance(solver, SplitExplicitSolver) or solver.fixed_tiles is None:
+    if not isinstance(solver, SplitExplicitSolver):
         return False
     if not any(solver.substeps % K == 0 for K in range(2, min(CHUNK_CAP, solver.substeps) + 1)):
         return False
@@ -137,10 +145,12 @@ def tiled_curvilinear_available(model):
         return False
     if grid.Hx == 0 or grid.Hy == 0 or grid.dtype != torch.float32:
         return False
+    if grid.mesh_axes is not None:
+        if solver.halo_exchange != "wide":
+            return False
+        if grid.north_fold and _meshed(grid, 0) and grid.Hy < 2 * solver.substeps + 3:
+            return False
     if dyn.immersed_drag is not None and not isinstance(dyn.immersed_drag, ImmersedDrag):
-        return False
-    if _fixed_plan(grid, solver.substeps, solver.fixed_tiles,
-                   widen_fold=grid.north_fold) is None:
         return False
 
     def ok_value(x):
@@ -168,21 +178,51 @@ def tiled_curvilinear_available(model):
     return True
 
 
+def tiled_curvilinear_available(model):
+    """True when the model takes this route: ``fixed_tiles`` set, the
+    physics conditions of :func:`tiled_curvilinear_envelope` and a pinned
+    plan (on a serial folded grid for its widening).  Without
+    ``fixed_tiles`` the whole-array route computes the function on one card,
+    so this route is not taken; on a shard the unpinned plan is not ported
+    (queue 9)."""
+    solver = getattr(model.dynamics, "solver", None)
+    if getattr(solver, "fixed_tiles", None) is None or not tiled_curvilinear_envelope(model):
+        return False
+    grid = model.grid
+    return _fixed_plan(grid, solver.substeps, solver.fixed_tiles,
+                       widen_fold=grid.north_fold and grid.mesh_axes is None) is not None
+
+
+def _geometry(grid):
+    """How the kernels see a grid that may be one rank's shard: per direction
+    whether it wraps (periodic and not split across ranks) and whether it is
+    bounded; the gates of the four wall fills (west, east, south, north), 1
+    where the shard touches that global edge or the direction is not split
+    (`:1133-1142`); and whether the fold halo is refilled between chunks (a
+    folded grid whose x is not split, `:1199-1211`)."""
+    meshed = (_meshed(grid, 0), _meshed(grid, 1))
+    wrap = tuple(grid.topology[d] == PERIODIC and not meshed[d] for d in (0, 1))
+    bounded = tuple(grid.topology[d] == BOUNDED for d in (0, 1))
+    gates = []
+    for d in (0, 1):
+        for low in (True, False):
+            gates.append(int(not meshed[d] or grid.mesh.index[d]
+                             == (0 if low else grid.mesh_shape[d] - 1)))
+    return SimpleNamespace(wrap=wrap, bounded=bounded, gates=tuple(gates),
+                           refill=bool(grid.north_fold and not meshed[0]))
+
+
 # --- the widening of serial folded grids ------------------------------------------------
 
 @functools.lru_cache(maxsize=8)
 def widened_grid(grid, Hw):
     """``(gw, solid)``: ``grid`` with ``Hw`` y-halo rows (`_widen_folded`,
     `:518-583`): metrics and ``lat_cc`` repadded with fold images
-    (:func:`..grids.repad_metric`), and the solid mask of `_widened_masks`
-    (`:436-472`) as float32, the land's cc fill on the widened grid joined
-    with the walls.  Made once per grid and halo."""
+    (:func:`..grids._curvilinear_with_halo`), and the solid mask of
+    `_widened_masks` (`:436-472`) as float32, the land's cc fill on the
+    widened grid joined with the walls.  Made once per grid and halo."""
     Hx, Nx, Ny = grid.Hx, grid.Nx, grid.Ny
-    mets = {f: repad_metric(grid, getattr(grid, f), Hw, *loc) for f, loc in _METRIC_LOCS.items()}
-    idx = torch.arange(-Hw, Ny + Hw, dtype=torch.float64, device=grid.device)
-    gw = grid.evolve(Hy=Hw, solid_cc=None, yc=(idx + 0.5).to(grid.dtype),
-                     yf=idx.to(grid.dtype), lon_cc=None,
-                     lat_cc=repad_metric(grid, grid.lat_cc, Hw, False, False), **mets)
+    gw = _curvilinear_with_halo(grid, Hx, Hw).evolve(lon_cc=None)
     wall = torch.zeros(gw.shape, dtype=torch.bool, device=grid.device)
     if gw.topology[0] == BOUNDED:
         wall[:Hx] = True
@@ -239,8 +279,8 @@ def tiled_curvilinear_inputs(model, state, dt, u_start, v_start, Hw=None):
     f32 = grid.scalar
     masks = model.masks
     if Hw is None:
-        target, solid = grid, masks.solid_cc.to(torch.float32)
-        immersed = True
+        target, solid = grid, masks.solid_full.to(torch.float32)
+        immersed = masks.solid_cc is not None
         has_drag = dyn.immersed_drag is not None and masks.imm_ff is not None
     else:
         target, solid = widened_grid(grid, Hw)
@@ -300,8 +340,8 @@ def tiled_curvilinear_inputs(model, state, dt, u_start, v_start, Hw=None):
 
 def _tile_indices(ext, n_int, H, n_tiles, T, W, wrap):
     """Gather indices and interior coordinates of every tile along one
-    direction (`:1058-1071`): wrap into the interior where periodic, clamp
-    at the padded edge where bounded."""
+    direction (`:1058-1071`): wrap into the interior where periodic and not
+    split across ranks, clamp at the padded edge otherwise."""
     idx, coords = [], []
     for i in range(n_tiles):
         r = np.arange(i * T - W, i * T + T + W)
@@ -320,10 +360,9 @@ class _Tiles:
         nxp, nyp = grid.nxp, grid.nyp
         self.ntx, self.nty = -(-nxp // TX), -(-nyp // TY)
         self.bx, self.by = TX + 2 * Wx, TY + 2 * Wy
-        ix, cx = _tile_indices(nxp, grid.Nx, grid.Hx, self.ntx, TX, Wx,
-                               grid.topology[0] == PERIODIC)
-        iy, cy = _tile_indices(nyp, grid.Ny, grid.Hy, self.nty, TY, Wy,
-                               grid.topology[1] == PERIODIC)
+        self.geo = geo = _geometry(grid)
+        ix, cx = _tile_indices(nxp, grid.Nx, grid.Hx, self.ntx, TX, Wx, geo.wrap[0])
+        iy, cy = _tile_indices(nyp, grid.Ny, grid.Hy, self.nty, TY, Wy, geo.wrap[1])
         self.ix = torch.as_tensor(ix, device=device)
         self.iy = torch.as_tensor(iy, device=device)
         n = self.ntx * self.nty
@@ -380,7 +419,8 @@ def _coefficients(params, c, tiles, flags):
     """The TPU kernel's in-kernel coefficient block on tiles, in its order
     (`:744-834`): the metric forms, P, Pff, gcc, gff, the drags and 1/m, the
     activity and σ masks from the solid plane, the immersed-drag weights
-    with the walls in coordinates, f at the velocity points."""
+    with the walls in coordinates (each gated on the shard touching it), f
+    at the velocity points."""
     immersed, has_drag = flags
     grid = tiles.grid
     gx, gy = tiles.gx, tiles.gy
@@ -420,13 +460,14 @@ def _coefficients(params, c, tiles, flags):
     out["msk_cc"] = (1.0 - solid) if immersed else torch.ones_like(solid)
     out["msk_ff"] = 1.0 - per_ff
     if has_drag:
+        gw, ge, gs, gn = tiles.geo.gates
         wall = torch.zeros(per_ff.shape, dtype=torch.bool, device=per_ff.device)
         if grid.topology[0] == BOUNDED:
-            wall = wall | (gx <= 0) | (gx >= grid.Nx)
+            wall = wall | ((gx <= 0) & bool(gw)) | ((gx >= grid.Nx) & bool(ge))
         if grid.topology[1] == BOUNDED:
-            wall = wall | (gy <= 0)
+            wall = wall | ((gy <= 0) & bool(gs))
             if not grid.north_fold:
-                wall = wall | (gy >= grid.Ny)
+                wall = wall | ((gy >= grid.Ny) & bool(gn))
         imm_ff = (per_ff > 0.5) & ~wall
         Cd = p[PX_CDRAG]
         wxd = torch.where(imm_ff, Cd * dx_ff, 0.0) * c[C_IAZFC]
@@ -438,14 +479,16 @@ def _coefficients(params, c, tiles, flags):
 
 
 def _substep_functions(params, c, k, tiles, flags):
-    """The TPU kernel's ``one`` (`:843-966`) on tiles, with the gated wall
-    fills of `_make_fillers` (`:588-644`; no fold branch)."""
+    """The TPU kernel's ``one`` (`:843-966`) on tiles, with the wall fills of
+    `_make_fillers` (`:588-644`; no fold branch), each gated on the shard
+    touching that wall."""
     _, has_drag = flags
     grid = tiles.grid
     Hx, Hy, Nx, Ny = grid.Hx, grid.Hy, grid.Nx, grid.Ny
     bounded_x = grid.topology[0] == BOUNDED
     bounded_y = grid.topology[1] == BOUNDED
     fold = grid.north_fold
+    gw, ge, gs, gn = (bool(g) for g in tiles.geo.gates)
     gx, gy = tiles.gx, tiles.gy
     wx_off = tiles.Wx + Hx
     ex_off = tiles.Wx + Hx + Nx - 1 - (tiles.ntx - 1) * tiles.TX
@@ -462,23 +505,23 @@ def _substep_functions(params, c, k, tiles, flags):
         if not bounded_x:
             return q
         if face:
-            q = torch.where(gx < 0, 0.0, q)
-            return torch.where(gx > Nx, 0.0, q)
-        q = torch.where(gx < 0, q[:, wx_off:wx_off + 1], q)
-        return torch.where(gx >= Nx, q[:, ex_off:ex_off + 1], q)
+            q = torch.where((gx < 0) & gw, 0.0, q)
+            return torch.where((gx > Nx) & ge, 0.0, q)
+        q = torch.where((gx < 0) & gw, q[:, wx_off:wx_off + 1], q)
+        return torch.where((gx >= Nx) & ge, q[:, ex_off:ex_off + 1], q)
 
     def fill_y(q, face):
         if not bounded_y:
             return q
         if face:
-            q = torch.where(gy < 0, 0.0, q)
+            q = torch.where((gy < 0) & gs, 0.0, q)
         else:
-            q = torch.where(gy < 0, q[:, :, sy_off:sy_off + 1], q)
+            q = torch.where((gy < 0) & gs, q[:, :, sy_off:sy_off + 1], q)
         if not fold:
             if face:
-                q = torch.where(gy > Ny, 0.0, q)
+                q = torch.where((gy > Ny) & gn, 0.0, q)
             else:
-                q = torch.where(gy >= Ny, q[:, :, ny_off:ny_off + 1], q)
+                q = torch.where((gy >= Ny) & gn, q[:, :, ny_off:ny_off + 1], q)
         return q
 
     def fill_fc(q):
@@ -600,8 +643,8 @@ def _substep_functions(params, c, k, tiles, flags):
 
 
 def _refill(carry, grid):
-    """The local fills between chunks on a folded grid (`:1199-1212`); α
-    keeps its values."""
+    """The local fills between chunks on a folded grid whose x is not split
+    across ranks (`:1199-1212`); α keeps its values."""
     u, v, s11, s22, s12, alpha = carry
     return (fill_halos_fc_local(u, grid), fill_halos_cf_local(v, grid),
             fill_halos_cc_local(s11, grid), fill_halos_cc_local(s22, grid),
@@ -613,8 +656,9 @@ def tiled_curvilinear_evp_substeps_reference(params, planes, carry, nsub, grid, 
     """Plain PyTorch version of the kernel: ``nsub`` substeps in chunks of
     ``chunk`` (default the plan's K) on the TPU kernel's tiles of ``plan``
     (`:1074-1228`), the coefficients derived per chunk, the fold halos
-    refilled before each chunk on a folded grid.  Returns the new (u, v,
-    σ₁₁, σ₂₂, σ₁₂, α) on the padded shape."""
+    refilled before each chunk on a folded grid unless its x is split across
+    ranks (then the fold halo evolves through every substep).  Returns the
+    new (u, v, σ₁₁, σ₂₂, σ₁₂, α) on the padded shape."""
     K = plan[0] if chunk is None else int(chunk)
     tiles = _Tiles(grid, plan, params.device)
     c = [tiles.gather(q) for q in planes]
@@ -622,7 +666,7 @@ def tiled_curvilinear_evp_substeps_reference(params, planes, carry, nsub, grid, 
     one, fill_fc, fill_cf = _substep_functions(params, c, k, tiles, flags)
     carry = tuple(carry)
     for first in range(1, nsub + 1, K):
-        if grid.north_fold:
+        if tiles.geo.refill:
             carry = _refill(carry, grid)
         u, v, s11, s22, s12, alpha = (tiles.gather(q) for q in carry)
         state = (fill_fc(u), fill_cf(v), s11, s22, s12, alpha)
@@ -657,7 +701,7 @@ def curvilinear_consts(params, planes, grid, plan, flags):
 def _tiled_entry():
     fn = _build.load("evp_tiled_curvilinear").csi_evp_tiled_curvilinear_substeps
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 20 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -678,8 +722,11 @@ def tiled_curvilinear_evp_substeps(params, planes, carry, nsub, grid, plan, flag
     arrays of ``grid``'s (widened) shape.  ``params``, ``planes``, ``carry``
     and ``flags`` as :func:`tiled_curvilinear_inputs` makes them; ``plan``
     the pinned plan; ``chunk`` the substeps between fold refills (default
-    the plan's K).  CUDA tensors go to the CUDA kernel, which writes the
-    results into the carry tensors and returns them; CPU tensors go to
+    the plan's K).  On a shard's grid the directions split across ranks do
+    not wrap, the wall fills apply on the shards at the global edges, and a
+    fold split across x is never refilled (:func:`_geometry`).  CUDA tensors
+    go to the CUDA kernel, which writes the results into the carry tensors
+    and returns them; CPU tensors go to
     :func:`tiled_curvilinear_evp_substeps_reference`."""
     planes, carry = tuple(planes), tuple(carry)
     if len(planes) not in (N_PLANES, N_PLANES + 1) or len(carry) != N_CARRY:
@@ -698,6 +745,7 @@ def tiled_curvilinear_evp_substeps(params, planes, carry, nsub, grid, plan, flag
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     immersed, has_drag = flags
+    geo = _geometry(grid)
     ptrs = (ctypes.c_void_p * (N_PLANES + 1))(*[q.data_ptr() for q in planes],
                                               *([None] if len(planes) == N_PLANES else []))
     scratch = torch.empty((N_SCRATCH,) + grid.shape, dtype=torch.float32, device=device)
@@ -707,13 +755,13 @@ def tiled_curvilinear_evp_substeps(params, planes, carry, nsub, grid, plan, flag
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(params.data_ptr(), ctypes.addressof(ptrs), *[q.data_ptr() for q in carry],
                  scratch.data_ptr(), work.data_ptr(), grid.nxp, grid.nyp, grid.Hx, grid.Nx,
-                 grid.Hy, grid.Ny, int(grid.topology[0] == PERIODIC),
-                 int(grid.topology[1] == PERIODIC), int(grid.north_fold), int(immersed),
+                 grid.Hy, grid.Ny, *(int(w) for w in geo.wrap), *(int(b) for b in geo.bounded),
+                 int(grid.north_fold), *geo.gates, int(geo.refill), int(immersed),
                  int(has_drag), int(nsub), chunk, stream)
     if err != 0:
         raise RuntimeError(f"tiled curvilinear EVP kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp_tiled_curvilinear', err)})")
-    refills = -(-int(nsub) // chunk) if grid.north_fold else 0
+    refills = -(-int(nsub) // chunk) if geo.refill else 0
     tiled_curvilinear_evp_counter.calls += 1
     tiled_curvilinear_evp_counter.launches += 1 + refills + LAUNCHES_PER_SUBSTEP * int(nsub)
     return carry
@@ -777,18 +825,21 @@ def tiled_curvilinear_momentum_step(model, state, dt, u_start, v_start):
     `:1074-1270`): widen a serial folded grid whose y halo is below 2K+5,
     run the substep loop (:func:`tiled_curvilinear_evp_substeps`) and the
     ice strength (:func:`fixed_tile_P`) on the widened arrays, crop back,
-    and refill: u and v with the local fills, σ with the fills, α and P with
-    the local cc fill where widened.  Returns the general
-    `split_explicit_momentum_step`'s update dict; uⁿ, vⁿ are the start
-    velocities, Delta and ζ the incoming state's."""
+    and refill: u and v with the local fills (on a shard whose fold is split
+    across x with one joint exchange, `:1254-1259`), σ with the fills, α and
+    P with the local cc fill where widened.  A shard's grid is not widened:
+    its halos are the wide ones of the distributed step.  Returns the
+    general `split_explicit_momentum_step`'s update dict; uⁿ, vⁿ are the
+    start velocities, Delta and ζ the incoming state's."""
     grid = model.grid
     solver = model.dynamics.solver
     nsub = solver.substeps
-    plan = _fixed_plan(grid, nsub, solver.fixed_tiles, widen_fold=grid.north_fold)
+    serial_fold = grid.north_fold and grid.mesh_axes is None
+    plan = _fixed_plan(grid, nsub, solver.fixed_tiles, widen_fold=serial_fold)
     if plan is None:
         raise ValueError("tiled curvilinear EVP: no pinned plan fits this grid")
     K = plan[0]
-    Hw = 2 * K + 5 if grid.north_fold and grid.Hy < 2 * K + 5 else None
+    Hw = 2 * K + 5 if serial_fold and grid.Hy < 2 * K + 5 else None
     params, planes, carry, target, flags = tiled_curvilinear_inputs(model, state, dt, u_start,
                                                                     v_start, Hw)
     u, v, s11, s22, s12, alpha = tiled_curvilinear_evp_substeps(params, planes, carry, nsub,
@@ -800,7 +851,10 @@ def tiled_curvilinear_momentum_step(model, state, dt, u_start, v_start):
         s12 = _crop(s12, grid, target, "ff")
         alpha = fill_halos_cc_local(_crop(alpha, grid, target, "cc"), grid)
         P = fill_halos_cc_local(_crop(P, grid, target, "cc"), grid)
-    return dict(u=fill_halos_fc_local(u, grid), v=fill_halos_cf_local(v, grid),
-                sig11=fill_halos_cc(s11, grid), sig22=fill_halos_cc(s22, grid),
+    if grid.north_fold and _meshed(grid, 0):
+        u, v = fill_halos_uv(u, v, grid)
+    else:
+        u, v = fill_halos_fc_local(u, grid), fill_halos_cf_local(v, grid)
+    return dict(u=u, v=v, sig11=fill_halos_cc(s11, grid), sig22=fill_halos_cc(s22, grid),
                 sig12=fill_halos_ff(s12, grid), alpha=alpha, P=P, un=u_start, vn=v_start,
                 Delta=state.Delta, zeta_cc=state.zeta_cc, zeta_ff=state.zeta_ff)

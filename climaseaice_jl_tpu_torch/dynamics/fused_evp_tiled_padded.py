@@ -23,8 +23,10 @@ go to the kernel (``csrc/evp_tiled_padded.cu``, whose own tile plan is
 chosen for the card), CPU tensors to
 :func:`tiled_padded_evp_substeps_reference`, which emulates the TPU kernel's
 tiles of ``fixed_tiles``.  A CUDA tensor never reaches the plain version; a
-kernel that fails to build or launch raises.  Meshed grids (the distributed
-wide-halo mode of the TPU kernel) are queue 9: the gate refuses them.
+kernel that fails to build or launch raises.  A shard's model never takes
+this route: where the JAX package would run the meshed kernel (its
+distributed wide-halo mode), the distributed step raises (queue 9,
+:func:`..model.meshed_momentum_route`).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def tiled_padded_available(model):
     ``fixed_tiles`` an x tile has to divide Nx.  The TPU-only conditions
     (the VMEM budget of a tile and the device-memory cap) are dropped: the
     CUDA kernel's tiles are its own and its state lives in device memory.
-    Meshed grids are not ported (queue 9)."""
+    Shards are dispatched by :func:`..model.meshed_momentum_route`."""
     if not padded_fused_available(model):
         return False
     grid = model.grid

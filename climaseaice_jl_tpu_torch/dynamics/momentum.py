@@ -1,11 +1,18 @@
 """Momentum equations: tendencies and the split-explicit αEVP solver.
 
-Counterpart of `climaseaice_jl_tpu/dynamics/momentum.py` on its serial
-``per_substep`` branch.  This is the general path: plain tensor code that
-runs on either device, for ``SplitExplicitSolver(fused="never")`` and for
-configurations the fused EVP kernel does not take
-(:func:`~.fused_evp.fused_available`).  The substep loop is a Python loop;
-odd substeps update v then u, even substeps u then v.
+Counterpart of `climaseaice_jl_tpu/dynamics/momentum.py`.  This is the
+general path: plain tensor code that runs on either device, for
+``SplitExplicitSolver(fused="never")`` and for configurations the fused EVP
+kernels do not take (:func:`~.fused_evp.fused_available`).  The substep
+loop is a Python loop; odd substeps update v then u, even substeps u then v.
+
+On a shard's grid the halo policy decides the velocity fills of the loop
+(`momentum.py:489-534`): under 'per_substep' they are the exchanging fills,
+one exchange a half-update; under 'wide' the local fills, the halos having
+been widened and exchanged once before the step.  The JAX package's
+deferred form of 'per_substep' (local fills within a substep and one joint
+u, v exchange at its end, which gives the same interiors) and the
+'overlap' policy are not ported (queue 9).
 
 Immersed boundaries enter as in the JAX package: σ is zeroed at solid cc
 and peripheral ff nodes before the divergence, velocities on peripheral
@@ -23,7 +30,8 @@ import torch
 
 from ..utils import frozen_dataclass
 from ..ops import ixf, iyf, shift_m
-from ..fields import fill_halos_fc, fill_halos_cf, fill_halos_many
+from ..fields import (fill_halos_fc, fill_halos_cf, fill_halos_many, fill_halos_fc_local,
+                      fill_halos_cf_local)
 from ..state import ModelFields
 from .coriolis import x_f_cross_U, y_f_cross_U
 from .stresses import (explicit_tau_x, explicit_tau_y,
@@ -48,9 +56,9 @@ class SplitExplicitSolver:
 
     ``halo_exchange``: the distributed halo policy of the JAX package
     ('per_substep', 'wide' or 'overlap'; `momentum.py:56-61, 489-534`).
-    Only meshed grids read it, and the distributed stepper is not ported
-    yet (queue 9), so serial runs accept and ignore it, as the JAX package
-    does.
+    Only shards read it (:mod:`..parallel.stepper`); serial runs accept and
+    ignore it, as the JAX package does.  'overlap' raises on a shard
+    (queue 9).
 
     ``fixed_tiles=(TX, TY)`` (``TY=None``: y-spanning slabs) selects the
     decomposition-invariant mode: the EVP coefficients, the EVP substep loop,
@@ -285,12 +293,15 @@ def split_explicit_momentum_step(model, state, dt, u_start, v_start):
     dyn = model.dynamics
     rheo = dyn.rheology
     grid = model.grid
+    # on a serial grid the local fills are the fills
+    fill_u, fill_v = ((fill_halos_fc_local, fill_halos_cf_local)
+                      if dyn.solver.halo_exchange == "wide" else (fill_halos_fc, fill_halos_cf))
 
     def halo_u(q):
-        return fill_halos_fc(q, grid)
+        return fill_u(q, grid)
 
     def halo_v(q):
-        return fill_halos_cf(q, grid)
+        return fill_v(q, grid)
 
     # initialize_rheology!: P over the full array incl. halos; snapshot uⁿ, vⁿ
     P = ice_strength(rheo, state.h, state.a)

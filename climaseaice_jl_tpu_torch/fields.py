@@ -1,7 +1,7 @@
-"""Halo filling and peripheral masks (serial).
+"""Halo filling and peripheral masks.
 
-Counterpart of the serial part of `climaseaice_jl_tpu/fields.py`.  All fills
-are functional: ``q -> q_with_fresh_halos``.
+Counterpart of `climaseaice_jl_tpu/fields.py`.  All fills are functional:
+``q -> q_with_fresh_halos``.
 
 * centered tracers (h, ℵ, σ₁₁, …): periodic wrap or zero-gradient at
   bounded walls;
@@ -9,8 +9,12 @@ are functional: ``q -> q_with_fresh_halos``.
 * the Zipper fold on a ``north_fold`` grid: the north halo is the x-reversed
   image of the top interior rows, with u and v changing sign.
 
-Distributed exchanges, and with them the meshed folds, belong to a later
-slice (queue 9).
+On a shard's grid (one that names mesh axes, :mod:`.parallel.stepper`) a
+direction split across ranks is filled by a ring exchange with the
+neighbouring ranks (the strips of all fields of a call in one message each
+way), the walls apply only on the shards at the global edges, and the fold
+only on the northernmost shards: from the shard's own top rows where x is
+not split, from the top rows gathered over the row of ranks where it is.
 """
 
 from __future__ import annotations
@@ -23,11 +27,75 @@ import torch
 from .grids import Grid, PERIODIC, BOUNDED, FLAT
 
 
+def _meshed(grid: Grid, dim: int) -> bool:
+    """True when ``grid`` is a shard and direction ``dim`` is split across
+    ranks, so that its halo fills are exchanges (`fields.py:33-37`)."""
+    return (grid.mesh_shape is not None and grid.mesh_shape[dim] > 1
+            and grid.mesh_axes is not None and grid.mesh_axes[dim] is not None)
+
+
+def _span(dim, a, b=None):
+    """Index of the padded rows (``dim`` 0) or columns (1) a … b."""
+    return (slice(a, b),) if dim == 0 else (slice(None), slice(a, b))
+
+
+def _exchange_pair(qs, dim, grid: Grid):
+    """Ring exchange along ``dim`` for same-shape fields (`fields.py:40-74`):
+    the low halo takes the previous rank's last interior strip, the high
+    halo the next rank's first; every field's strip travels in one stacked
+    message each way."""
+    H, N = (grid.Hx, grid.Nx) if dim == 0 else (grid.Hy, grid.Ny)
+    to_next = torch.stack([q[_span(dim, N, N + H)] for q in qs])
+    to_prev = torch.stack([q[_span(dim, H, 2 * H)] for q in qs])
+    from_prev, from_next = grid.mesh.shift(dim, to_next, to_prev)
+    return [torch.cat([from_prev[k], q[_span(dim, H, H + N)], from_next[k]], dim)
+            for k, q in enumerate(qs)]
+
+
+def _bc_meshed(q, grid: Grid, dim: int, face: bool, seam=None):
+    """The wall boundary condition along a split bounded direction, on the
+    shards at the global edges only (`fields.py:77-112`).  ``seam``: the
+    wall face's value before an exchange overwrote it (the last shard gets
+    it back); None after local fills."""
+    H, N = (grid.Hx, grid.Nx) if dim == 0 else (grid.Hy, grid.Ny)
+    i, P = grid.mesh.index[dim], grid.mesh_shape[dim]
+    if i != 0 and i != P - 1:
+        return q
+    q = q.clone()
+    if face:
+        if i == 0:
+            q[_span(dim, None, H)] = 0.0
+        if i == P - 1:
+            q[_span(dim, H + N + 1)] = 0.0
+            if seam is not None:
+                q[_span(dim, H + N, H + N + 1)] = seam
+    else:
+        if i == 0:
+            q[_span(dim, None, H)] = q[_span(dim, H, H + 1)]
+        if i == P - 1:
+            q[_span(dim, H + N)] = q[_span(dim, H + N - 1, H + N)]
+    return q
+
+
+def _fill_split(qs, faces, grid: Grid, dim: int):
+    """Fill direction ``dim``, split across ranks, of same-shape fields at
+    x- or y-face locations ``faces``: one exchange of all their strips, then
+    the walls on the edge shards, each wall face given back its value."""
+    H, N = (grid.Hx, grid.Nx) if dim == 0 else (grid.Hy, grid.Ny)
+    seams = [q[_span(dim, H + N, H + N + 1)].clone() if f else None for q, f in zip(qs, faces)]
+    qs = _exchange_pair(qs, dim, grid)
+    if grid.topology[dim] == BOUNDED:
+        qs = [_bc_meshed(q, grid, dim, f, seam=s) for q, f, s in zip(qs, faces, seams)]
+    return qs
+
+
 def _fill_x(q, grid: Grid, face: bool):
     H, N = grid.Hx, grid.Nx
     topo = grid.topology[0]
     if topo == FLAT or H == 0:
         return q
+    if _meshed(grid, 0):
+        return _fill_split([q], [face], grid, 0)[0]
     if topo == PERIODIC:
         return torch.cat([q[N:N + H], q[H:H + N], q[H:2 * H]], 0)
     if topo == BOUNDED:
@@ -45,6 +113,8 @@ def _fill_y(q, grid: Grid, face: bool):
     topo = grid.topology[1]
     if topo == FLAT or H == 0:
         return q
+    if _meshed(grid, 1):
+        return _fill_split([q], [face], grid, 1)[0]
     if topo == PERIODIC:
         return torch.cat([q[:, N:N + H], q[:, H:H + N], q[:, H:2 * H]], 1)
     if topo == BOUNDED:
@@ -95,9 +165,46 @@ def _fill_y_fold(q, grid: Grid, xface: bool, yface: bool, sign: float):
     return q
 
 
-def _maybe_fold(q, grid: Grid, xface: bool, yface: bool, sign: float):
-    if not (grid.north_fold and grid.Hy > 0):
+@functools.lru_cache(maxsize=64)
+def _gathered_fold_index(nx, Px, ix, Hx, face, device):
+    """Row of the gathered top rows (global interior columns, ranks in x
+    order) that lands at each local padded column under the fold."""
+    Nx = nx * Px
+    g = ix * nx + (np.arange(nx + 2 * Hx) - Hx)        # global column of each local one
+    src = (Nx - g) % Nx if face else (Nx - 1 - g) % Nx
+    return torch.as_tensor(src, device=device)
+
+
+def _fill_y_fold_xmeshed(q, grid: Grid, xface: bool, yface: bool, sign: float):
+    """The fold where x is split across ranks (`fields.py:208-236`): the top
+    Hy interior rows and the seam row of every rank of the row, gathered in
+    x order, indexed by global column; the same arithmetic as the serial
+    fold."""
+    Hx, Hy, nx, Ny = grid.Hx, grid.Hy, grid.Nx, grid.Ny
+    block = q[Hx:Hx + nx, Ny:Hy + Ny + 1]                  # (nx, Hy + 1)
+    gathered = grid.mesh.all_gather(0, block)              # (Nx, Hy + 1)
+    rows = sign * gathered[_gathered_fold_index(nx, grid.mesh_shape[0], grid.mesh.index[0], Hx,
+                                                xface, q.device)]
+    q = q.clone()
+    if not yface:
+        q[:, Hy + Ny:] = rows[:, :Hy].flip(1)               # row Hy+Ny+k ← Hy+Ny-1-k
         return q
+    q[:, Hy + Ny] = 0.5 * (q[:, Hy + Ny] + rows[:, Hy])
+    q[:, Hy + Ny + 1:] = rows[:, 1:Hy].flip(1)              # row Hy+Ny+k ← Hy+Ny-k
+    return q
+
+
+def _top_shard(grid: Grid):
+    return not _meshed(grid, 1) or grid.mesh.index[1] == grid.mesh_shape[1] - 1
+
+
+def _maybe_fold(q, grid: Grid, xface: bool, yface: bool, sign: float):
+    """The Zipper fold of the north halo (`fields.py:239-254`): on the
+    northernmost shards only, across the row of ranks where x is split."""
+    if not (grid.north_fold and grid.Hy > 0) or not _top_shard(grid):
+        return q
+    if _meshed(grid, 0):
+        return _fill_y_fold_xmeshed(q, grid, xface, yface, sign)
     return _fill_y_fold(q, grid, xface, yface, sign)
 
 
@@ -140,23 +247,45 @@ FILLERS = {
 
 def fill_halos_many(qs, locs, grid: Grid):
     """Halo fill for several fields at once; ``locs`` is "cc"/"fc"/"cf"/"ff"
-    per field.  Serially this is one fill per field, identical to
-    ``FILLERS[loc](q, grid)``."""
-    return [_fill(q, grid, loc) for q, loc in zip(qs, locs)]
+    per field.  Each result equals ``FILLERS[loc](q, grid)``; on a shard
+    every split direction's exchange carries all fields' strips in one
+    message each way (`fields.py:296-329`)."""
+    qs = list(qs)
+    for dim, fill in ((0, _fill_x), (1, _fill_y)):
+        faces = [loc[dim] == "f" for loc in locs]
+        if _meshed(grid, dim):
+            qs = _fill_split(qs, faces, grid, dim)
+        else:
+            qs = [fill(q, grid, f) for q, f in zip(qs, faces)]
+    return [_maybe_fold(q, grid, loc[0] == "f", loc[1] == "f", _FOLD_SIGN[loc])
+            for q, loc in zip(qs, locs)]
+
+
+def fill_halos_uv(u, v, grid: Grid):
+    """``(fill_halos_fc(u), fill_halos_cf(v))`` with the exchanges of both in
+    one message each way (`fields.py:332-339`)."""
+    u, v = fill_halos_many((u, v), ("fc", "cf"), grid)
+    return u, v
 
 
 # --- local-only fills ---------------------------------------------------------
-# The JAX package's `fill_halos_*_local` (`fields.py:342-403`) refresh the
-# physical boundaries of a shard without exchanging its mesh-split sides: the
-# walls, and the Zipper fold where x is not split.  A grid of this package is
-# never a shard, so they are the serial fills, the fold included; a sharded
-# grid (one that names mesh axes) belongs to the distributed slice (queue 9).
+# The physical boundaries of a field without its exchanges
+# (`fields.py:342-403`): the directions split across ranks keep their halos
+# (exchanged once, before an exchange-free substep loop), the walls on the
+# shards at the global edges and the fold on the northernmost shards are
+# filled again.  On a serial grid these are the serial fills.
 
 def _fill_local(q, grid: Grid, loc: str):
-    if getattr(grid, "mesh_axes", None) is not None:
-        raise NotImplementedError("local fills of a sharded grid belong to the distributed "
-                                  "slice of the port (queue 9)")
-    return _fill(q, grid, loc)
+    xface, yface = loc[0] == "f", loc[1] == "f"
+    for dim, face, fill in ((0, xface, _fill_x), (1, yface, _fill_y)):
+        if not _meshed(grid, dim):
+            q = fill(q, grid, face)
+        elif grid.topology[dim] == BOUNDED:
+            q = _bc_meshed(q, grid, dim, face)
+    if grid.north_fold and grid.Hy > 0 and _meshed(grid, 0):
+        raise NotImplementedError("local-only fills cannot refresh a north fold split across "
+                                  "the x mesh; use halo_exchange='per_substep'")
+    return _maybe_fold(q, grid, xface, yface, _FOLD_SIGN[loc])
 
 
 def fill_halos_cc_local(q, grid: Grid):

@@ -21,6 +21,11 @@ Degenerate (``flat``) directions have size 1, halo 0 and unit metrics.
 
 Every grid carries an explicit ``device`` and ``dtype``; ``device=None``
 means the CUDA card.
+
+A grid of one rank's shard (:mod:`.parallel.stepper`) names the mesh axes
+split across ranks, the mesh shape and the rank's process mesh: its halo
+fills along a split direction exchange strips with the neighbouring ranks,
+and the physical boundaries apply only on the shards at the global edges.
 """
 
 from __future__ import annotations
@@ -48,6 +53,14 @@ class Grid:
     device: torch.device = None
     kind: str = "rectilinear"   # rectilinear | latlon | curvilinear
     north_fold: bool = False
+
+    # distributed shard info (None on serial grids): the axis name of each
+    # direction split across ranks ("x", "y" or None), the mesh shape
+    # (Px, Py), and the rank's process mesh (its position (ix, iy), its row
+    # and column groups and the transport of its exchanges)
+    mesh_axes: tuple = None
+    mesh_shape: tuple = None
+    mesh: object = None
 
     # padded 1-D coordinates
     xc: object = None
@@ -533,19 +546,24 @@ def _extend_mask(mask, grid):
     return mask
 
 
-def repad_metric(grid: Grid, m, Hy: int, xface: bool, yface: bool):
+def repad_metric(grid: Grid, m, Hy: int, xface: bool, yface: bool, Hx: int = None):
     """``m`` (a metric, or a centred plane such as ``lat_cc``) of ``grid``
-    padded anew with ``Hy`` halo rows: the interior kept, x halos wrapped or
-    edge-clamped, y halos edge-clamped, and on a folded grid the exact fold
-    images north of the seam with the y-face seam row symmetrised
-    (:func:`_fold_metric_halo`).  Computed in the grid dtype, as
-    `pallas_evp_tiled_curvilinear.py:399-433` computes it; 0-d metrics pass
+    padded anew with ``Hy`` halo rows and ``Hx`` halo columns (default the
+    grid's): the interior kept, x halos wrapped or edge-clamped, y halos
+    edge-clamped, and on a folded grid the exact fold images north of the
+    seam with the y-face seam row symmetrised (:func:`_fold_metric_halo`).
+    Computed in the grid dtype, as `pallas_evp_tiled_curvilinear.py:399-433`
+    computes it (`grids.py:748-781` computes the same values in float64 and
+    rounds once: the seam's half-sum rounds alike); 0-d metrics pass
     through."""
     if m is None or m.dim() == 0:
         return m
-    Nx, Ny, Hx = grid.Nx, grid.Ny, grid.Hx
+    Nx, Ny = grid.Nx, grid.Ny
+    Hx = grid.Hx if Hx is None else Hx
     q = grid.interior(m.broadcast_to(grid.shape)).cpu().numpy()
-    if grid.topology[0] == PERIODIC:
+    if Hx == 0:
+        left = right = q[:0]
+    elif grid.topology[0] == PERIODIC:
         left, right = q[Nx - Hx:], q[:Hx]
     else:
         left, right = np.repeat(q[:1], Hx, 0), np.repeat(q[-1:], Hx, 0)
@@ -554,6 +572,100 @@ def repad_metric(grid: Grid, m, Hy: int, xface: bool, yface: bool):
     if grid.north_fold:
         full = _fold_metric_halo(full, Nx, Hx, Ny, Hy, xface, yface)
     return torch.as_tensor(full, device=m.device)
+
+
+def with_halo(grid: Grid, halo):
+    """Copy of ``grid`` with new halo widths and the same interior
+    (`grids.py:628-695`): ``halo`` is one width or an ``(Hx, Hy)`` pair.  The
+    wide-halo distributed step widens only the directions split across
+    ranks.  Rectilinear and latitude-longitude grids are built anew (uniform
+    rectilinear metrics kept bit for bit), curvilinear ones repadded
+    (:func:`_curvilinear_with_halo`); a land mask is attached again from its
+    interior."""
+    hx, hy = (int(halo), int(halo)) if np.ndim(halo) == 0 else map(int, halo)
+    Hx = 0 if grid.topology[0] == FLAT else hx
+    Hy = 0 if grid.topology[1] == FLAT else hy
+    if (Hx, Hy) == (grid.Hx, grid.Hy):
+        return grid
+    halo = max(Hx, Hy)   # the constructors take one width; cut per direction below
+    dtype = numpy_dtype(grid.dtype).name
+    if grid.kind == "rectilinear":
+        xf, yf = grid.xf.cpu().numpy(), grid.yf.cpu().numpy()
+        x0 = float(xf[grid.Hx])
+        x1 = float(xf[grid.Hx] + grid.Nx * (xf[1] - xf[0])) if grid.topology[0] != FLAT else 1.0
+        y0 = float(yf[grid.Hy])
+        y1 = float(yf[grid.Hy] + grid.Ny * (yf[1] - yf[0])) if grid.topology[1] != FLAT else 1.0
+        g = RectilinearGrid((grid.Nx, grid.Ny), x=(x0, x1), y=(y0, y1),
+                            topology=grid.topology, halo=halo, dtype=dtype,
+                            north_fold=grid.north_fold, device=grid.device)
+        # keep the uniform metrics bit for bit: the extent's round trip moves
+        # Δx by an ulp, and serial ≡ distributed needs the same inputs
+        g = g.evolve(**{f: getattr(grid, f) for f in _METRIC_LOCS
+                        if getattr(grid, f) is not None and getattr(grid, f).dim() == 0})
+    elif grid.kind == "latlon":
+        xf, yf = grid.xf.cpu().numpy(), grid.yf.cpu().numpy()
+        dlam = float(xf[1] - xf[0])
+        dphi = float(yf[1] - yf[0])
+        lon0, lat0 = float(xf[grid.Hx]), float(yf[grid.Hy])
+        radius = float(grid.dy_cc.reshape(-1)[0]) / (dphi * np.pi / 180.0)
+        g = LatitudeLongitudeGrid((grid.Nx, grid.Ny), longitude=(lon0, lon0 + grid.Nx * dlam),
+                                  latitude=(lat0, lat0 + grid.Ny * dphi),
+                                  topology=grid.topology, halo=halo, dtype=dtype,
+                                  radius=radius, device=grid.device)
+    else:
+        g = _curvilinear_with_halo(grid, Hx, Hy)
+    if (g.Hx, g.Hy) != (Hx, Hy):
+        g = _shrink_dim_halos(g, Hx, Hy)
+    if grid.solid_cc is not None:
+        g = ImmersedBoundaryGrid(g, grid.interior(grid.solid_cc))
+    return g
+
+
+def _shrink_dim_halos(g: Grid, Hx, Hy):
+    """A uniform-halo grid's coordinates and metrics cut down to the halos
+    ``(Hx, Hy)`` (`grids.py:719-745`): views of the same values."""
+    cx, cy = g.Hx - Hx, g.Hy - Hy
+    if cx < 0 or cy < 0:
+        raise ValueError(f"cannot shrink halos ({g.Hx}, {g.Hy}) to ({Hx}, {Hy})")
+    nxp, nyp = g.Nx + 2 * Hx, g.Ny + 2 * Hy
+
+    def cut1(c, k, n):
+        return c if c is None or k == 0 else c[k:k + n]
+
+    def cutm(m):
+        if m is None or m.dim() == 0:
+            return m
+        if tuple(m.shape) == g.shape:
+            return m[cx:cx + nxp, cy:cy + nyp]
+        if m.shape[0] == 1:          # (1, nyp) latitude row
+            return m[:, cy:cy + nyp]
+        raise NotImplementedError(f"halo shrink of metric shape {tuple(m.shape)}")
+
+    return g.evolve(Hx=Hx, Hy=Hy, xc=cut1(g.xc, cx, nxp), xf=cut1(g.xf, cx, nxp),
+                    yc=cut1(g.yc, cy, nyp), yf=cut1(g.yf, cy, nyp),
+                    **{f: cutm(getattr(g, f)) for f in _METRIC_LOCS},
+                    lon_cc=cutm(g.lon_cc), lat_cc=cutm(g.lat_cc), solid_cc=None)
+
+
+def _curvilinear_with_halo(grid: Grid, Hx, Hy):
+    """A curvilinear grid with halos ``(Hx, Hy)`` (`grids.py:748-785`): every
+    metric and ``lon_cc``/``lat_cc`` repadded (:func:`repad_metric`), index
+    coordinates anew, no land mask."""
+    npdt = numpy_dtype(grid.dtype)
+
+    def index_coords(N, H, offset):
+        return torch.as_tensor(np.asarray(np.arange(-H, N + H, dtype=float) + offset, npdt),
+                               device=grid.device)
+
+    return grid.evolve(
+        Hx=Hx, Hy=Hy,
+        xc=index_coords(grid.Nx, Hx, 0.5), xf=index_coords(grid.Nx, Hx, 0.0),
+        yc=index_coords(grid.Ny, Hy, 0.5), yf=index_coords(grid.Ny, Hy, 0.0),
+        **{f: repad_metric(grid, getattr(grid, f), Hy, *loc, Hx=Hx)
+           for f, loc in _METRIC_LOCS.items()},
+        lon_cc=repad_metric(grid, grid.lon_cc, Hy, False, False, Hx=Hx),
+        lat_cc=repad_metric(grid, grid.lat_cc, Hy, False, False, Hx=Hx),
+        solid_cc=None)
 
 
 def south_crop_grid(g: Grid, cs: int):

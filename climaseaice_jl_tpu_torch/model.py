@@ -27,10 +27,10 @@ import dataclasses
 import torch
 
 from .utils import frozen_dataclass
-from .grids import Grid, south_crop_grid
+from .grids import Grid, BOUNDED, south_crop_grid
 from .state import SeaIceState, Clock, ModelFields
 from .fields import (fill_halos_many, peripheral_masks, immersed_only_ff, solid_cc_mask,
-                     _solid_base)
+                     _solid_base, _meshed)
 from .advection import horizontal_div_Uc, required_halo
 from .thermodynamics.heat_bcs import PrescribedTemperature
 from .thermodynamics.phase_transitions import PhaseTransitions
@@ -46,6 +46,7 @@ from .dynamics.fused_evp_curvilinear import (curvilinear_fused_available,
 from .dynamics.fused_evp_tiled_padded import (tiled_padded_available,
                                               tiled_padded_momentum_step)
 from .dynamics.fused_evp_tiled_curvilinear import (tiled_curvilinear_available,
+                                                   tiled_curvilinear_envelope,
                                                    tiled_curvilinear_momentum_step)
 from .dynamics.fixed_tile_advection import (fixed_tile_advection_available,
                                             make_fixed_tile_div)
@@ -66,6 +67,9 @@ class Masks:
     # count of southernmost interior rows that are solid across every x,
     # found once on the host at model build (the tendencies skip them)
     solid_rows: int = 0
+    # the solid ∪ wall mask the peripheral masks come from (never None): the
+    # fixed-tile curvilinear kernel derives its masks from it
+    solid_full: object = None
 
 
 @frozen_dataclass
@@ -124,9 +128,10 @@ def sea_ice_model(grid: Grid,
             top_heat_flux = 0.0
 
     per_fc, per_cf, per_ff = peripheral_masks(grid)
-    masks = Masks(solid_cc=solid_cc_mask(grid), per_fc=per_fc, per_cf=per_cf, per_ff=per_ff,
+    solid_cc = solid_cc_mask(grid)
+    masks = Masks(solid_cc=solid_cc, per_fc=per_fc, per_cf=per_cf, per_ff=per_ff,
                   imm_ff=immersed_only_ff(grid),
-                  solid_rows=_solid_crop_rows(_solid_base(grid), grid))
+                  solid_rows=_solid_crop_rows(_solid_base(grid), grid), solid_full=solid_cc)
 
     if isinstance(snowfall, torch.Tensor) or hasattr(snowfall, "shape"):
         snowfall = torch.as_tensor(snowfall, dtype=grid.dtype, device=grid.device)
@@ -163,16 +168,8 @@ def sea_ice_model(grid: Grid,
 
 
 def fixed_tiles(grid, dynamics):
-    """The solver's ``fixed_tiles``, or None.  Raises on a sharded grid (one
-    that names mesh axes): the meshed fixed-tile kernels belong to the
-    distributed slice of the port (queue 9)."""
-    solver = getattr(dynamics, "solver", None)
-    tiles = getattr(solver, "fixed_tiles", None)
-    if tiles is not None and getattr(grid, "mesh_axes", None) is not None:
-        raise NotImplementedError(
-            "fixed_tiles on a sharded grid belongs to the distributed slice of the port "
-            "(queue 9)")
-    return tiles
+    """The solver's ``fixed_tiles``, or None."""
+    return getattr(getattr(dynamics, "solver", None), "fixed_tiles", None)
 
 
 def _equilibrium_top_flux(thermo, pt):
@@ -364,6 +361,42 @@ def dynamic_step_tracers(model, state, G, dt, base=None):
 
 # --- momentum dispatch --------------------------------------------------------
 
+def meshed_momentum_route(model):
+    """The momentum route of a shard's model (a grid that names mesh axes),
+    as the JAX package dispatches it on its TPU (`model.py:401-445`):
+    "tiled_curvilinear" (kernel 2.7 under its pinned plan, meshed) or
+    "general" (the general path: exchanging fills under the 'per_substep'
+    halo policy, local fills under 'wide').  Where the JAX package would run
+    a kernel whose meshed branch is not ported, or under the 'overlap'
+    policy, it raises ``NotImplementedError`` naming queue 9: a shard never
+    goes quietly to another route."""
+    dyn = model.dynamics
+    solver = dyn.solver
+    grid = model.grid
+    if solver.halo_exchange == "overlap":
+        raise NotImplementedError("the 'overlap' halo policy of the distributed step is not "
+                                  "ported yet (queue 9)")
+    if solver.fused == "never" or solver.halo_exchange != "wide":
+        return "general"
+    fixed = fixed_tiles(grid, dyn) is not None
+    if tiled_curvilinear_available(model):
+        return "tiled_curvilinear"
+    if not fixed and tiled_curvilinear_envelope(model):
+        raise NotImplementedError("the wide-halo EVP on a sharded curvilinear grid without "
+                                  "fixed_tiles runs kernel 2.7's unpinned plan, which is not "
+                                  "ported yet (queue 9)")
+    split_bounded = any(grid.topology[d] == BOUNDED and _meshed(grid, d) for d in (0, 1))
+    if not split_bounded:
+        if fixed and tiled_padded_available(model):
+            raise NotImplementedError("the meshed branches of kernels 2.4 and 2.5 (fixed_tiles "
+                                      "on a sharded rectilinear grid) are not ported yet "
+                                      "(queue 9)")
+        if not fixed and padded_fused_available(model):
+            raise NotImplementedError("the meshed branch of kernel 2.3 (the wide-halo EVP on a "
+                                      "sharded rectilinear grid) is not ported yet (queue 9)")
+    return "general"
+
+
 def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     """Dispatch on the dynamics in the JAX package's order
     (`model.py:401-445`), unless ``fused`` is 'never': the curvilinear fused
@@ -373,7 +406,8 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     without ``fixed_tiles`` the periodic one where :func:`fused_available`
     does, else the padded one where :func:`padded_fused_available` does; with
     ``fixed_tiles`` the tiled padded one where :func:`tiled_padded_available`
-    does; else the general split-explicit path."""
+    does; else the general split-explicit path.  A shard's model takes
+    :func:`meshed_momentum_route`."""
     dyn = model.dynamics
     if dyn is None:
         return state
@@ -383,7 +417,12 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     v_start = v_prev if v_prev is not None else state.v
     fused = dyn.solver.fused != "never"
     fixed = fixed_tiles(model.grid, dyn) is not None
-    if fused and curvilinear_fused_available(model):
+    if model.grid.mesh_axes is not None:
+        if meshed_momentum_route(model) == "tiled_curvilinear":
+            upd = tiled_curvilinear_momentum_step(model, state, dt, u_start, v_start)
+        else:
+            upd = split_explicit_momentum_step(model, state, dt, u_start, v_start)
+    elif fused and curvilinear_fused_available(model):
         upd = curvilinear_fused_momentum_step(model, state, dt, u_start, v_start)
     elif fused and tiled_curvilinear_available(model):
         upd = tiled_curvilinear_momentum_step(model, state, dt, u_start, v_start)

@@ -1,0 +1,606 @@
+"""The port's distributed step (``climaseaice_jl_tpu_torch.parallel``) vs its
+serial step and vs the JAX package.
+
+Ranks are spawned over gloo on the CPU, one PyTorch thread each; one spawn
+of two ranks and one of four run all the cases (``parallel.launch.run_cases``):
+
+* the immersed 48×96 tripolar grid of
+  `tests/test_distributed_curvilinear.py:279-322` (soft ice, 8 substeps, the
+  'wide' halo policy, ``fixed_tiles=(8, 128)``, WENO-7, Forward Euler, 3
+  steps), whose fold is split across x on (2, 2): bitwise the port's serial
+  step, and within ``BARS`` of the JAX package's serial step;
+* the tripolar basin of ``distributed_basin.build(48, 96, substeps=8,
+  fixed_tiles=(8, 128))`` with its winds, immersed drag and snow
+  thermodynamics, 2 steps: bitwise the serial step (8 substeps are one
+  chunk, so the serial step refills the fold only where the distributed one
+  does);
+* on (2, 1), a 72×48 tripolar case with its fold split across x and 16
+  substeps, with and without an immersed drag: the drag seeds a parting in
+  the top rows, and the result lies within ``BARS`` of the JAX package's
+  distributed step;
+* on (2, 2), a doubly periodic rectilinear float64 run under the
+  'per_substep' policy (`tests/test_distributed.py:81`'s contract):
+  within rtol 1e-7, atol 1e-9 of the serial run.
+
+In this process: the strip/unstrip round trip against the JAX package's,
+the refusals of what this slice does not port, and the plain versions of
+kernels 2.7 and 2.9 on one shard's padded arrays against the JAX kernels in
+interpret mode inside ``shard_map``."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import climaseaice_jl_tpu_torch as cst
+from climaseaice_jl_tpu_torch import distributed_basin as db
+from climaseaice_jl_tpu_torch.convert import state_from_numpy, state_to_numpy
+from climaseaice_jl_tpu_torch.grids import with_halo
+from climaseaice_jl_tpu_torch.model import meshed_momentum_route
+from climaseaice_jl_tpu_torch.parallel import launch, make_distributed_step
+from climaseaice_jl_tpu_torch.parallel import stepper as tstep
+from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ttc
+from climaseaice_jl_tpu_torch.dynamics import fixed_tile_advection as tadv
+
+SIZE = (48, 96)
+FIXED = (8, 128)
+NSUB = 8
+DT = 60.0
+STEPS = 3
+MESHES = [(1, 2), (2, 2)]
+COMPARED = ("u", "v", "sig11", "sig12", "alpha", "h", "a")
+BARS = dict(u=1e-4, v=1e-4, sig11=4e-3, sig22=4e-3, sig12=4e-3, alpha=4e-3, h=1e-5, a=1e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread here too (the spawned ranks set their own): the
+    tier-1 run puts six test workers on the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _x32():
+    import jax
+    return jax.enable_x64(False)
+
+
+def _land(Nx, Ny):
+    land = np.zeros((Nx, Ny), bool)
+    land[:, :3] = True
+    land[18:30, 80:] = True   # a landmass straddling the x seam and the fold
+    return land
+
+
+def _jax_case(halo_exchange="wide", fixed_tiles=FIXED):
+    """The JAX package's x-meshed-fold configuration and its initial state."""
+    import climaseaice_jl_tpu as csi
+    from climaseaice_jl_tpu.grids import TripolarGrid
+    grid = TripolarGrid(SIZE, southernmost_latitude=-70.0, halo=5, dtype="float32")
+    grid = csi.ImmersedBoundaryGrid(grid, _land(*SIZE))
+    dynamics = csi.SeaIceMomentumEquation(
+        rheology=csi.ElastoViscoPlasticRheology(ice_compressive_strength=27.5),
+        top_momentum_stress={"u": 0.02, "v": 0.01},
+        bottom_momentum_stress=csi.SemiImplicitStress(),
+        solver=csi.SplitExplicitSolver(substeps=NSUB, halo_exchange=halo_exchange,
+                                       fused="always", fixed_tiles=fixed_tiles))
+    model = csi.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
+                              advection=csi.WENO(order=7), timestepper="ForwardEuler")
+    rng = np.random.default_rng(13)
+    state = csi.initial_state(model, h=0.5 + 0.1 * rng.random(SIZE), a=1.0, u=0.05)
+    return model, state
+
+
+def _port_case(halo_exchange="wide", fixed_tiles=FIXED, size=SIZE):
+    """The same configuration in the port, on the CPU."""
+    grid = cst.TripolarGrid(size, southernmost_latitude=-70.0, halo=5, dtype="float32",
+                            device="cpu")
+    grid = cst.ImmersedBoundaryGrid(grid, _land(*size))
+    dynamics = cst.SeaIceMomentumEquation(
+        rheology=cst.ElastoViscoPlasticRheology(ice_compressive_strength=27.5),
+        top_momentum_stress={"u": 0.02, "v": 0.01},
+        bottom_momentum_stress=cst.SemiImplicitStress(),
+        solver=cst.SplitExplicitSolver(substeps=NSUB, halo_exchange=halo_exchange,
+                                       fused="always", fixed_tiles=fixed_tiles))
+    return cst.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
+                             advection=cst.WENO(order=7), timestepper="ForwardEuler")
+
+
+def _rectilinear(halo_exchange="per_substep"):
+    """`tests/test_distributed.py:_build`'s periodic contractive run, float64."""
+    km = 1000.0
+    grid = cst.RectilinearGrid(size=(48, 48), x=(-10 * km, 10 * km), y=(-10 * km, 10 * km),
+                               halo=5, topology=("periodic", "periodic"), device="cpu")
+    dynamics = cst.SeaIceMomentumEquation(
+        rheology=cst.ElastoViscoPlasticRheology(max_relaxation_parameter=1e4),
+        coriolis=cst.FPlane(f=1e-4), top_momentum_stress={"u": 0.01, "v": 0.01},
+        bottom_momentum_stress=cst.SemiImplicitStress(),
+        solver=cst.SplitExplicitSolver(substeps=10, halo_exchange=halo_exchange))
+    model = cst.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
+                              advection=cst.WENO(order=7), timestepper="ForwardEuler")
+
+    def h0(x, y):
+        return 0.3 + 0.005 * (torch.sin(60 * x / (20 * km)) + torch.sin(30 * y / (20 * km)))
+
+    return model, cst.initial_state(model, h=h0, a=1.0, u=0.1)
+
+
+def _serial(model, state, steps, dt):
+    for _ in range(steps):
+        state = cst.step(model, state, dt)
+    return {k: v for k, v in state_to_numpy(tstep.strip_halos(model, state)).items()}
+
+
+@pytest.fixture(scope="module")
+def case():
+    """The x-meshed-fold case: (JAX model, JAX state, port model, port
+    state, the port's serial result, the JAX package's serial result), both
+    results interior-only (the y-face fields' seam row kept)."""
+    import climaseaice_jl_tpu as csi
+    from climaseaice_jl_tpu.parallel.stepper import strip_halos as jax_strip
+    with _x32():
+        mj, sj = _jax_case()
+        ser = sj
+        for _ in range(STEPS):
+            ser = csi.step(mj, ser, DT)
+        jax_ref = {n: np.asarray(getattr(jax_strip(mj, ser), n)) for n in COMPARED}
+    mt = _port_case()
+    st = state_from_numpy(mt, {k: v for k, v in state_to_numpy(sj).items()})
+    return mj, sj, mt, st, _serial(mt, st, STEPS, DT), jax_ref
+
+
+_RUNS = {}
+
+
+@pytest.fixture(scope="module")
+def runs(case, drag_case):
+    """One spawn per number of ranks, run on first use: on (1, 2) and
+    (2, 2) the x-meshed-fold case and the basin; on two ranks also the
+    72×48 case with and without its drag on (2, 1); on four the
+    rectilinear 'per_substep' run."""
+    _, _, mt, st, _, _ = case
+
+    def run(mesh):
+        if mesh not in _RUNS:
+            cases = [dict(model=mt, state=st, mesh=mesh, steps=STEPS, dt=DT, device="cpu"),
+                     dict(build=db.build, kwargs=dict(Nx=48, Ny=96, substeps=NSUB,
+                                                      fixed_tiles=FIXED),
+                          mesh=mesh, steps=2, dt=600.0, device="cpu")]
+            if mesh == (1, 2):
+                cases += [dict(model=model, state=drag_case["state"], mesh=(2, 1), steps=1,
+                               dt=600.0, device="cpu", names=DRAG_NAMES)
+                          for model in (drag_case["port"], drag_case["port_no_drag"])]
+            if mesh == (2, 2):
+                mr, sr = _rectilinear()
+                cases.append(dict(model=mr, state=sr, mesh=mesh, steps=5, dt=60.0,
+                                  device="cpu"))
+            _RUNS[mesh] = launch.run_cases(cases, mesh[0] * mesh[1], timeout=600)
+        return _RUNS[mesh]
+
+    return run
+
+
+# --- the spawned runs ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_xmeshed_fold_case_equals_serial_bitwise(case, runs, mesh):
+    """Distributed ≡ serial bit for bit on u, v, σ₁₁, σ₁₂, α, h and ℵ: the
+    fold split across x on (2, 2), across y on (1, 2); every rank sent
+    strips, and the same count of bytes on ranks of the same row."""
+    serial = case[4]
+    result = runs(mesh)[0]
+    for name in COMPARED:
+        got = result["fields"][name]
+        assert np.isfinite(got).all(), name
+        assert np.array_equal(got, serial[name]), (name, np.abs(got - serial[name]).max())
+    assert all(r["bytes_per_step"] > 0 and r["stage"] for r in result["records"])
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_xmeshed_fold_case_within_bars_of_jax(case, runs, mesh):
+    """The port's distributed result against the JAX package's serial step
+    (which its own suite holds bitwise equal to its distributed one)."""
+    jax_ref = case[5]
+    result = runs(mesh)[0]
+    for name in COMPARED:
+        a, b = jax_ref[name].astype(np.float64), result["fields"][name].astype(np.float64)
+        rel = np.abs(b - a).max() / max(np.abs(a).max(), 1e-30)
+        assert rel <= BARS[name], (name, rel)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_basin_equals_serial_bitwise(runs, mesh):
+    """The full-physics basin (land, fold, winds through the pointwise
+    route, immersed drag, snow column physics), 2 steps: every compared
+    field bit for bit."""
+    m, s = db.build(48, 96, substeps=NSUB, fixed_tiles=FIXED, device="cpu")
+    serial = _serial(m, s, 2, 600.0)
+    result = runs(mesh)[1]
+    for name, got in result["fields"].items():
+        assert np.isfinite(got).all(), name
+        assert np.array_equal(got, serial[name]), (name, np.abs(got - serial[name]).max())
+
+
+def test_per_substep_rectilinear_within_contract(runs):
+    """The doubly periodic float64 run on (2, 2) under 'per_substep' (an
+    exchange every half-update): u, v, h, ℵ within rtol 1e-7, atol 1e-9 of
+    the serial run after 5 steps."""
+    m, s = _rectilinear()
+    serial = _serial(m, s, 5, 60.0)
+    result = runs((2, 2))[2]
+    for name in ("u", "v", "h", "a"):
+        np.testing.assert_allclose(result["fields"][name], serial[name], rtol=1e-7, atol=1e-9,
+                                   err_msg=name)
+
+
+# --- in this process ------------------------------------------------------------------------
+
+def test_strip_unstrip_round_trip_matches_jax(case):
+    """strip_halos and unstrip_halos give the JAX package's arrays bit for
+    bit (the y-face fields keep the seam row on the folded grid), and
+    unstrip ∘ strip gives back the padded state."""
+    from climaseaice_jl_tpu.parallel.stepper import strip_halos as jax_strip
+    from climaseaice_jl_tpu.parallel.stepper import unstrip_halos as jax_unstrip
+    mj, sj, mt, st = case[:4]
+    port_int = tstep.strip_halos(mt, st)
+    with _x32():
+        jax_int = jax_strip(mj, sj)
+        jax_full = jax_unstrip(mj, jax_int)
+    port_full = tstep.unstrip_halos(mt, port_int)
+    for name in tstep._STATE_LOCS:
+        q = getattr(port_int, name)
+        if q is None:
+            continue
+        assert np.array_equal(q.numpy(), np.asarray(getattr(jax_int, name))), name
+        assert np.array_equal(getattr(port_full, name).numpy(),
+                              np.asarray(getattr(jax_full, name))), name
+    for name in ("h", "a", "u", "v"):
+        assert torch.equal(getattr(port_full, name), getattr(st, name)), name
+
+
+def _refusal_models():
+    rect_fixed = cst.sea_ice_model(
+        cst.RectilinearGrid(size=(64, 256), halo=5, dtype="float32", device="cpu"),
+        dynamics=cst.SeaIceMomentumEquation(solver=cst.SplitExplicitSolver(
+            substeps=4, halo_exchange="wide", fixed_tiles=FIXED)),
+        ice_thermodynamics=None)
+    return {
+        "overlap": (_port_case(halo_exchange="overlap", fixed_tiles=None), (2, 2), "queue 9"),
+        "wide-unpinned": (_port_case(fixed_tiles=None), (1, 2), "queue 9"),
+        "rectilinear-fixed": (rect_fixed, (2, 2), "queue 9"),
+        "xfold-narrow-halo": (_port_case(), (2, 1), "north fold split across the x mesh"),
+    }
+
+
+@pytest.mark.parametrize("name", ["overlap", "wide-unpinned", "rectilinear-fixed",
+                                  "xfold-narrow-halo"])
+def test_refusals_before_any_exchange(name):
+    """What this slice does not port raises NotImplementedError in
+    make_distributed_step, before it needs a process group: the 'overlap'
+    policy, the wide-halo EVP without fixed_tiles (2.7's unpinned plan),
+    fixed_tiles on a sharded rectilinear grid (2.4/2.5 meshed), and a fold
+    split across x whose y halo is below 2·substeps+3 (the JAX package's
+    message)."""
+    model, mesh, match = _refusal_models()[name]
+    with pytest.raises(NotImplementedError, match=match):
+        make_distributed_step(model, mesh)
+
+
+def test_default_device_is_a_card_or_raises(monkeypatch):
+    """A rank's default device is ``cuda:{local rank mod cards}``; on a host
+    without a card it raises instead of running the rank on the CPU."""
+    from climaseaice_jl_tpu_torch.parallel import multihost
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.default_device()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert multihost.default_device() == torch.device("cuda", 1)
+
+
+def test_shard_route_is_the_meshed_pinned_kernel():
+    """A shard of the case under 'wide' takes kernel 2.7's route; under
+    'per_substep' the general path with exchanging fills."""
+    for policy, route in (("wide", "tiled_curvilinear"), ("per_substep", "general")):
+        model = _port_case(halo_exchange=policy)
+        grid = model.grid
+        if policy == "wide":
+            grid = with_halo(grid, (2 * NSUB + 3,) * 2)
+        probe = tstep._local_grid(grid, 24, 48, 1, 1, ("x", "y"), (2, 2))
+        assert meshed_momentum_route(model.evolve(grid=probe)) == route
+
+
+# --- kernels 2.7 and 2.9 on one shard against the JAX kernels ------------------------------------
+
+def _jax_shard_kernels(mj, sj, mesh_shape):
+    """Inside the JAX package's shard_map: per shard the inputs of 2.7 and
+    its outputs, the inputs and output of 2.9 on h, each stacked and laid
+    out as the mesh lays out its shards."""
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+    from jax.sharding import PartitionSpec as P
+    from climaseaice_jl_tpu.grids import with_halo as jax_with_halo
+    from climaseaice_jl_tpu.parallel import stepper as js
+    from climaseaice_jl_tpu.dynamics import pallas_evp_tiled_curvilinear as jtc
+    from climaseaice_jl_tpu.dynamics.pallas_advection import make_fixed_tile_div
+
+    Px, Py = mesh_shape
+    H = 2 * NSUB + 3
+    grid = jax_with_halo(mj.grid, (H, H))
+    model = mj.evolve(grid=grid)
+    nx, ny = grid.Nx // Px, grid.Ny // Py
+    state_int = js.strip_halos(mj, sj)
+    solid_int = np.asarray(grid.interior(grid.solid_cc))
+
+    def local(state_int, solid_int):
+        ix, iy = lax.axis_index("x"), lax.axis_index("y")
+        lgrid = js._local_grid(grid, nx, ny, ix, iy, ("x", "y"), mesh_shape)
+        lmasks = js._local_masks(lgrid, solid_int, ix, iy, True)
+        lgrid = lgrid.evolve(solid_cc=lmasks.solid_cc)
+        lmodel = model.evolve(grid=lgrid, masks=lmasks)
+        ls = js._pad_state(state_int, lgrid, masks=lmasks)
+        params, planes, carry, _, _ = jtc._prepare_tiled_inputs(lmodel, ls, DT, ls.u, ls.v)
+        upd = jtc.tiled_curvilinear_momentum_step(lmodel, ls, DT, ls.u, ls.v, interpret=True)
+        out = [upd[n] for n in ("u", "v", "sig11", "sig22", "sig12", "alpha")]
+        div = make_fixed_tile_div(lmodel, ls.u, ls.v)(ls.h)
+        adv = [ls.u, ls.v, ls.h, lmasks.per_fc.astype(jnp.float32),
+               lmasks.per_cf.astype(jnp.float32), div]
+        return params, jnp.stack(planes), jnp.stack(carry), jnp.stack(out), jnp.stack(adv)
+
+    spec = jax.tree_util.tree_map(
+        lambda l: P("x", "y") if getattr(l, "ndim", 0) == 2 else P(), state_int)
+    f = js.shard_map(local, js.make_mesh(mesh_shape), in_specs=(spec, P("x", "y")),
+                     out_specs=(P(), P(None, "x", "y"), P(None, "x", "y"), P(None, "x", "y"),
+                                P(None, "x", "y")))
+    return [np.array(x) for x in jax.jit(f)(state_int, solid_int)], (nx + 2 * H, ny + 2 * H)
+
+
+@pytest.fixture(scope="module")
+def shard_kernels(case):
+    """The JAX shard kernels on the case's thickness with seeded velocities."""
+    import climaseaice_jl_tpu as csi
+    mj, sj = case[:2]
+    g = mj.grid
+    rng = np.random.default_rng(21)
+    u, v = (0.05 * rng.standard_normal(SIZE).astype(np.float32) for _ in range(2))
+    with _x32():
+        sj = csi.initial_state(mj, h=np.asarray(g.interior(sj.h)), a=1.0, u=u, v=v)
+        return _jax_shard_kernels(mj, sj, (2, 2))
+
+
+@pytest.mark.parametrize("shard", [(1, 1), (0, 0)])
+def test_kernel_27_plain_on_a_shard_matches_jax(case, shard_kernels, shard):
+    """2.7's plain version on shard ``shard`` of (2, 2) (no wrap along the
+    split directions, gated walls, no refill of the fold split across x),
+    fed the JAX shard's inputs, against the JAX kernel in interpret mode:
+    interiors within BARS after 8 substeps."""
+    mt = case[2]
+    (params, planes, carry, out, _), (nxp, nyp) = shard_kernels
+    ix, iy = shard
+    cut = (slice(None), slice(ix * nxp, (ix + 1) * nxp), slice(iy * nyp, (iy + 1) * nyp))
+    H = 2 * NSUB + 3
+    grid = tstep._local_grid(with_halo(mt.grid, (H, H)), 24, 48, ix, iy, ("x", "y"), (2, 2),
+                             tstep.ProcessMesh((2, 2), shard, "cpu", transport=False))
+    plan = ttc._fixed_plan(grid, NSUB, FIXED)
+    assert ttc._geometry(grid).refill is False
+    res = ttc.tiled_curvilinear_evp_substeps_reference(
+        torch.as_tensor(params), tuple(torch.as_tensor(q) for q in planes[cut]),
+        tuple(torch.as_tensor(q) for q in carry[cut]), NSUB, grid, plan, (True, False))
+    for name, r, o in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), out[cut], res):
+        a, b = grid.interior(torch.as_tensor(r)).double(), grid.interior(o).double()
+        rel = ((b - a).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+        assert rel <= BARS[name], (name, rel)
+
+
+@pytest.mark.parametrize("shard", [(1, 1), (0, 0)])
+def test_kernel_29_plain_on_a_shard_matches_jax(case, shard_kernels, shard):
+    """2.9's plain version on shard ``shard`` of (2, 2), seeded velocities,
+    against the JAX kernel in interpret mode over the whole padded arrays:
+    within 1e-4 of the largest value (the interpret-mode kernel's own
+    rounding of the WENO weights, `test_torch_fixed_tiles.py:271-277`),
+    where wrapping the split x direction instead of clamping it moves the
+    halo outputs by more than 1e-2."""
+    mt = case[2]
+    (_, _, _, _, adv), (nxp, nyp) = shard_kernels
+    ix, iy = shard
+    u, v, h, per_fc, per_cf, div = (torch.as_tensor(q) for q in
+                                    adv[:, ix * nxp:(ix + 1) * nxp, iy * nyp:(iy + 1) * nyp])
+    H = 2 * NSUB + 3
+    grid = tstep._local_grid(with_halo(mt.grid, (H, H)), 24, 48, ix, iy, ("x", "y"), (2, 2))
+    metrics = tuple(grid.scalar(getattr(grid, n)).expand(grid.shape).contiguous()
+                    for n in ("dy_fc", "dx_cf", "az_cc"))
+    got = tadv.fixed_tile_div_reference(grid, (mt.advection, mt.advection), u, v, h,
+                                        (per_fc > 0.5, per_cf > 0.5), metrics)
+    rel = ((got.double() - div.double()).abs().max() / div.double().abs().max()).item()
+    wrapped = dataclasses.replace(grid, mesh_axes=None, mesh_shape=None)
+    moved = tadv.fixed_tile_div_reference(wrapped, (mt.advection, mt.advection), u, v, h,
+                                          (per_fc > 0.5, per_cf > 0.5), metrics)
+    rel_moved = ((moved.double() - div.double()).abs().max() / div.double().abs().max()).item()
+    assert rel <= 1e-4, rel
+    assert rel_moved > 1e-2, rel_moved
+
+
+DRAG_NAMES, DRAG_HY = ("u", "v", "sig11", "sig12"), 35
+
+
+def _drag_case(m, tripolar, Hy, drag=1e3, **device):
+    """A 72×48 immersed tripolar grid with halo ``Hy``, land reaching the
+    fold, ``ImmersedDrag(drag)`` (none for ``drag=None``), 16 substeps (two
+    chunks of 8 in a serial step), the wide policy with fixed_tiles; the
+    JAX package's or the port's by its module ``m`` and grid constructor
+    ``tripolar``."""
+    land = np.zeros((72, 48), bool)
+    land[:, :3] = True
+    land[26:46, 36:] = True
+    grid = m.ImmersedBoundaryGrid(tripolar((72, 48), southernmost_latitude=-70.0, halo=Hy,
+                                           dtype="float32", **device), land)
+    dynamics = m.SeaIceMomentumEquation(
+        rheology=m.ElastoViscoPlasticRheology(), top_momentum_stress={"u": 0.02, "v": 0.01},
+        bottom_momentum_stress=m.SemiImplicitStress(),
+        immersed_drag=None if drag is None else m.ImmersedDrag(drag),
+        solver=m.SplitExplicitSolver(substeps=16, halo_exchange="wide", fused="always",
+                                     fixed_tiles=FIXED))
+    return m.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
+                           advection=m.WENO(order=7), timestepper="ForwardEuler")
+
+
+@pytest.fixture(scope="module")
+def drag_case():
+    """The 72×48 case: the JAX package's serial and (2, 1) results after one
+    step, and the port's models with and without the drag and its state."""
+    import climaseaice_jl_tpu as csi
+    from climaseaice_jl_tpu.grids import TripolarGrid
+    from climaseaice_jl_tpu.parallel import make_distributed_step as jax_dstep
+    from climaseaice_jl_tpu.parallel.stepper import strip_halos as jax_strip
+    rng = np.random.default_rng(13)
+    h0 = 0.5 + 0.5 * rng.random((72, 48))
+    with _x32():
+        mj = _drag_case(csi, TripolarGrid, DRAG_HY)
+        sj = csi.initial_state(mj, h=h0, a=1.0, u=0.05)
+        serial_j = jax_strip(mj, csi.step(mj, sj, 600.0))
+        dstep, _ = jax_dstep(mj, (2, 1))
+        dist_j = dstep(jax_strip(mj, sj), 600.0)
+    mt = _drag_case(cst, cst.TripolarGrid, DRAG_HY, device="cpu")
+    return dict(serial_jax={n: np.asarray(getattr(serial_j, n)) for n in DRAG_NAMES},
+                dist_jax={n: np.asarray(getattr(dist_j, n)) for n in DRAG_NAMES},
+                port=mt, state=state_from_numpy(mt, state_to_numpy(sj)),
+                port_no_drag=_drag_case(cst, cst.TripolarGrid, DRAG_HY, drag=None,
+                                        device="cpu"))
+
+
+def test_xsplit_fold_with_drag_parts_from_serial_as_jax_does(drag_case, runs):
+    """With an immersed drag next to a fold split across x, the fold halo
+    that evolves without refills (the JAX package's design) is not an exact
+    mirror: the drag samples each face at its own index.  The serial step
+    refills it between its two chunks, so after one step on (2, 1) the
+    port's distributed result parts from its serial one, only in the top
+    2·16+3 rows; without the drag it equals it bit for bit, so the drag is
+    the seed.  The JAX package's distributed step parts from its serial
+    step too (on the CPU it does so with or without the drag), and the
+    port's distributed result lies within ``BARS`` of it.  The drag is
+    1e3, not the basin's 1e-3, so that the seed shows at this size."""
+    serial_t = _serial(drag_case["port"], drag_case["state"], 1, 600.0)
+    dist_t, dist_t_no_drag = (r["fields"] for r in runs((1, 2))[2:4])
+    serial_t_no_drag = _serial(drag_case["port_no_drag"], drag_case["state"], 1, 600.0)
+    serial_j, dist_j = drag_case["serial_jax"], drag_case["dist_jax"]
+    for name in DRAG_NAMES:
+        for pkg, a, b in (("jax", dist_j[name], serial_j[name]),
+                          ("port", dist_t[name], serial_t[name])):
+            where = np.argwhere(a != b)
+            assert len(where) and where[:, 1].min() >= 48 - DRAG_HY, (pkg, name, where)
+        assert np.array_equal(dist_t_no_drag[name], serial_t_no_drag[name]), name
+        ref = dist_j[name].astype(np.float64)
+        rel = np.abs(dist_t[name] - ref).max() / np.abs(ref).max()
+        assert rel <= BARS[name], (name, rel)
+
+
+@pytest.mark.parametrize("row, amount, inside", [
+    (None, 0.0, True),          # bitwise
+    (0, 0.5, True),             # in the top CAP rows: reported, not barred
+    (20, 1e-2, True),           # below them, within run_distributed_basin.py's u bar
+    (20, 3e-2, False),          # below them, beyond it
+    (40, 1e-6, False),          # deeper than the fold halo's rows
+])
+def test_xsplit_drag_band(row, amount, inside):
+    """distributed_basin.compare counts, bounds and locates the parting of
+    u from a serial field (rows counted down from the top), and
+    xsplit_drag_band holds it to the top 35 rows and to the script's bars
+    below the CAP rows."""
+    rng = np.random.default_rng(5)
+    serial = {n: (1.0 + rng.random((16, 48))).astype(np.float32) for n in ("u", "h")}
+    dist = {n: q.copy() for n, q in serial.items()}
+    if row is not None:
+        dist["u"][3, 47 - row] += amount * np.abs(serial["u"]).max()
+    cmp = db.compare(serial, dist)
+    assert cmp["h"] == dict(points=0, rel_err=0.0, cap_rel_err=0.0, deepest_row=-1)
+    assert cmp["u"]["points"] == (row is not None)
+    assert cmp["u"]["deepest_row"] == (-1 if row is None else row)
+    assert db.xsplit_drag_band(cmp, 35, 300.0) is inside
+
+
+@pytest.mark.parametrize("kind", ["tripolar", "latlon", "rectilinear"])
+def test_with_halo_matches_jax(kind):
+    """grids.with_halo (through _curvilinear_with_halo or the constructors,
+    and _shrink_dim_halos) gives the JAX package's coordinates, metrics and
+    land mask bit for bit, with the x and y halos widened apart."""
+    import climaseaice_jl_tpu as csi
+    from climaseaice_jl_tpu.grids import TripolarGrid, with_halo as jax_with_halo
+    from climaseaice_jl_tpu_torch.grids import _METRIC_LOCS
+    land = np.zeros((16, 24), bool)
+    land[3:6, 20:] = True
+    with _x32():
+        if kind == "tripolar":
+            gj = TripolarGrid((16, 24), halo=5, dtype="float32")
+        elif kind == "latlon":
+            gj = csi.LatitudeLongitudeGrid((16, 24), latitude=(50.0, 80.0), halo=5,
+                                           dtype="float32")
+        else:
+            gj = csi.RectilinearGrid((16, 24), x=(0, 3e5), y=(0, 2e5), halo=5,
+                                     topology=("periodic", "bounded"), dtype="float32")
+        gj = jax_with_halo(csi.ImmersedBoundaryGrid(gj, land), (11, 7))
+    if kind == "tripolar":
+        gt = cst.TripolarGrid((16, 24), halo=5, dtype="float32", device="cpu")
+    elif kind == "latlon":
+        gt = cst.LatitudeLongitudeGrid((16, 24), latitude=(50.0, 80.0), halo=5,
+                                       dtype="float32", device="cpu")
+    else:
+        gt = cst.RectilinearGrid((16, 24), x=(0, 3e5), y=(0, 2e5), halo=5,
+                                 topology=("periodic", "bounded"), dtype="float32", device="cpu")
+    gt = with_halo(cst.ImmersedBoundaryGrid(gt, land), (11, 7))
+    assert (gt.Hx, gt.Hy) == (gj.Hx, gj.Hy) == (11, 7)
+    for name in ("xc", "xf", "yc", "yf", "lon_cc", "lat_cc", "solid_cc", *_METRIC_LOCS):
+        a, b = getattr(gj, name), getattr(gt, name)
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert np.array_equal(np.broadcast_to(np.asarray(a), b.shape), b.numpy()), name
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_meshed_kernels_match_plain(cuda_device):
+    """On the card, 2.7 and 2.9 on shard (1, 1) of a (2, 2) mesh of the
+    48×96 basin (halos 19, 8 substeps, seeded velocities) equal their plain
+    versions bitwise (2.7 over the interiors, with 1 + 3·8 launches a call;
+    2.9 over the padded arrays)."""
+    H = 2 * NSUB + 3
+    m, s = db.build(48, 96, substeps=NSUB, fixed_tiles=FIXED, halo=H, device=cuda_device)
+    g = m.grid
+    rng = np.random.default_rng(3)
+    u, v = (torch.as_tensor(0.05 * rng.standard_normal(g.interior_shape), dtype=torch.float32,
+                            device=cuda_device) for _ in range(2))
+    s = cst.initial_state(m, h=g.interior(s.h), a=g.interior(s.a), hs=g.interior(s.hs), u=u,
+                          v=v)
+    shard, nx, ny = (1, 1), 24, 48
+    lg = tstep._local_grid(g, nx, ny, *shard, ("x", "y"), (2, 2),
+                           tstep.ProcessMesh((2, 2), shard, cuda_device, transport=False))
+
+    def cut(q):
+        return q[nx:nx + nx + 2 * H, ny:ny + ny + 2 * H].contiguous()
+
+    params, planes, carry, _, flags = ttc.tiled_curvilinear_inputs(m, s, DT, s.u, s.v)
+    planes, carry = tuple(cut(q) for q in planes), tuple(cut(q) for q in carry)
+    plan = ttc._fixed_plan(lg, NSUB, FIXED)
+    ttc.tiled_curvilinear_evp_counter.reset()
+    out = ttc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry], NSUB,
+                                             lg, plan, flags)
+    assert ttc.tiled_curvilinear_evp_counter.launches == 1 + 3 * NSUB
+    ref = ttc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, NSUB, lg, plan,
+                                                       flags)
+    for o, r in zip(out, ref):
+        assert torch.equal(lg.interior(o), lg.interior(r))
+    masks = tuple(cut(q) for q in (m.masks.per_fc, m.masks.per_cf))
+    metrics = tuple(lg.scalar(getattr(lg, n)).expand(lg.shape).contiguous()
+                    for n in ("dy_fc", "dx_cf", "az_cc"))
+    args = (lg, (m.advection, m.advection), cut(s.u), cut(s.v), cut(s.h), masks, metrics)
+    assert torch.equal(tadv.fixed_tile_div(*args), tadv.fixed_tile_div_reference(*args))

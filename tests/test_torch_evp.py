@@ -172,15 +172,17 @@ def _port_sources():
 
 
 def test_port_imports_no_jax():
-    """(e) No module of the port, and not chip_smoke.py, imports jax or the
-    JAX package: by the AST of every source, and by the modules a fresh
-    interpreter holds after importing every module of the port."""
+    """(e) No module of the port (its parallel package included), and not
+    chip_smoke.py, imports jax or the JAX package: by the AST of every
+    source, and by the modules a fresh interpreter holds after importing
+    every module of the port."""
     def banned(name):
         return name.split(".")[0] in ("jax", "jaxlib", "climaseaice_jl_tpu")
 
     names = {path.name for path in _port_sources()}
     assert {"fused_evp_tiled_curvilinear.py", "fixed_tile_pointwise.py", "fixed_tile_thermo.py",
-            "distributed_basin.py", "fused_evp_tiled.py", "chip_smoke.py"} <= names
+            "distributed_basin.py", "fused_evp_tiled.py", "chip_smoke.py", "stepper.py",
+            "multihost.py", "launch.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

@@ -196,17 +196,20 @@ def test_gate_and_plan_match_jax(case):
 def test_route_needs_fixed_tiles_and_a_serial_grid():
     """Without fixed_tiles the whole-array route computes the function on one
     card, so the pinned route is not taken; fixed_tiles no longer raises on
-    folds and array metrics, and still raises on a sharded grid."""
+    folds and array metrics, nor on a sharded grid, where the route needs
+    the wide y halo: with the fold split across x and the serial halo it is
+    not taken, and the local fills raise (the JAX package's message)."""
+    from climaseaice_jl_tpu_torch.parallel.stepper import _local_grid
     m = db.build(*SIZE, device="cpu")[0]
     assert not ttc.tiled_curvilinear_available(m) and tcurv.curvilinear_fused_available(m)
     m = db.build(*SIZE, fixed_tiles=FIXED, device="cpu")[0]
     assert tmodel.fixed_tiles(m.grid, m.dynamics) == FIXED
     assert not tcurv.curvilinear_fused_available(m) and not ttiled.tiled_padded_available(m)
-    sharded = SimpleNamespace(mesh_axes=("x", None), kind="curvilinear", north_fold=True)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tmodel.fixed_tiles(sharded, m.dynamics)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tfields.fill_halos_cc_local(torch.zeros(2, 2), sharded)
+    sharded = _local_grid(m.grid, SIZE[0] // 2, SIZE[1], 0, 0, ("x", None), (2, 1))
+    assert tmodel.fixed_tiles(sharded, m.dynamics) == FIXED
+    assert not ttc.tiled_curvilinear_available(m.evolve(grid=sharded))
+    with pytest.raises(NotImplementedError, match="split across the x mesh"):
+        tfields.fill_halos_cc_local(torch.zeros(sharded.shape), sharded)
 
 
 def test_repad_metric_and_local_fills_match_jax():

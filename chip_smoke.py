@@ -151,7 +151,35 @@ Phases, each of which raises (exit code 1) when it fails:
     per step;
 26. a 128² doubly periodic float64 run under the 'per_substep' policy on
     the same ranks, 5 steps, within rtol 1e-7, atol 1e-9 of the serial card
-    run (`tests/test_distributed.py:81`'s contract).
+    run (`tests/test_distributed.py:81`'s contract);
+27. kernels 2.3, 2.4 and 2.5 meshed on shard (1, 1) of a (2, 2) mesh of the
+    512² flagship with halos 2·120+3 (742² padded), soft ice, seeded
+    velocities, 120 substeps: 2.3 (no fill along the split directions)
+    bitwise against its plain version over the interiors, also with
+    phase 6's island and drag put on the periodic grid, across all four
+    shards; 2.4 (images clamped at the padded edge) over the padded arrays;
+    2.5 (the padded extent carried) over the interiors; each timed per call
+    with its plain version and its bound;
+28. kernel 2.7's unpinned plan on a (1, 4) shard that holds the fold and on
+    a (2, 2) shard of the 1152×960 basin without fixed_tiles (halos 51),
+    soft ice, seeded velocities, 24 substeps: bitwise against its plain
+    version over the interiors, timed, with its bound and launches;
+29. the wide-halo distributed step on four gloo ranks sharing the card,
+    3 RK3 steps: path A (``bench.py:build(512, 120)`` under
+    ``halo_exchange="wide"``, soft ice and the default P★) bitwise equal to
+    the serial card step whose momentum goes through the padded route, and
+    in soft ice within `tests/test_distributed.py:238-248`'s bars of the
+    serial 2.1 step (u, v ≤ 2e-2 of the velocity scale, h, ℵ ≤ 1e-4); path
+    B (the same with ``fixed_tiles=(8, 128)``) bitwise equal to the serial
+    card step; every rank runs only 2.3 (A), or 2.4, 2.5, 2.9 and 2.11 (B);
+    finite and physical; each rank's device, ms per step and bytes sent;
+30. path C, the basin of ``distributed_basin.build(1152, 960,
+    halo_exchange="wide")`` (2.7's unpinned plan on every shard), 3 steps
+    of 600 s on (1, 4) and (2, 2), with and without the immersed drag,
+    against the serial card step whose momentum runs the same plan:
+    bitwise without the drag, held to phase 25's band with it; the distance
+    from the default serial step (2.6, which forms its coefficients
+    otherwise) printed as a record; every rank runs only 2.7.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and as the last line
@@ -160,6 +188,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -279,17 +308,20 @@ KM = 1000.0
 MINUTE, DAY = 60.0, 86400.0
 
 
-def flagship(cst, N, substeps=120, P_star=27500.0, device="cuda"):
-    """The configuration of bench.py:build(N, substeps), in the port."""
+def flagship(cst, N, substeps=120, P_star=27500.0, device="cuda", halo=5, wide=False,
+             fixed_tiles=None):
+    """The configuration of bench.py:build(N, substeps), in the port; ``wide``
+    sets the wide halo policy, ``fixed_tiles`` the fixed-tile mode."""
     grid = cst.RectilinearGrid(size=(N, N), x=(0, 512 * KM), y=(0, 512 * KM),
-                               halo=5, dtype="float32",
+                               halo=halo, dtype="float32",
                                topology=("periodic", "periodic"), device=device)
     dynamics = cst.SeaIceMomentumEquation(
         rheology=cst.ElastoViscoPlasticRheology(ice_compressive_strength=P_star),
         coriolis=cst.FPlane(f=1.4e-4),
         top_momentum_stress={"u": 0.1, "v": 0.05},
         bottom_momentum_stress=cst.SemiImplicitStress(),
-        solver=cst.SplitExplicitSolver(substeps=substeps))
+        solver=cst.SplitExplicitSolver(substeps=substeps, fixed_tiles=fixed_tiles,
+                                       halo_exchange="wide" if wide else "per_substep"))
     return cst.sea_ice_model(grid, dynamics=dynamics,
                              ice_thermodynamics=cst.sea_ice_slab_thermodynamics(),
                              top_heat_flux=-20.0, bottom_heat_flux=-5.0,
@@ -315,19 +347,19 @@ def flagship_state(cst, model, velocity_seed=None, h0=None):
 
 
 def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, bottom=None,
-            fixed_tiles=None, halo=5, snow=False):
+            fixed_tiles=None, halo=5, snow=False, topology=("bounded", "bounded"), wide=False):
     """The configuration of validation/perf_sweep.py:build(N, bounded=True),
     in the port: a 512 km bounded box with a circular island of radius
     60 km and ImmersedDrag(1e-3); ``top`` and ``bottom`` replace its stresses.
     ``fixed_tiles`` selects the decomposition-invariant mode with the wide
-    halo policy, as the repo's fixed-tile configurations set it; ``snow``
-    puts snow on the ice with the basin's snowfall and its heat fluxes
-    without the FluxFunction (the Semtner longwave, sensible and latent
-    series and radiative emission)."""
+    halo policy, as the repo's fixed-tile configurations set it, ``wide``
+    that policy without it; ``snow`` puts snow on the ice with the basin's
+    snowfall and its heat fluxes without the FluxFunction (the Semtner
+    longwave, sensible and latent series and radiative emission);
+    ``topology`` replaces the walls."""
     import numpy as np
     grid = cst.RectilinearGrid(size=(N, N), x=(0, 512 * KM), y=(0, 512 * KM),
-                               halo=halo, dtype="float32",
-                               topology=("bounded", "bounded"), device=device)
+                               halo=halo, dtype="float32", topology=topology, device=device)
     x = (np.arange(N) + 0.5) * (512 * KM / N)
     xc, yc = np.meshgrid(x, x, indexing="ij")
     grid = cst.ImmersedBoundaryGrid(grid, (xc - 256 * KM) ** 2 + (yc - 256 * KM) ** 2
@@ -338,9 +370,9 @@ def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, botto
         top_momentum_stress=top if top is not None else {"u": 0.1, "v": 0.05},
         bottom_momentum_stress=bottom if bottom is not None else cst.SemiImplicitStress(),
         immersed_drag=cst.ImmersedDrag(coefficient=1e-3),
-        solver=cst.SplitExplicitSolver(substeps=substeps) if fixed_tiles is None else
-        cst.SplitExplicitSolver(substeps=substeps, halo_exchange="wide",
-                                fixed_tiles=fixed_tiles))
+        solver=cst.SplitExplicitSolver(
+            substeps=substeps, fixed_tiles=fixed_tiles,
+            halo_exchange="wide" if wide or fixed_tiles else "per_substep"))
     thermo = dict(top_heat_flux=-20.0, bottom_heat_flux=-5.0)
     if snow:
         from climaseaice_jl_tpu_torch import arctic_basin as ab
@@ -408,11 +440,82 @@ def rectilinear_contractive(device="cuda", N=128):
     return model, cst.initial_state(model, h=h0, a=1.0, u=0.1)
 
 
-def shard_of(q, shard, nx, ny, H):
+def shard_of(q, shard, nx, ny, H, Hx=None):
     """Shard ``shard``'s window of a padded array whose halos are ``H``
-    wide: its interior and H-wide halos."""
+    wide: its interior and H-wide halos (``Hx``-wide along x where given)."""
     ix, iy = shard
-    return q[ix * nx:ix * nx + nx + 2 * H, iy * ny:iy * ny + ny + 2 * H].contiguous()
+    x0 = ix * nx + H - (H if Hx is None else Hx)
+    return q[x0:x0 + nx + 2 * (H if Hx is None else Hx),
+             iy * ny:iy * ny + ny + 2 * H].contiguous()
+
+
+def shard_model(model, state, shard, mesh_shape, H):
+    """The model and state of one shard of a wide-halo distributed step, cut
+    from a global model whose halos are already ``H`` wide: a grid that
+    names the mesh axes (a ProcessMesh without transport), and windows of
+    the global masks and of the EVP's state fields.  A periodic global grid
+    with ``H`` halos holds in its windows what the shard's exchanges
+    bring."""
+    import torch
+    from climaseaice_jl_tpu_torch.parallel.stepper import ProcessMesh, _local_grid
+    g = model.grid
+    nx, ny = g.Nx // mesh_shape[0], g.Ny // mesh_shape[1]
+    lgrid = _local_grid(g, nx, ny, *shard, ("x", "y"), mesh_shape,
+                        ProcessMesh(mesh_shape, shard, g.device, transport=False))
+
+    def cut(q):
+        return shard_of(q, shard, nx, ny, H) if isinstance(q, torch.Tensor) else q
+
+    masks = model.masks
+    lmasks = masks.evolve(**{f: cut(getattr(masks, f)) for f in (
+        "solid_cc", "per_fc", "per_cf", "per_ff", "imm_ff", "solid_full")})
+    lstate = state.evolve(**{f: cut(getattr(state, f)) for f in (
+        "h", "a", "u", "v", "sig11", "sig22", "sig12", "alpha")})
+    return model.evolve(grid=lgrid.evolve(solid_cc=lmasks.solid_cc), masks=lmasks), lstate
+
+
+def wide_flagship(device="cuda", fixed_tiles=None, P_star=27500.0):
+    """Paths A and (with ``fixed_tiles``) B of the wide-halo distributed
+    step: bench.py:build(512, 120) with SplitExplicitSolver(120,
+    halo_exchange="wide"), and its initial state.  Module-level, so that
+    spawned ranks can build it."""
+    import climaseaice_jl_tpu_torch as cst
+    model = flagship(cst, 512, 120, P_star=P_star, device=device, wide=True,
+                     fixed_tiles=fixed_tiles)
+    return model, flagship_state(cst, model)
+
+
+def wide_basin(device="cuda", drag=True):
+    """Path C: distributed_basin.build(1152, 960, substeps=24) without
+    fixed_tiles, its solver under the wide halo policy."""
+    from climaseaice_jl_tpu_torch import distributed_basin
+    return distributed_basin.build(1152, 960, substeps=24, drag=drag, halo_exchange="wide",
+                                   device=device)
+
+
+class momentum_through:
+    """The serial step with its momentum routed through ``step_fn`` (a
+    launcher taking ``(model, state, dt, u_start, v_start)``): the serial
+    counterpart of a shard's route, for the bitwise checks."""
+
+    def __init__(self, step_fn):
+        self.step_fn = step_fn
+
+    def __enter__(self):
+        from climaseaice_jl_tpu_torch import model as tmodel
+        step_fn = self.step_fn
+
+        def momentum(model, state, dt, u_prev=None, v_prev=None):
+            u0 = state.u if u_prev is None else u_prev
+            v0 = state.v if v_prev is None else v_prev
+            return state.evolve(**step_fn(model, state, dt, u0, v0))
+
+        self.original = tmodel.momentum_step
+        tmodel.momentum_step = momentum
+
+    def __exit__(self, *exc):
+        from climaseaice_jl_tpu_torch import model as tmodel
+        tmodel.momentum_step = self.original
 
 
 def anticyclone_wind(cst):
@@ -1864,6 +1967,299 @@ def main(argv=None):
           f"({r['device_name']})")
     del m, s, si, results
 
+    # --- 27. kernels 2.3, 2.4 and 2.5 meshed on one shard of paths A and B --------------------
+    nsub, dt, mesh_shape, shard = 120, 120.0, (2, 2), (1, 1)
+    Hw = 2 * nsub + 3                     # the wide halo of the distributed step
+    names = ("u", "v", "sig11", "sig22", "sig12", "alpha")
+
+    def meshed_check(label, kernel, plain, interior):
+        """Bitwise kernel against plain version over ``interior``; their
+        largest differences (a record)."""
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        worst = (0.0, 0.0)
+        for name, r, o in zip(names, ref, out):
+            if not torch.isfinite(interior(o)).all():
+                raise AssertionError(f"{label}: {name} is not finite")
+            rel, abs_err = rel_diff(interior(r), interior(o))
+            worst = (max(worst[0], abs_err), max(worst[1], rel))
+        if not all(torch.equal(interior(r), interior(o)) for r, o in zip(ref, out)):
+            raise AssertionError(f"{label}: not bitwise its plain version (largest relative "
+                                 f"difference {worst[1]:.3e})")
+        return worst
+
+    print(f"[27] kernels 2.3, 2.4 and 2.5 meshed on shard {shard} of a {mesh_shape} mesh of "
+          f"the 512² flagship, halos {Hw}, soft ice, seeded velocities, {nsub} substeps, on "
+          f"{card}:")
+    model = flagship(cst, 512, nsub, P_star=27.5, halo=Hw, wide=True)
+    lmodel, lstate = shard_model(model, flagship_state(cst, model, velocity_seed=27), shard,
+                                 mesh_shape, Hw)
+    lgrid = lmodel.grid
+    LI = lgrid.interior
+    points = lgrid.nxp * lgrid.nyp
+    if fused_evp_padded.direction_kinds(lgrid) != (fused_evp_padded.KIND_SPLIT,) * 2:
+        raise AssertionError("the shard's directions are not split")
+    for label, m_, s_ in (("flagship", lmodel, lstate), ("island", None, None)):
+        if m_ is None:      # the island of phase 6 on the periodic grid, across all shards
+            imodel = bounded(cst, 512, nsub, P_star=27.5, halo=Hw, wide=True,
+                             topology=("periodic", "periodic"))
+            m_, s_ = shard_model(imodel, flagship_state(cst, imodel, velocity_seed=28), shard,
+                                 mesh_shape, Hw)
+            del imodel
+        params, consts, carry, _ = fused_evp_padded.padded_evp_inputs(m_, s_, dt, s_.u, s_.v)
+        drag = len(consts) == 22
+        padded_counter.reset()
+        worst = meshed_check(
+            f"2.3 meshed ({label})",
+            lambda: fused_evp_padded.padded_evp_substeps(params, consts,
+                                                         [q.clone() for q in carry], nsub,
+                                                         m_.grid),
+            lambda: fused_evp_padded.padded_evp_substeps_reference(params, consts, carry,
+                                                                   nsub, m_.grid), LI)
+        per_call = padded_counter.launches
+        work = [q.clone() for q in carry]
+        kernel_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps(
+            params, consts, work, nsub, m_.grid), 10)
+        plain_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps_reference(
+            params, consts, carry, nsub, m_.grid), 2)
+        flops = PADDED_FLOPS_PER_POINT_SUBSTEP - (0 if drag else 10)
+        bytes_ms, ops_ms = bounds_ms(
+            ((PADDED_ARRAYS_READ - (0 if drag else 4) + EVP_ARRAYS_WRITTEN) * points
+             + EVP_PARAMS) * 4, (flops * nsub + PADDED_FLOPS_PER_POINT_CALL) * points)
+        print(f"  2.3 meshed, {label} ({'island straddling the four shards, drag' if drag else 'no land'}), "
+              f"{lgrid.nxp}×{lgrid.nyp}: interiors bitwise equal to the plain version; "
+              f"{per_call} launches a call; kernel {kernel_ms:.4f} ms/call, plain "
+              f"{plain_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms")
+        if label == "flagship":
+            pm_timing = (*worst, kernel_ms, plain_ms, bytes_ms, ops_ms)
+        del params, consts, carry, work
+    del m_, s_
+
+    fixed = (8, 128)
+    model = flagship(cst, 512, nsub, P_star=27.5, halo=Hw, fixed_tiles=fixed)
+    lmodel, lstate = shard_model(model, flagship_state(cst, model, velocity_seed=29), shard,
+                                 mesh_shape, Hw)
+    del model
+    prm = fused_evp_padded.evp_prep_params(lmodel, lgrid.scalar(dt))
+    h, a = lstate.h.contiguous(), lstate.a.contiguous()
+    out = fused_evp_padded.evp_prep(prm, h, a, lgrid)
+    ref = fused_evp_padded.evp_prep_reference(prm, h, a, lgrid)
+    torch.cuda.synchronize()
+    if not all(torch.equal(r, o) for r, o in zip(ref, out)):
+        raise AssertionError(f"2.4 meshed is {max(max_ulp(r, o) for r, o in zip(ref, out))} "
+                             "ulp from its plain version over the padded arrays")
+    kernel_ms = cuda_ms(lambda: fused_evp_padded.evp_prep(prm, h, a, lgrid), 50)
+    plain_ms = cuda_ms(lambda: fused_evp_padded.evp_prep_reference(prm, h, a, lgrid), 10)
+    bytes_ms, ops_ms = bounds_ms((PREP_ARRAYS * points + PREP_PARAMS) * 4,
+                                 PREP_FLOPS_PER_POINT * points)
+    print(f"  2.4 meshed (images clamped at the padded edge): bitwise equal to the plain "
+          f"version over the padded arrays; kernel {kernel_ms:.4f} ms/call, plain "
+          f"{plain_ms:.4f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms")
+    prepm_timing = (0.0, 0.0, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    params, consts, carry, _ = fused_evp_padded.padded_evp_inputs(lmodel, lstate, dt,
+                                                                  lstate.u, lstate.v)
+    tiled_counter.reset()
+    worst = meshed_check(
+        "2.5 meshed",
+        lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps(
+            params, consts, [q.clone() for q in carry], nsub, lgrid, fixed),
+        lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps_reference(
+            params, consts, carry, nsub, lgrid, fixed), LI)
+    per_call = tiled_counter.launches
+    work = [q.clone() for q in carry]
+    kernel_ms = cuda_ms(lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps(
+        params, consts, work, nsub, lgrid, fixed), 10)
+    plain_ms = cuda_ms(lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps_reference(
+        params, consts, carry, nsub, lgrid, fixed), 2)
+    bytes_ms, ops_ms = bounds_ms(
+        ((PADDED_ARRAYS_READ - 4 + EVP_ARRAYS_WRITTEN) * points + EVP_PARAMS) * 4,
+        ((PADDED_FLOPS_PER_POINT_SUBSTEP - 10) * nsub + PADDED_FLOPS_PER_POINT_CALL) * points)
+    print(f"  2.5 meshed (the padded extent carried in its own tiles): interiors bitwise "
+          f"equal to the plain version (the TPU kernel's ceil tiles of {fixed}); {per_call} "
+          f"launches a call; kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms")
+    tpm_timing = (*worst, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    pm_shape = (f"{lgrid.nxp}x{lgrid.nyp} shard {shard} of a 2x2 mesh of the 512x512 "
+                f"flagship, halos {Hw}, {nsub} substeps")
+    del lmodel, lstate, params, consts, carry, work, out, ref, h, a
+
+    # --- 28. kernel 2.7's unpinned plan on shards of path C ------------------------------------
+    from climaseaice_jl_tpu_torch.grids import with_halo
+    tsub, dt = 24, 600.0
+    Hm = 2 * tsub + 3
+    model, state = fixed_basin(1152, 960, fixed_tiles=None, soft=True, seed=9, snow=0.1,
+                               halo=Hm)
+    g = model.grid
+    params, planes, carry, _, flags = ftc.tiled_curvilinear_inputs(model, state, dt, state.u,
+                                                                    state.v)
+    print(f"[28] kernel 2.7's unpinned plan on shards of the basin {g.Nx}×{g.Ny} without "
+          f"fixed_tiles, soft ice, seeded velocities, {tsub} substeps, on {card}:")
+    for mesh_c, shard_c in (((1, 4), (0, 3)), ((2, 2), (1, 1))):
+        nx, ny = g.Nx // mesh_c[0], g.Ny // mesh_c[1]
+        Hx = Hm if mesh_c[0] > 1 else 5
+        axes = ("x" if mesh_c[0] > 1 else None, "y")
+        lgrid = _local_grid(with_halo(g, (Hx, Hm)), nx, ny, *shard_c, axes, mesh_c,
+                            ProcessMesh(mesh_c, shard_c, g.device, transport=False))
+        LI = lgrid.interior
+        lp = tuple(shard_of(q, shard_c, nx, ny, Hm, Hx) for q in planes)
+        lc = tuple(shard_of(q, shard_c, nx, ny, Hm, Hx) for q in carry)
+        plan = ftc._unpinned_plan(lgrid, tsub)
+        geo = ftc._geometry(lgrid)
+        tc_counter.reset()
+        worst = meshed_check(
+            f"2.7 unpinned on {mesh_c}",
+            lambda: ftc.tiled_curvilinear_evp_substeps(params, lp, [q.clone() for q in lc],
+                                                       tsub, lgrid, plan, flags),
+            lambda: ftc.tiled_curvilinear_evp_substeps_reference(params, lp, lc, tsub, lgrid,
+                                                                 plan, flags), LI)
+        per_call = tc_counter.launches
+        expect = 1 + 3 * tsub + (-(-tsub // plan[0]) if geo.refill else 0)
+        if per_call != expect:
+            raise AssertionError(f"2.7 unpinned on {mesh_c}: {per_call} launches a call, "
+                                 f"expected {expect}")
+        points = lgrid.nxp * lgrid.nyp
+        work = [q.clone() for q in lc]
+        kernel_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps(
+            params, lp, work, tsub, lgrid, plan, flags), 20)
+        plain_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps_reference(
+            params, lp, lc, tsub, lgrid, plan, flags), 2)
+        bytes_ms, ops_ms = bounds_ms(
+            ((TC_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + ftc.N_PARAMS) * 4,
+            (CURV_FLOPS_PER_POINT_SUBSTEP * tsub + TC_FLOPS_PER_POINT_CALL) * points)
+        print(f"  {mesh_c} shard {shard_c}, {lgrid.nxp}×{lgrid.nyp} padded, plan {plan}, wrap "
+              f"{geo.wrap}, wall gates {geo.gates}, fold refilled {geo.refill}: interiors "
+              f"bitwise equal to the plain version; {per_call} launches a call; kernel "
+              f"{kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms")
+        if mesh_c == (2, 2):
+            tcu_timing = (*worst, kernel_ms, plain_ms, bytes_ms, ops_ms)
+            tcu_shape = (f"{lgrid.nxp}x{lgrid.nyp} shard {shard_c} of a 2x2 mesh of the "
+                         f"1152x960 basin, halos {Hm}, {tsub} substeps, unpinned plan {plan}")
+        del lp, lc, work
+    del model, state, params, planes, carry
+
+    # --- 29-30. paths A, B and C through the distributed step on four gloo ranks ----------------
+    steps = 3
+    rect_names = ("u", "v", "h", "a", "sig11", "sig22", "sig12", "alpha")
+    runs = [("A, soft ice", dict(build=wide_flagship, kwargs=dict(P_star=27.5), dt=120.0)),
+            ("A", dict(build=wide_flagship, dt=120.0)),
+            ("B", dict(build=wide_flagship, kwargs=dict(fixed_tiles=fixed), dt=120.0))]
+    runs += [(f"C {mesh}, {'drag' if drag else 'no drag'}",
+              dict(build=wide_basin, kwargs=dict(drag=drag), dt=600.0, mesh=mesh,
+                   names=basin_names))
+             for mesh in ((1, 4), (2, 2)) for drag in (False, True)]
+    cases = [dict(dict(mesh=(2, 2), steps=steps, names=rect_names), **c) for _, c in runs]
+    t0 = time.perf_counter()
+    results = dict(zip((label for label, _ in runs), launch.run_cases(cases, 4, timeout=900)))
+    spawn_s = time.perf_counter() - t0
+    print(f"[29] paths A and B on (2, 2), {steps} RK3 steps of 120 s, 4 ranks spawned on "
+          f"{card} ({len(cases)} runs of phases 29 and 30 in {spawn_s:.1f} s):")
+
+    def serial_run(build, kwargs, dt, names, route=None):
+        m, s = build(**kwargs)
+        with momentum_through(route) if route else contextlib.nullcontext():
+            for _ in range(steps):
+                s = cst.step(m, s, dt)
+        check_state(m, s)
+        si = strip_halos(m, s)
+        return {n: getattr(si, n).cpu().numpy() for n in names}
+
+    def report(label, res, expect_calls, launches_per_call):
+        for r in res["records"]:
+            calls, launches = r["calls"], r["launches"]
+            want = {k: expect_calls.get(k, 0) for k in calls}
+            if calls != want:
+                raise AssertionError(f"{label}: rank {r['rank']} kernel calls {calls}, "
+                                     f"expected {want}")
+            for k, n in launches_per_call.items():
+                if launches[k] != n * calls[k]:
+                    raise AssertionError(f"{label}: rank {r['rank']} {k} launched "
+                                         f"{launches[k]} times in {calls[k]} calls, expected "
+                                         f"{n} a call")
+            print(f"    {label}, rank {r['rank']} shard {tuple(r['index'])}: ms/step "
+                  f"{', '.join(f'{t:.1f}' for t in r['ms_per_step'])}; kernel calls "
+                  f"{ {k: v for k, v in calls.items() if v} }; "
+                  f"{r['bytes_per_step'] / 1e6:.3f} MB sent a step "
+                  f"({'via host' if r['stage'] else 'device to device'}), on {r['device']} "
+                  f"({r['device_name']})")
+        for name, q in res["fields"].items():
+            if not np.isfinite(q).all():
+                raise AssertionError(f"{label}: {name} is not finite")
+        return {k: sum(r["launches"][k] for r in res["records"]) for k in res["records"][0]["launches"]}
+
+    def bitwise(label, ref, got):
+        cmp = distributed_basin.compare(ref, got)
+        parted = {n: c for n, c in cmp.items() if c["points"]}
+        if parted:
+            raise AssertionError(f"{label}: parts from the serial card run: {parted}")
+        return cmp
+
+    stages = 3 * steps
+    a_launches = 3 * nsub + fused_evp_padded.LAUNCHES_PER_CALL
+    for label, kw in (("A, soft ice", dict(P_star=27.5)), ("A", {})):
+        res = results[label]
+        launches_a = report(label, res, {"2.3": stages}, {"2.3": a_launches})
+        padded_ref = serial_run(wide_flagship, kw, 120.0, rect_names,
+                                fused_evp_padded.padded_fused_momentum_step)
+        bitwise(label, padded_ref, res["fields"])
+        print(f"  {label}: u, v, h, ℵ, σ₁₁, σ₂₂, σ₁₂, α bitwise equal to the serial card run "
+              f"whose momentum goes through the padded route (2.3)")
+        if label == "A, soft ice":
+            ref21 = serial_run(wide_flagship, kw, 120.0, rect_names)
+            vel = max(np.abs(ref21["u"]).max(), np.abs(ref21["v"]).max(), 1e-8)
+            for name, bar in (("u", 2e-2), ("v", 2e-2), ("h", 1e-4), ("a", 1e-4)):
+                scale = vel if name in ("u", "v") else max(np.abs(ref21[name]).max(), 1e-8)
+                d = np.abs(res["fields"][name].astype(np.float64) - ref21[name]).max() / scale
+                check(f"{name}/2.1", d, bar)
+            print("    (against the serial card run through 2.1, bars of "
+                  "tests/test_distributed.py:238-248)")
+        else:
+            pm_launches = launches_a["2.3"]
+    res = results["B"]
+    b_launches = report("B", res, {"2.4": stages, "2.5": stages, "2.9": 2 * stages,
+                                   "2.11": stages},
+                        {"2.4": 1, "2.5": -(-nsub // fused_evp_tiled_padded._tiled_entry()[1])})
+    bitwise("B", serial_run(wide_flagship, dict(fixed_tiles=fixed), 120.0, rect_names),
+            res["fields"])
+    print("  B: u, v, h, ℵ, σ₁₁, σ₂₂, σ₁₂, α bitwise equal to the serial card run; finite "
+          "and physical at the default P★")
+
+    print(f"[30] path C, the 1152×960 basin without fixed_tiles under the wide policy, "
+          f"{steps} steps of 600 s, on {card}:")
+    serial_c = {}
+    for drag in (False, True):
+        serial_c[drag] = (
+            serial_run(wide_basin, dict(drag=drag), 600.0, basin_names,
+                       ftc.tiled_curvilinear_momentum_step),
+            serial_run(wide_basin, dict(drag=drag), 600.0, basin_names))
+    for mesh in ((1, 4), (2, 2)):
+        for drag in (False, True):
+            label = f"C {mesh}, {'drag' if drag else 'no drag'}"
+            res = results[label]
+            refill = 0 if mesh[0] > 1 else 1        # one chunk of 24: one refill where x is whole
+            launches_c = report(label, res, {"2.7": steps}, {"2.7": 1 + 3 * tsub + refill})
+            if label == "C (2, 2), drag":
+                tcu_launches = launches_c["2.7"]
+            ref27, ref26 = serial_c[drag]
+            cmp = distributed_basin.compare(ref27, res["fields"])
+            parted = {n: c for n, c in cmp.items() if c["points"]}
+            far = distributed_basin.compare(ref26, res["fields"])
+            print(f"  {label}: against the serial card run through 2.7's unpinned plan "
+                  + ("bitwise equal" if not parted else
+                     "parted (points; largest difference over the field's largest value off "
+                     f"and in the top {distributed_basin.CAP} rows; deepest row): "
+                     + "; ".join(f"{n} {c['points']}, {c['rel_err']:.3e}, "
+                                 f"{c['cap_rel_err']:.3e}, {c['deepest_row']}"
+                                 for n, c in parted.items())))
+            print("    against the default serial card run (2.6), a record: "
+                  + "; ".join(f"{n} {c['points']} points, {max(c['rel_err'], c['cap_rel_err']):.3e}"
+                              for n, c in far.items()))
+            if parted and not drag:
+                raise AssertionError(f"{label}: parts from the serial 2.7 run: {parted}")
+            if parted and not distributed_basin.xsplit_drag_band(cmp, Hm, 300.0):
+                raise AssertionError(f"{label}: outside the band of phase 25: {parted}")
+    del results, serial_c
+
     print(card)
     print(json.dumps({"kernels": [
         kernel_entry("evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp.cu",
@@ -1924,6 +2320,20 @@ def main(argv=None):
         kernel_entry("fixed_tile_div_meshed", "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_advection.py:142", "_adv_kernel",
                      dist_launches["2.9"], *advm_timing, f"{tcm_shape}, WENO-7"),
+        kernel_entry("padded_evp_substeps_meshed", "climaseaice_jl_tpu_torch/csrc/evp_padded.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:167", "_padded_kernel",
+                     pm_launches, *pm_timing, pm_shape),
+        kernel_entry("evp_prep_meshed", "climaseaice_jl_tpu_torch/csrc/evp_prep.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:512", "_prep_kernel",
+                     b_launches["2.4"], *prepm_timing, pm_shape),
+        kernel_entry("tiled_padded_evp_substeps_meshed",
+                     "climaseaice_jl_tpu_torch/csrc/evp_tiled_padded.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_padded.py:262",
+                     "_tiled_padded_kernel", b_launches["2.5"], *tpm_timing, pm_shape),
+        kernel_entry("tiled_curvilinear_evp_substeps_unpinned_meshed",
+                     "climaseaice_jl_tpu_torch/csrc/evp_tiled_curvilinear.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662",
+                     "_tiled_curv_kernel", tcu_launches, *tcu_timing, tcu_shape),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

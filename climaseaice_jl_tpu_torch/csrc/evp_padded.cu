@@ -11,6 +11,14 @@
 // `has_drag` the immersed drag −(gˢ·u(i,j) + gᴺ·u(i,j+1))·invm_u (west/east
 // for v) enters G.  Stresses and ocean velocities are arrays.
 //
+// On one rank's shard of the distributed step (the 'wide' halo policy,
+// halos of 2·substeps+3 along the split directions) a direction split
+// across ranks gets no fill (`_make_fillers`' skip_x / skip_y,
+// pallas_evp_padded.py:119-129): its halo points are real points that
+// evolve in place, with neighbours wrapped over the padded extent as
+// everywhere else, and go stale from the outside in, two points a substep;
+// the caller's halo width keeps the staleness out of the interior.
+//
 // What bounds it on an H100.  Per point and substep the function needs 155
 // float32 operations with drag, each value computed once at its own point
 // (145 without drag; counted in chip_smoke.py's
@@ -63,10 +71,15 @@ namespace {
 
 using namespace csi_evp;
 
+// how a direction's halos are filled (fused_evp_padded.direction_kinds)
+constexpr int KIND_BOUNDED = 0;   // walls: zero or edge copy
+constexpr int KIND_PERIODIC = 1;  // wrap into the interior
+constexpr int KIND_SPLIT = 2;     // split across ranks: no fill
+
 struct Layout {
   int nxp, nyp;        // padded extents
   int Hx, Nx, Hy, Ny;  // halos and interior sizes
-  int per_x, per_y;    // 1 where the direction is periodic, 0 where bounded
+  int kind_x, kind_y;  // KIND_* of each direction
 };
 
 // The constant arrays of one call.  The four drag arrays are null without
@@ -80,11 +93,12 @@ struct Consts {
 };
 
 // Source index of padded index i along a direction of the halo fill, or -1
-// where the fill writes zero (pallas_evp_padded.py:131-156).
-__device__ __forceinline__ int fill_source(int i, int H, int N, int periodic,
+// where the fill writes zero (pallas_evp_padded.py:131-156); the point
+// itself along a split direction, which is not filled.
+__device__ __forceinline__ int fill_source(int i, int H, int N, int kind,
                                            bool face) {
-  if (H == 0) return i;
-  if (periodic) return i < H ? i + N : (i >= H + N ? i - N : i);
+  if (H == 0 || kind == KIND_SPLIT) return i;
+  if (kind == KIND_PERIODIC) return i < H ? i + N : (i >= H + N ? i - N : i);
   if (face) return (i < H || i > H + N) ? -1 : i;
   return i < H ? H : (i >= H + N ? H + N - 1 : i);
 }
@@ -102,8 +116,8 @@ __device__ __forceinline__ bool locate_source(const Layout& L, bool face_x,
   const int i = blockIdx.y * BY + threadIdx.y;
   if (i >= L.nxp || j >= L.nyp) return false;
   k = i * L.nyp + j;
-  si = fill_source(i, L.Hx, L.Nx, L.per_x, face_x);
-  sj = fill_source(j, L.Hy, L.Ny, L.per_y, face_y);
+  si = fill_source(i, L.Hx, L.Nx, L.kind_x, face_x);
+  sj = fill_source(j, L.Hy, L.Ny, L.kind_y, face_y);
   zero = si < 0 || sj < 0;
   return true;
 }
@@ -180,7 +194,8 @@ __global__ void __launch_bounds__(BX * BY) padded_v_update(
 }  // namespace
 
 // Runs `nsub` substeps on the current contents of u, v, s11, s22, s12, al
-// (each nxp×nyp, row-major, y contiguous) on `stream`; u_tmp and v_tmp are
+// (each nxp×nyp, row-major, y contiguous) on `stream`, each direction
+// filled as its kind_x / kind_y (KIND_*) says; u_tmp and v_tmp are
 // scratch arrays of the same shape.  The results are left in u, v, s11,
 // s22, s12, al.  The drag arrays may be null when has_drag is 0.  Returns 0,
 // or the first nonzero cudaGetLastError() after a launch.
@@ -197,10 +212,10 @@ extern "C" int csi_evp_padded_substeps(
     const float* tau_u, const float* tau_v, const float* ue, const float* ve,
     float* u, float* v, float* s11, float* s22, float* s12, float* al,
     float* u_tmp, float* v_tmp,
-    int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int per_x, int per_y,
+    int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int kind_x, int kind_y,
     int has_drag, int nsub, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout L{nxp, nyp, Hx, Nx, Hy, Ny, per_x, per_y};
+  const Layout L{nxp, nyp, Hx, Nx, Hy, Ny, kind_x, kind_y};
   const Consts c{drag_u, invm_u, act_u, un, drag_v, invm_v, act_v, vn,
                  msk_cc, msk_ff, imms_u, immn_u, immw_v, imme_v,
                  tau_u, tau_v, ue, ve};

@@ -7,7 +7,9 @@
 // needs its own h, ℵ and those of its i−1, j−1 and (i−1, j−1) neighbours.
 // The TPU kernel gathers halo-extended tiles, wrapping into the interior
 // along a periodic direction and clamping at the padded edge along a
-// bounded one; here a thread reads those images directly.
+// bounded one, and along one split across the ranks of the distributed step
+// (`_fixed_tile_prepare`'s wrap flags, pallas_evp_padded.py:585-588); here a
+// thread reads those images directly.
 //
 // What bounds it on an H100: per point 35 float32 operations with one exp
 // (counted once per point in chip_smoke.py's PREP_FLOPS_PER_POINT) against
@@ -33,9 +35,9 @@ constexpr int BX = 32;  // threads along y (the contiguous axis)
 constexpr int BY = 8;   // threads along x
 
 // Padded source index of padded index k along one direction: the interior
-// image where periodic, the clamped index where bounded.
-__device__ __forceinline__ int image(int k, int ext, int H, int N, int periodic) {
-  if (periodic) {
+// image where it wraps, the clamped index where it does not.
+__device__ __forceinline__ int image(int k, int ext, int H, int N, int wrap) {
+  if (wrap) {
     int r = (k - H) % N;
     return H + (r < 0 ? r + N : r);
   }
@@ -45,7 +47,7 @@ __device__ __forceinline__ int image(int k, int ext, int H, int N, int periodic)
 __global__ void __launch_bounds__(BX * BY) evp_prep(
     const float* __restrict__ prm, const float* __restrict__ h,
     const float* __restrict__ a, float* __restrict__ out, int nxp, int nyp,
-    int Hx, int Nx, int Hy, int Ny, int per_x, int per_y) {
+    int Hx, int Nx, int Hy, int Ny, int wrap_x, int wrap_y) {
   const int j = blockIdx.x * BX + threadIdx.x;
   const int i = blockIdx.y * BY + threadIdx.y;
   if (i >= nxp || j >= nyp) return;
@@ -58,8 +60,8 @@ __global__ void __launch_bounds__(BX * BY) evp_prep(
   const float conc_min = prm[6];
 
   // [0] the i−1 or j−1 image, [1] the point itself
-  const int xs[2] = {image(i - 1, nxp, Hx, Nx, per_x), image(i, nxp, Hx, Nx, per_x)};
-  const int ys[2] = {image(j - 1, nyp, Hy, Ny, per_y), image(j, nyp, Hy, Ny, per_y)};
+  const int xs[2] = {image(i - 1, nxp, Hx, Nx, wrap_x), image(i, nxp, Hx, Nx, wrap_x)};
+  const int ys[2] = {image(j - 1, nyp, Hy, Ny, wrap_y), image(j, nyp, Hy, Ny, wrap_y)};
   float m[2][2], P[2][2], av[2][2];
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
@@ -103,15 +105,16 @@ __global__ void __launch_bounds__(BX * BY) evp_prep(
 }  // namespace
 
 // The ten coefficient planes of `out` (10 × nxp × nyp, row-major, y
-// contiguous) from h and a (nxp × nyp) on `stream`.  Returns 0, or the
+// contiguous) from h and a (nxp × nyp) on `stream`; wrap_x / wrap_y are 1
+// where a direction is periodic and not split across ranks.  Returns 0, or the
 // cudaGetLastError() after the launch.
 extern "C" int csi_evp_prep(const float* params, const float* h, const float* a,
                             float* out, int nxp, int nyp, int Hx, int Nx, int Hy,
-                            int Ny, int per_x, int per_y, void* stream) {
+                            int Ny, int wrap_x, int wrap_y, void* stream) {
   const dim3 block(BX, BY);
   const dim3 grid((nyp + BX - 1) / BX, (nxp + BY - 1) / BY);
   evp_prep<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      params, h, a, out, nxp, nyp, Hx, Nx, Hy, Ny, per_x, per_y);
+      params, h, a, out, nxp, nyp, Hx, Nx, Hy, Ny, wrap_x, wrap_y);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,7 +14,16 @@
 // Tiles are indexed by interior coordinates g (0 ≤ g < N inside the domain),
 // as the TPU kernel's: a carried field is read at its interior image (wrap
 // where periodic, clamp where bounded), a constant at its padded image
-// (true halo values, clamped beyond the padded edge).  After every
+// (true halo values, clamped beyond the padded edge).
+//
+// On one rank's shard of the distributed step (the 'wide' halo policy) a
+// direction split across ranks is carried over its whole padded extent,
+// −H ≤ g < N + H (pallas_evp_tiled_padded.py:496-530, 664-683): its halo
+// points are real points whose values go stale from the outside in, two
+// points a substep.  Along it the tiles cover the padded extent, carried
+// fields and constants alike are read at the padded index clamped at the
+// padded edge, no wall fill applies (`_make_slab_fillers`' skip, :212-217),
+// and every point of the padded extent is written back.  After every
 // half-update the velocities get the TPU kernel's gated wall fills
 // (`_make_slab_fillers`): along a bounded direction the wall-normal
 // component is zero outside [0, N) and the tangential one repeats the
@@ -61,10 +70,15 @@ constexpr int TBY = 16;             // threads along x
 constexpr int NTHREADS = TBX * TBY;
 constexpr size_t SMEM_BYTES = 8 * NT * sizeof(float);
 
+// how a direction's halos are treated (fused_evp_padded.direction_kinds)
+constexpr int KIND_BOUNDED = 0;   // walls, filled in the kernel
+constexpr int KIND_PERIODIC = 1;  // wrap into the interior
+constexpr int KIND_SPLIT = 2;     // split across ranks: the padded extent carried
+
 struct Layout {
   int nxp, nyp;        // padded extents
   int Hx, Nx, Hy, Ny;  // halos and interior sizes
-  int per_x, per_y;    // 1 where the direction is periodic, 0 where bounded
+  int kind_x, kind_y;  // KIND_* of each direction
 };
 
 // The constant arrays of one call (padded layout).  The four drag arrays
@@ -83,13 +97,22 @@ struct Fields {
 };
 
 // padded index of a carried field's image at interior coordinate g
-__device__ __forceinline__ int carry_index(int g, int H, int N, int periodic) {
-  return H + (periodic ? wrapi(g, N) : clampi(g, 0, N - 1));
+__device__ __forceinline__ int carry_index(int g, int H, int N, int ext, int kind) {
+  if (kind == KIND_SPLIT) return clampi(g + H, 0, ext - 1);
+  return H + (kind == KIND_PERIODIC ? wrapi(g, N) : clampi(g, 0, N - 1));
 }
 
 // padded index of a constant's image at interior coordinate g
-__device__ __forceinline__ int const_index(int g, int H, int N, int ext, int periodic) {
-  return periodic ? H + wrapi(g, N) : clampi(g + H, 0, ext - 1);
+__device__ __forceinline__ int const_index(int g, int H, int N, int ext, int kind) {
+  return kind == KIND_PERIODIC ? H + wrapi(g, N) : clampi(g + H, 0, ext - 1);
+}
+
+// the first interior coordinate a direction carries, and how many
+__device__ __host__ __forceinline__ int carried_lo(int H, int kind) {
+  return kind == KIND_SPLIT ? -H : 0;
+}
+__device__ __host__ __forceinline__ int carried_n(int H, int N, int kind) {
+  return kind == KIND_SPLIT ? N + 2 * H : N;
 }
 
 __global__ void __launch_bounds__(NTHREADS) tiled_chunk(
@@ -106,22 +129,23 @@ __global__ void __launch_bounds__(NTHREADS) tiled_chunk(
   float* s12 = sm + 6 * NT;
   float* al = sm + 7 * NT;
   const bool has_drag = has_drag_i != 0;
-  const int gx0 = blockIdx.y * OX - W;   // interior coordinates of tile point (0, 0)
-  const int gy0 = blockIdx.x * OY - W;
+  // interior coordinates of tile point (0, 0)
+  const int gx0 = carried_lo(L.Hx, L.kind_x) + blockIdx.y * OX - W;
+  const int gy0 = carried_lo(L.Hy, L.kind_y) + blockIdx.x * OY - W;
   const int tid = threadIdx.y * TBX + threadIdx.x;
   const int ny = L.nyp;
   // the gated wall fills act along bounded directions with a halo
-  const bool wall_x = !L.per_x && L.Hx > 0;
-  const bool wall_y = !L.per_y && L.Hy > 0;
+  const bool wall_x = L.kind_x == KIND_BOUNDED && L.Hx > 0;
+  const bool wall_y = L.kind_y == KIND_BOUNDED && L.Hy > 0;
 
   for (int l = tid; l < TX; l += NTHREADS)
-    crow[l] = const_index(gx0 + l, L.Hx, L.Nx, L.nxp, L.per_x);
+    crow[l] = const_index(gx0 + l, L.Hx, L.Nx, L.nxp, L.kind_x);
   for (int l = tid; l < TY; l += NTHREADS)
-    ccol[l] = const_index(gy0 + l, L.Hy, L.Ny, L.nyp, L.per_y);
+    ccol[l] = const_index(gy0 + l, L.Hy, L.Ny, L.nyp, L.kind_y);
   for (int l = tid; l < NT; l += NTHREADS) {
     const int li = l / TY, lj = l % TY;
-    const int k = carry_index(gx0 + li, L.Hx, L.Nx, L.per_x) * ny
-                  + carry_index(gy0 + lj, L.Hy, L.Ny, L.per_y);
+    const int k = carry_index(gx0 + li, L.Hx, L.Nx, L.nxp, L.kind_x) * ny
+                  + carry_index(gy0 + lj, L.Hy, L.Ny, L.nyp, L.kind_y);
     ua[l] = in.u[k];
     va[l] = in.v[k];
     s11[l] = in.s11[k];
@@ -238,11 +262,14 @@ __global__ void __launch_bounds__(NTHREADS) tiled_chunk(
     }
   }
 
-  // the tile's interior points inside the domain go back to device memory
+  // the tile's interior points inside the carried extent go back to device
+  // memory
+  const int gx_end = carried_lo(L.Hx, L.kind_x) + carried_n(L.Hx, L.Nx, L.kind_x);
+  const int gy_end = carried_lo(L.Hy, L.kind_y) + carried_n(L.Hy, L.Ny, L.kind_y);
   for (int l = tid; l < NT; l += NTHREADS) {
     const int li = l / TY, lj = l % TY;
     const int gx = gx0 + li, gy = gy0 + lj;
-    if (li < W || li >= W + OX || lj < W || lj >= W + OY || gx >= L.Nx || gy >= L.Ny)
+    if (li < W || li >= W + OX || lj < W || lj >= W + OY || gx >= gx_end || gy >= gy_end)
       continue;
     const int k = (L.Hx + gx) * ny + L.Hy + gy;
     out.u[k] = u[l];
@@ -260,10 +287,12 @@ __global__ void __launch_bounds__(NTHREADS) tiled_chunk(
 extern "C" int csi_evp_tiled_chunk_substeps() { return KMAX; }
 
 // Runs `nsub` substeps on u, v, s11, s22, s12, al (each nxp×nyp, row-major,
-// y contiguous; only their interiors are read) on `stream`, in chunks of
+// y contiguous; only their interiors are read, and their halos along a
+// direction of kind KIND_SPLIT) on `stream`, in chunks of
 // `chunk` substeps (KMAX where chunk is 0 or larger), ping-ponging with the six scratch arrays `tmp` (tmp[0..5] in the
-// same order).  The interiors of the results are left in u … al; their
-// halos are not defined (the caller refills them).  The drag arrays may be
+// same order).  The interiors of the results (and the halos along a split
+// direction) are left in u … al; the other halos are not defined (the
+// caller refills them).  The drag arrays may be
 // null when has_drag is 0.  Returns 0, or the first nonzero CUDA error.
 extern "C" int csi_evp_tiled_padded_substeps(
     const float* params,
@@ -275,20 +304,21 @@ extern "C" int csi_evp_tiled_padded_substeps(
     const float* tau_u, const float* tau_v, const float* ue, const float* ve,
     float* u, float* v, float* s11, float* s22, float* s12, float* al,
     float* t_u, float* t_v, float* t_s11, float* t_s22, float* t_s12, float* t_al,
-    int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int per_x, int per_y,
+    int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int kind_x, int kind_y,
     int has_drag, int nsub, int chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int K = chunk > 0 && chunk < KMAX ? chunk : KMAX;
   cudaError_t err = cudaFuncSetAttribute(
       tiled_chunk, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM_BYTES));
   if (err != cudaSuccess) return err;
-  const Layout L{nxp, nyp, Hx, Nx, Hy, Ny, per_x, per_y};
+  const Layout L{nxp, nyp, Hx, Nx, Hy, Ny, kind_x, kind_y};
   const Consts c{P, Pff, gcc, gff, drag_u, invm_u, act_u, un, drag_v, invm_v, act_v, vn,
                  msk_cc, msk_ff, imms_u, immn_u, immw_v, imme_v, tau_u, tau_v, ue, ve};
   Fields a{u, v, s11, s22, s12, al};
   Fields b{t_u, t_v, t_s11, t_s22, t_s12, t_al};
   const dim3 block(TBX, TBY);
-  const dim3 grid((Ny + OY - 1) / OY, (Nx + OX - 1) / OX);
+  const dim3 grid((carried_n(Hy, Ny, kind_y) + OY - 1) / OY,
+                  (carried_n(Hx, Nx, kind_x) + OX - 1) / OX);
   for (int k0 = 0; k0 < nsub; k0 += K) {
     const int nk = nsub - k0 < K ? nsub - k0 : K;
     tiled_chunk<<<grid, block, SMEM_BYTES, s>>>(params, c, L, has_drag, a, b, k0, nk);

@@ -22,7 +22,9 @@ argument's longitudes and latitudes, quadratic ocean drag and
 a latitude-scaled shortwave ``FluxFunction`` and radiative emission,
 snowfall 3.2e-6 kg m⁻² s⁻¹, a −2 W m⁻² ocean flux; WENO-7 and Forward
 Euler.  With ``fixed_tiles`` the solver is ``SplitExplicitSolver(substeps,
-fixed_tiles, halo_exchange="wide", fused="always")`` and the winds are
+fixed_tiles, halo_exchange="wide", fused="always")``, without it
+``halo_exchange="per_substep"`` unless another policy is asked for (under
+"wide" its shards run kernel 2.7's unpinned plan), and the winds are
 evaluated by the fixed-tile pointwise kernel
 (:func:`.dynamics.fixed_tile_pointwise.fixed_tile_pointwise`); without it,
 eagerly.  The initial fields are formed in numpy float32 from the grid's
@@ -128,11 +130,13 @@ def basin_land(grid):
 
 
 def build(Nx, Ny, substeps=24, max_relaxation=300.0, fixed_tiles=None, thermo=True,
-          halo=5, device=None, drag=True):
+          halo=5, device=None, drag=True, halo_exchange=None):
     """``(model, state)`` of `run_distributed_basin.py:build(Nx, Ny, substeps,
     max_relaxation, fixed_tiles, thermo)` on ``device`` (default the card);
-    ``halo`` other than 5 serves the halo-width invariance checks, and
-    ``drag=False`` leaves out the immersed drag."""
+    ``halo`` other than 5 serves the halo-width invariance checks,
+    ``drag=False`` leaves out the immersed drag, and ``halo_exchange`` sets
+    the solver's halo policy (by default "wide" with ``fixed_tiles``, else
+    "per_substep")."""
     grid = TripolarGrid((Nx, Ny), southernmost_latitude=45.0, transition_latitude=65.0,
                         halo=halo, dtype="float32", device=device)
     land = basin_land(grid)
@@ -153,7 +157,7 @@ def build(Nx, Ny, substeps=24, max_relaxation=300.0, fixed_tiles=None, thermo=Tr
         immersed_drag=ImmersedDrag(coefficient=1e-3) if drag else None,
         solver=SplitExplicitSolver(
             substeps=substeps, fixed_tiles=fixed_tiles,
-            halo_exchange="wide" if fixed_tiles else "per_substep",
+            halo_exchange=halo_exchange or ("wide" if fixed_tiles else "per_substep"),
             fused="always" if fixed_tiles else "auto"))
     kw = {}
     if thermo:

@@ -9,7 +9,12 @@ velocity halos refilled after every half-update (zero beyond a bounded wall
 for the wall-normal component, edge copy for the tangential one, wrap where
 periodic).  Circular shifts wrap over the whole padded extent, as the TPU
 kernel's rolls do, so σ and α in the outermost halo ring come from wrapped
-neighbours.  Immersed land enters as in the general path:
+neighbours.  On one rank's shard of the distributed step (the 'wide' halo
+policy, halos of 2·substeps+3 along the split directions) a direction split
+across ranks is not filled (`pallas_evp_padded.py:119-129`): its halo points
+are real points that evolve in place, going stale from the outside in by
+two points a substep, and the loop ends before the staleness reaches the
+interior.  Immersed land enters as in the general path:
 
 * σ read by the divergence is zeroed at solid cc nodes and peripheral ff
   nodes (constant masks);
@@ -36,8 +41,10 @@ import torch
 from .. import _build
 from ..grids import PERIODIC, BOUNDED
 from ..ops import shift_m
-from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff
+from ..fields import (fill_halos_cc, fill_halos_ff, fill_halos_fc_local, fill_halos_cf_local,
+                      _meshed)
 from .coriolis import FPlane
+from .fixed_tile_advection import _wraps
 from .momentum import SplitExplicitSolver, ImmersedDrag
 from .rheologies import ElastoViscoPlasticRheology
 from .stresses import SemiImplicitStress, StressFunction, _value
@@ -56,6 +63,22 @@ LAUNCHES_PER_CALL = 2   # the initial u and v halo fills
 
 padded_evp_counter = KernelCounter()
 
+# how the padded kernels treat a direction's halos (csrc/evp_padded.cu,
+# csrc/evp_tiled_padded.cu)
+KIND_BOUNDED, KIND_PERIODIC, KIND_SPLIT = 0, 1, 2
+
+
+def direction_kinds(grid):
+    """(x, y) kinds of ``grid``: a bounded wall, periodic wrap, or split
+    across ranks (no fill)."""
+    return tuple(KIND_SPLIT if _meshed(grid, d)
+                 else KIND_PERIODIC if grid.topology[d] == PERIODIC else KIND_BOUNDED
+                 for d in (0, 1))
+
+
+def _split_bounded(grid):
+    return any(grid.topology[d] == BOUNDED and _meshed(grid, d) for d in (0, 1))
+
 
 # --- the gate -----------------------------------------------------------------
 
@@ -68,11 +91,12 @@ def padded_fused_available(model):
 
     The physics conditions of the JAX gate (`pallas_evp_padded.py:46-116`)
     without its TPU-only ones: the scoped-VMEM budget kept the whole padded
-    state on chip.  A shard's model never takes this route: where the JAX
-    package would run the meshed kernel, the distributed step raises
-    (queue 9, :func:`..model.meshed_momentum_route`).  The CUDA kernel keeps
-    its state in device memory and indexes any nxp×nyp (ragged edges
-    masked), so it has no size limit."""
+    state on chip.  A shard's model (a grid that names mesh axes) takes the
+    meshed branch only under the 'wide' halo policy and where no bounded
+    direction is split (`:66-74`): the kernel's static fills cannot wall a
+    shard at a global edge.  The CUDA kernel keeps its state in device
+    memory and indexes any nxp×nyp (ragged edges masked), so it has no size
+    limit."""
     grid = model.grid
     dyn = model.dynamics
     if dyn is None or not isinstance(dyn.rheology, ElastoViscoPlasticRheology):
@@ -82,6 +106,9 @@ def padded_fused_available(model):
     if grid.kind != "rectilinear" or grid.north_fold:
         return False   # array metrics or a fold: the curvilinear route
     if any(t not in (PERIODIC, BOUNDED) for t in grid.topology):
+        return False
+    if grid.mesh_axes is not None and (dyn.solver.halo_exchange != "wide"
+                                       or _split_bounded(grid)):
         return False
     if grid.dtype != torch.float32:
         return False
@@ -281,14 +308,15 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
     """Plain PyTorch version of the kernel: ``nsub`` substeps on padded
     arrays with circular shifts over the padded extent, in the TPU kernel's
     operation order (`pallas_evp_padded.py:167-372`).  The u/v halo fills
-    are the serial fills of :mod:`..fields`, which concatenate exactly as
-    the TPU kernel's `_make_fillers` (`pallas_evp_padded.py:119-164`).
-    Returns the new (u, v, σ₁₁, σ₂₂, σ₁₂, α)."""
+    are the local fills of :mod:`..fields`, which concatenate exactly as the
+    TPU kernel's `_make_fillers` (`pallas_evp_padded.py:119-164`) and, on a
+    shard, leave the split directions alone.  Returns the new (u, v, σ₁₁,
+    σ₂₂, σ₁₂, α)."""
     def fill_fc(q):
-        return fill_halos_fc(q, grid)
+        return fill_halos_fc_local(q, grid)
 
     def fill_cf(q):
-        return fill_halos_cf(q, grid)
+        return fill_halos_cf_local(q, grid)
 
     u, v, s11, s22, s12, alpha = carry
     functions = padded_loop_functions(params, consts, fill_fc, fill_cf)
@@ -342,8 +370,7 @@ def padded_evp_substeps(params, consts, carry, nsub, grid):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy, grid.Ny,
-                 int(grid.topology[0] == PERIODIC), int(grid.topology[1] == PERIODIC),
-                 int(has_drag), int(nsub), stream)
+                 *direction_kinds(grid), int(has_drag), int(nsub), stream)
     if err != 0:
         raise RuntimeError(f"padded EVP kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp_padded', err)})")
@@ -359,7 +386,8 @@ def padded_evp_substeps(params, consts, carry, nsub, grid):
 # h and ℵ, each point from its own and its i−1, j−1 neighbours.  The TPU
 # kernel gathers (TX+16, TY+128) tiles of the padded arrays, wrapping into
 # the interior along a periodic direction and clamping at the padded edge
-# along a bounded one, and shifts inside the tile; a point's neighbours are
+# along a bounded one or one split across ranks (`pallas_evp_padded.py:
+# 585-588`), and shifts inside the tile; a point's neighbours are
 # therefore the gathered images of its padded index − 1.  Both versions here
 # read those images directly (``csrc/evp_prep.cu``: one thread per padded
 # point).  Along a periodic direction the point itself is read from its
@@ -373,11 +401,11 @@ N_PREP_OUT = 10     # P, Pff, gcc, gff, drag_u, invm_u, act_u, drag_v, invm_v, a
 evp_prep_counter = KernelCounter()
 
 
-def _prep_sources(ext, n_int, H, periodic, device):
+def _prep_sources(ext, n_int, H, wrap, device):
     """Padded source index of every padded index k − 1, k = 0 … ext (entry 0
     is the image of index −1): `_tile_indices`' wrap or clamp."""
     k = torch.arange(-1, ext, device=device)
-    return H + torch.remainder(k - H, n_int) if periodic else torch.clamp(k, 0, ext - 1)
+    return H + torch.remainder(k - H, n_int) if wrap else torch.clamp(k, 0, ext - 1)
 
 
 def evp_prep_params(model, dt):
@@ -399,8 +427,8 @@ def evp_prep_reference(prm, h, a, grid):
     operation order (`pallas_evp_padded.py:537-555`): the ten coefficient
     arrays on the padded shape."""
     rho, Pstar, Chard, cadt, az, mass_min, conc_min = prm
-    ex = _prep_sources(grid.nxp, grid.Nx, grid.Hx, grid.topology[0] == PERIODIC, h.device)
-    ey = _prep_sources(grid.nyp, grid.Ny, grid.Hy, grid.topology[1] == PERIODIC, h.device)
+    ex = _prep_sources(grid.nxp, grid.Nx, grid.Hx, _wraps(grid, 0), h.device)
+    ey = _prep_sources(grid.nyp, grid.Ny, grid.Hy, _wraps(grid, 1), h.device)
     he, ae = h[ex][:, ey], a[ex][:, ey]        # (nxp + 1, nyp + 1) images
     m = he * ae * rho
     P = Pstar * he * torch.exp(-Chard * (1 - ae))
@@ -471,7 +499,7 @@ def evp_prep(prm, h, a, grid):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(prm.data_ptr(), h.data_ptr(), a.data_ptr(), out.data_ptr(),
                  grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy, grid.Ny,
-                 int(grid.topology[0] == PERIODIC), int(grid.topology[1] == PERIODIC), stream)
+                 int(_wraps(grid, 0)), int(_wraps(grid, 1)), stream)
     if err != 0:
         raise RuntimeError(f"EVP coefficient kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp_prep', err)})")
@@ -503,7 +531,9 @@ def padded_evp_inputs(model, state, dt, u_start, v_start):
          drag_v, invm_v, act_v) = evp_coefficients(model, state, dt)
     act_u = act_u * (~masks.per_fc).to(torch.float32)
     act_v = act_v * (~masks.per_cf).to(torch.float32)
-    msk_cc = (~masks.solid_cc).to(torch.float32)   # 1 where σ₁₁, σ₂₂ are read
+    # 1 where σ₁₁, σ₂₂ are read (a shard without land has no solid mask)
+    msk_cc = (torch.ones(grid.shape, dtype=torch.float32, device=grid.device)
+              if masks.solid_cc is None else (~masks.solid_cc).to(torch.float32))
     msk_ff = (~masks.per_ff).to(torch.float32)     # 1 where σ₁₂ is read
 
     drag_consts = ()

@@ -1,7 +1,8 @@
-"""The decomposition-invariant curvilinear αEVP route (``fixed_tiles`` on
-grids with array metrics or a north fold): the gate, the pinned plan, the
-widening of serial folded grids, the launcher, the CUDA kernels' wrappers
-and their plain versions.
+"""The tiled curvilinear αEVP route (``fixed_tiles`` on grids with array
+metrics or a north fold, and such grids' shards under the 'wide' halo
+policy): the gate, the pinned and the unpinned plan, the widening of serial
+folded grids, the launcher, the CUDA kernels' wrappers and their plain
+versions.
 
 Counterpart of `climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py`
 under ``SplitExplicitSolver(fixed_tiles=(TX, TY))``: kernel 2.7
@@ -36,10 +37,15 @@ apply only on the shards at the global edges, and a fold split across x is
 never refilled: its halo evolves through every substep, and one joint
 exchange of u and v follows the loop.
 
+Without ``fixed_tiles`` a shard runs the unpinned plan (`_plan_tiles`,
+what the JAX package runs on a shard under 'wide'): the same kernel with
+the port's own plan (:func:`_unpinned_plan`) and the plain ice strength.
+On one card the whole-array route (:mod:`.fused_evp_curvilinear`) takes
+such a model, as the JAX package's whole-array tier does below its VMEM
+limit.
+
 A CUDA tensor goes to the kernels, a CPU tensor to the plain versions; a
-kernel that fails to build or launch raises.  The unpinned plan (without
-``fixed_tiles``) on a shard is not ported (queue 9); on one card the
-whole-array route (:mod:`.fused_evp_curvilinear`) computes its function.
+kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from ..fields import (FILLERS, fill_halos_cc, fill_halos_ff, fill_halos_cc_local
                       fill_halos_uv, _maybe_fold, _meshed)
 from .coriolis import FPlane, LatitudeCoriolis, coriolis_f_cc
 from .momentum import SplitExplicitSolver, ImmersedDrag
-from .rheologies import ElastoViscoPlasticRheology
+from .rheologies import ElastoViscoPlasticRheology, ice_strength
 from .stresses import SemiImplicitStress, StressFunction, _value
 from .fused_evp import (KernelCounter, _scalar, _P_DT, _P_F, _P_RC, _P_EINV2, _P_AMIN,
                         _P_AMAX, _P_CALPHA, _P_DMIN, _P_MASSMIN, _P_CONCMIN, _P_REPL,
@@ -94,6 +100,23 @@ def _wx(K):
     return W + (-W) % 4
 
 
+def _walls_in_one_tile(grid, plan, Hy):
+    """The gated wall fills' single-trigger-tile conditions (`:222-231`):
+    along a bounded direction cut into several tiles, the first and the last
+    interior row each lie in the interior of one tile only.  ``Hy``: the y
+    halo the plan tiles (a serial folded grid's widened one).  The port
+    crops no solid rows off a shard, so the south condition applies as it
+    stands (the reference's crop drops it instead of shifting it by the
+    cropped rows, ADVICE r5)."""
+    _, TX, TY, Wx, Wy = plan
+    ntx, nty = -(-grid.nxp // TX), -(-(grid.Ny + 2 * Hy) // TY)
+    if grid.topology[0] == BOUNDED and ntx > 1 and (
+            TX - Wx <= grid.Hx or (ntx - 1) * TX + Wx > grid.Hx + grid.Nx):
+        return False
+    return not (grid.topology[1] == BOUNDED and nty > 1 and (
+        TY - Wy <= Hy or (not grid.north_fold and (nty - 1) * TY + Wy > Hy + grid.Ny)))
+
+
 def _fixed_plan(grid, nsub, fixed, widen_fold=False):
     """The pinned plan (K, TX, TY, Wx, Wy) of `_fixed_plan` (`:271-307`), or
     None: K from :func:`.fused_evp.pick_chunk`, TX a multiple
@@ -107,16 +130,30 @@ def _fixed_plan(grid, nsub, fixed, widen_fold=False):
     TX, TY = fixed
     if TY is None or TX % 8 or TY % 128:
         return None
-    Wx, Wy = _wx(K), WY
+    plan = K, TX, TY, _wx(K), WY
     Hy = max(grid.Hy, 2 * K + 5) if widen_fold else grid.Hy
-    ntx, nty = -(-grid.nxp // TX), -(-(grid.Ny + 2 * Hy) // TY)
-    if grid.topology[0] == BOUNDED and ntx > 1 and (
-            TX - Wx <= grid.Hx or (ntx - 1) * TX + Wx > grid.Hx + grid.Nx):
-        return None
-    if grid.topology[1] == BOUNDED and nty > 1 and (
-            TY - Wy <= Hy or (not grid.north_fold and (nty - 1) * TY + Wy > Hy + grid.Ny)):
-        return None
-    return K, TX, TY, Wx, Wy
+    return plan if _walls_in_one_tile(grid, plan, Hy) else None
+
+
+def _unpinned_plan(grid, nsub, widen_fold=False):
+    """The port's plan (K, TX, TY, Wx, Wy) without ``fixed_tiles``, the
+    counterpart of `_plan_tiles` (`:112-226`), whose VMEM weights serve the
+    TPU only.  The CUDA kernel runs whole arrays, so K only sets how often a
+    fold whose x is not split is refilled: the largest divisor of the
+    substeps up to the tier's cap of 24, for the fewest refill launches
+    (without the immersed drag the refill does not change the result, the
+    fold halo evolving as an exact mirror).  The plain version takes one
+    tile along each direction, the padded extent rounded up to 8 points
+    (with a serial folded grid's widened y halo), overlaps 2K+4 in x and in
+    y 64 where y is not bounded."""
+    K = max(k for k in range(2, min(CHUNK_CAP, nsub) + 1) if nsub % k == 0)
+    Hy = max(grid.Hy, 2 * K + 5) if widen_fold else grid.Hy
+    TX = -(-grid.nxp // 8) * 8
+    TY = -(-(grid.Ny + 2 * Hy) // 8) * 8
+    plan = K, TX, TY, _wx(K), 0 if grid.topology[1] == BOUNDED else WY
+    if not _walls_in_one_tile(grid, plan, Hy):
+        raise AssertionError(f"unpinned plan {plan} puts a wall row in two tiles")
+    return plan
 
 
 def tiled_curvilinear_envelope(model):
@@ -179,16 +216,18 @@ def tiled_curvilinear_envelope(model):
 
 
 def tiled_curvilinear_available(model):
-    """True when the model takes this route: ``fixed_tiles`` set, the
-    physics conditions of :func:`tiled_curvilinear_envelope` and a pinned
-    plan (on a serial folded grid for its widening).  Without
-    ``fixed_tiles`` the whole-array route computes the function on one card,
-    so this route is not taken; on a shard the unpinned plan is not ported
-    (queue 9)."""
-    solver = getattr(model.dynamics, "solver", None)
-    if getattr(solver, "fixed_tiles", None) is None or not tiled_curvilinear_envelope(model):
+    """True when the model takes this route: the physics conditions of
+    :func:`tiled_curvilinear_envelope` and, with ``fixed_tiles``, a pinned
+    plan (on a serial folded grid for its widening); without
+    ``fixed_tiles`` on a shard only, under the unpinned plan.  On one card
+    the whole-array route computes that function, so a serial model without
+    ``fixed_tiles`` does not take this one."""
+    if not tiled_curvilinear_envelope(model):
         return False
+    solver = model.dynamics.solver
     grid = model.grid
+    if solver.fixed_tiles is None:
+        return grid.mesh_axes is not None
     return _fixed_plan(grid, solver.substeps, solver.fixed_tiles,
                        widen_fold=grid.north_fold and grid.mesh_axes is None) is not None
 
@@ -351,8 +390,8 @@ def _tile_indices(ext, n_int, H, n_tiles, T, W, wrap):
 
 
 class _Tiles:
-    """The pinned plan's tiles of a grid, all tiles of a chunk as one batch
-    (tiles, bx, by)."""
+    """A plan's tiles of a grid, all tiles of a chunk as one batch (tiles,
+    bx, by)."""
 
     def __init__(self, grid, plan, device):
         _, TX, TY, Wx, Wy = plan
@@ -679,7 +718,7 @@ def tiled_curvilinear_evp_substeps_reference(params, planes, carry, nsub, grid, 
 def curvilinear_consts(params, planes, grid, plan, flags):
     """``(params18, consts, f_planes)`` for the whole-array kernel
     (:func:`.fused_evp_curvilinear.curvilinear_evp_substeps`) that hold the
-    coefficients this route derives (the plain version's, on the pinned
+    coefficients this route derives (the plain version's, on the plan's
     tiles), so that both kernels run on the same input."""
     tiles = _Tiles(grid, plan, params.device)
     c = [tiles.gather(q) for q in planes]
@@ -718,11 +757,11 @@ def _check(params, arrays, shape):
 
 
 def tiled_curvilinear_evp_substeps(params, planes, carry, nsub, grid, plan, flags, chunk=None):
-    """Run ``nsub`` αEVP substeps of the fixed-tile curvilinear route on
-    arrays of ``grid``'s (widened) shape.  ``params``, ``planes``, ``carry``
-    and ``flags`` as :func:`tiled_curvilinear_inputs` makes them; ``plan``
-    the pinned plan; ``chunk`` the substeps between fold refills (default
-    the plan's K).  On a shard's grid the directions split across ranks do
+    """Run ``nsub`` αEVP substeps of the tiled curvilinear route on arrays
+    of ``grid``'s (widened) shape.  ``params``, ``planes``, ``carry`` and
+    ``flags`` as :func:`tiled_curvilinear_inputs` makes them; ``plan`` the
+    pinned or the unpinned plan; ``chunk`` the substeps between fold
+    refills (default the plan's K).  On a shard's grid the directions split across ranks do
     not wrap, the wall fills apply on the shards at the global edges, and a
     fold split across x is never refilled (:func:`_geometry`).  CUDA tensors
     go to the CUDA kernel, which writes the results into the carry tensors
@@ -821,21 +860,28 @@ def fixed_tile_P(params, h, a):
 # --- the launcher ------------------------------------------------------------------------
 
 def tiled_curvilinear_momentum_step(model, state, dt, u_start, v_start):
-    """The fixed-tile curvilinear momentum step (`tiled_curvilinear_momentum_step`,
-    `:1074-1270`): widen a serial folded grid whose y halo is below 2K+5,
-    run the substep loop (:func:`tiled_curvilinear_evp_substeps`) and the
-    ice strength (:func:`fixed_tile_P`) on the widened arrays, crop back,
-    and refill: u and v with the local fills (on a shard whose fold is split
-    across x with one joint exchange, `:1254-1259`), σ with the fills, α and
-    P with the local cc fill where widened.  A shard's grid is not widened:
-    its halos are the wide ones of the distributed step.  Returns the
-    general `split_explicit_momentum_step`'s update dict; uⁿ, vⁿ are the
-    start velocities, Delta and ζ the incoming state's."""
+    """The tiled curvilinear momentum step (`tiled_curvilinear_momentum_step`,
+    `:1074-1270`) under the pinned plan with ``fixed_tiles``, else the
+    unpinned one: widen a serial folded grid whose y halo is below 2K+5,
+    run the substep loop (:func:`tiled_curvilinear_evp_substeps`) and, with
+    ``fixed_tiles``, the ice strength (:func:`fixed_tile_P`) on the widened
+    arrays, crop back, and refill: u and v with the local fills (on a shard
+    whose fold is split across x with one joint exchange, `:1254-1259`), σ
+    with the fills, α and P with the local cc fill where widened.  Without
+    ``fixed_tiles`` P is the plain ice strength on the original padding
+    (`:1234-1237`).  A shard's grid is not widened: its halos are the wide
+    ones of the distributed step.  Returns the general
+    `split_explicit_momentum_step`'s update dict; uⁿ, vⁿ are the start
+    velocities, Delta and ζ the incoming state's."""
     grid = model.grid
     solver = model.dynamics.solver
     nsub = solver.substeps
+    fixed = solver.fixed_tiles
     serial_fold = grid.north_fold and grid.mesh_axes is None
-    plan = _fixed_plan(grid, nsub, solver.fixed_tiles, widen_fold=serial_fold)
+    if fixed is None:
+        plan = _unpinned_plan(grid, nsub, widen_fold=serial_fold)
+    else:
+        plan = _fixed_plan(grid, nsub, fixed, widen_fold=serial_fold)
     if plan is None:
         raise ValueError("tiled curvilinear EVP: no pinned plan fits this grid")
     K = plan[0]
@@ -844,13 +890,17 @@ def tiled_curvilinear_momentum_step(model, state, dt, u_start, v_start):
                                                                     v_start, Hw)
     u, v, s11, s22, s12, alpha = tiled_curvilinear_evp_substeps(params, planes, carry, nsub,
                                                                 target, plan, flags)
-    P = fixed_tile_P(ice_strength_params(model), planes[C_H], planes[C_A])
+    if fixed is None:
+        P = ice_strength(model.dynamics.rheology, state.h, state.a)
+    else:
+        P = fixed_tile_P(ice_strength_params(model), planes[C_H], planes[C_A])
     if Hw is not None:
         u, v = _crop(u, grid, target, "fc"), _crop(v, grid, target, "cf")
         s11, s22 = _crop(s11, grid, target, "cc"), _crop(s22, grid, target, "cc")
         s12 = _crop(s12, grid, target, "ff")
         alpha = fill_halos_cc_local(_crop(alpha, grid, target, "cc"), grid)
-        P = fill_halos_cc_local(_crop(P, grid, target, "cc"), grid)
+        if fixed is not None:
+            P = fill_halos_cc_local(_crop(P, grid, target, "cc"), grid)
     if grid.north_fold and _meshed(grid, 0):
         u, v = fill_halos_uv(u, v, grid)
     else:

@@ -23,10 +23,16 @@ go to the kernel (``csrc/evp_tiled_padded.cu``, whose own tile plan is
 chosen for the card), CPU tensors to
 :func:`tiled_padded_evp_substeps_reference`, which emulates the TPU kernel's
 tiles of ``fixed_tiles``.  A CUDA tensor never reaches the plain version; a
-kernel that fails to build or launch raises.  A shard's model never takes
-this route: where the JAX package would run the meshed kernel (its
-distributed wide-halo mode), the distributed step raises (queue 9,
-:func:`..model.meshed_momentum_route`).
+kernel that fails to build or launch raises.
+
+On one rank's shard of the distributed step (the 'wide' halo policy) a
+direction split across ranks is carried over its whole padded extent
+(`pallas_evp_tiled_padded.py:496-530, 664-683`): its halo points are real
+points that evolve in place, going stale from the outside in by two points
+a substep.  Along it the TPU kernel ceil-tiles the padded extent,
+clamp-gathers the overhang beyond the padded edge and drops it, applies no
+wall fill (`:212-217`), and keeps the padded values of the split direction
+when it re-pads; the plain version emulates that.
 """
 
 from __future__ import annotations
@@ -38,10 +44,11 @@ import torch
 
 from .. import _build
 from ..grids import PERIODIC
-from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff
+from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff, _meshed
 from .fused_evp import KernelCounter, check_kernel_args, cuda_error_string, pick_chunk
-from .fused_evp_padded import (N_CONSTS, N_DRAG, N_STRESS, N_CARRY, padded_evp_inputs,
-                               padded_fused_available, padded_loop_functions, run_substeps)
+from .fused_evp_padded import (N_CONSTS, N_DRAG, N_STRESS, N_CARRY, direction_kinds,
+                               padded_evp_inputs, padded_fused_available,
+                               padded_loop_functions, run_substeps)
 
 WY = 64               # y overlap of 2-D tiles (`pallas_evp_tiled_padded.py:61`)
 _TX_CHOICES = (1024, 768, 512, 384, 256, 192, 128, 96, 64, 32, 16, 8)
@@ -63,7 +70,8 @@ def tiled_padded_available(model):
     ``fixed_tiles`` an x tile has to divide Nx.  The TPU-only conditions
     (the VMEM budget of a tile and the device-memory cap) are dropped: the
     CUDA kernel's tiles are its own and its state lives in device memory.
-    Shards are dispatched by :func:`..model.meshed_momentum_route`."""
+    On a shard the padded route's meshed conditions apply, and a direction
+    split across ranks need not be divisible by the tile (`:135-175`)."""
     if not padded_fused_available(model):
         return False
     grid = model.grid
@@ -73,9 +81,10 @@ def tiled_padded_available(model):
     if solver.fixed_tiles is None:
         return any(grid.Nx % TX == 0 for TX in _TX_CHOICES)
     TX, TY = solver.fixed_tiles
-    if grid.Nx % TX:
+    if grid.Nx % TX and not _meshed(grid, 0):
         return False
-    return TY is None or (grid.Ny % TY == 0 and (TY + 2 * WY) % 128 == 0)
+    return TY is None or ((grid.Ny % TY == 0 or _meshed(grid, 1))
+                          and (TY + 2 * WY) % 128 == 0)
 
 
 # --- the plain version ----------------------------------------------------------
@@ -104,17 +113,20 @@ def tiled_padded_evp_substeps_reference(params, consts, carry, nsub, grid, fixed
     tiles of a chunk as one batch.  ``carry`` holds padded arrays.  Returns
     the six fields on the padded shape as the TPU launcher re-pads them
     before its fills: zero halos along the cut directions, the carried y
-    halos of y-spanning slabs kept."""
+    halos of y-spanning slabs and the halos of split directions kept."""
     K = pick_chunk(nsub) if K is None else K
     Hx, Nx, Hy, Ny, nyp = grid.Hx, grid.Nx, grid.Hy, grid.Ny, grid.nyp
-    periodic_x = grid.topology[0] == PERIODIC
-    periodic_y = grid.topology[1] == PERIODIC
+    mx, my = _meshed(grid, 0), _meshed(grid, 1)
+    periodic_x = grid.topology[0] == PERIODIC and not mx
+    periodic_y = grid.topology[1] == PERIODIC and not my
     TX, TY = fixed_tiles
+    x_ext = grid.nxp if mx else Nx          # the carried x extent
+    n_tiles = -(-x_ext // TX)               # ceil tiles where split, else TX divides Nx
     if TY is None:
-        TY, Wy, nty = nyp, 0, 1
+        TY, Wy, nty, y_ext = nyp, 0, 1, nyp
     else:
-        Wy, nty = WY, Ny // TY
-    n_tiles = Nx // TX
+        y_ext = nyp if my else Ny
+        Wy, nty = WY, -(-y_ext // TY)
     W = 3 * K + 3          # the fixed mode's overlap, rounded to the TPU's sublanes
     while (TX + 2 * W) % 8:
         W += 1
@@ -124,33 +136,41 @@ def tiled_padded_evp_substeps_reference(params, consts, carry, nsub, grid, fixed
     def index(a):
         return torch.as_tensor(a, device=device)
 
-    idx = index(_slab_index(Nx, n_tiles, TX, W, periodic_x))
-    idx_pad = index(_slab_index(Nx, n_tiles, TX, W, periodic_x, H=Hx, ext=grid.nxp))
-    gx = index(np.arange(-W, TX + W)[None, :] + TX * np.arange(n_tiles)[:, None])
+    def along(ext, n, T, Wd, H, periodic, split):
+        """(carry gather, constant gather, interior coordinates) of the
+        tiles along one direction: a split one carries its padded extent,
+        clamp-gathered at its edge."""
+        coords = np.arange(-Wd, T + Wd)[None, :] + T * np.arange(n)[:, None]
+        if split:
+            idx = index(_slab_index(ext, n, T, Wd, False))
+            return idx, idx, index(coords - H)
+        N = ext
+        return (index(_slab_index(N, n, T, Wd, periodic)),
+                index(_slab_index(N, n, T, Wd, periodic, H=H, ext=N + 2 * H)), index(coords))
+
+    idx, idx_pad, gx = along(x_ext, n_tiles, TX, W, Hx, periodic_x, mx)
     if Wy:
-        idy = index(_slab_index(Ny, nty, TY, Wy, periodic_y))
-        idy_pad = index(_slab_index(Ny, nty, TY, Wy, periodic_y, H=Hy, ext=nyp))
-        gy = index(np.arange(-Wy, TY + Wy)[None, :] + TY * np.arange(nty)[:, None])
+        idy, idy_pad, gy = along(y_ext, nty, TY, Wy, Hy, periodic_y, my)
     else:
-        idy = idy_pad = None
-        gy = None
+        idy = idy_pad = gy = None
 
     def tiles(q, ix, iy):   # (rows, cols) → (n_tiles·nty, bx, by)
         q = q[ix] if iy is None else q[ix][:, iy]
         return q.reshape(n_tiles, bx, nty, by).permute(0, 2, 1, 3).reshape(-1, bx, by)
 
-    def untile(q):          # tile interiors → the carried layout
+    def untile(q):          # tile interiors → the carried layout, overhang dropped
         oy = TY if Wy else nyp
         q = q[:, W:W + TX, Wy:Wy + oy] if Wy else q[:, W:W + TX]
-        return q.reshape(n_tiles, nty, TX, oy).permute(0, 2, 1, 3).reshape(n_tiles * TX,
-                                                                            nty * oy)
+        q = q.reshape(n_tiles, nty, TX, oy).permute(0, 2, 1, 3).reshape(n_tiles * TX,
+                                                                         nty * oy)
+        return q[:x_ext, :y_ext]
 
     # per-tile interior coordinates, broadcast against (tiles, bx, by)
     gx_t = gx.repeat_interleave(nty, 0)[:, :, None]
     gy_t = gy.repeat(n_tiles, 1)[:, None, :] if Wy else None
 
     def fill_x(q, face):
-        if Hx == 0 or periodic_x:
+        if Hx == 0 or periodic_x or mx:
             return q
         if face:
             return torch.where((gx_t < 0) | (gx_t >= Nx), 0.0, q)
@@ -158,7 +178,7 @@ def tiled_padded_evp_substeps_reference(params, consts, carry, nsub, grid, fixed
         return torch.where(gx_t >= Nx, q[:, W + TX - 1:W + TX], q)
 
     def fill_y(q, face):
-        if Hy == 0 or (Wy and periodic_y):
+        if Hy == 0 or my or (Wy and periodic_y):
             return q
         if Wy:
             if face:
@@ -182,12 +202,11 @@ def tiled_padded_evp_substeps_reference(params, consts, carry, nsub, grid, fixed
 
     functions = padded_loop_functions(params, [tiles(q, idx_pad, idy_pad) for q in consts],
                                       fill_fc, fill_cf, ax=1)
-
-    def strip(q):           # padded → the carried layout
-        q = q[Hx:Hx + Nx]
-        return q[:, Hy:Hy + Ny] if Wy else q
-
-    state = [strip(q) for q in carry]
+    # the carried layout: the interior along a cut direction, the padded
+    # extent along a split one or a y-spanning slab's
+    keep_x = slice(None) if mx else slice(Hx, Hx + Nx)
+    keep_y = slice(Hy, Hy + Ny) if Wy and not my else slice(None)
+    state = [q[keep_x, keep_y] for q in carry]
     for first in range(1, nsub + 1, K):
         u, v, s11, s22, s12, al = (tiles(q, idx, idy) for q in state)
         out = run_substeps(functions, (fill_fc(u), fill_cf(v), s11, s22, s12, al),
@@ -196,10 +215,7 @@ def tiled_padded_evp_substeps_reference(params, consts, carry, nsub, grid, fixed
 
     def repad(q):           # the carried layout → padded, zero where cut
         out = torch.zeros(grid.shape, dtype=q.dtype, device=q.device)
-        if Wy:
-            out[Hx:Hx + Nx, Hy:Hy + Ny] = q
-        else:
-            out[Hx:Hx + Nx] = q
+        out[keep_x, keep_y] = q
         return out
 
     return tuple(repad(q) for q in state)
@@ -224,8 +240,9 @@ def tiled_padded_evp_substeps(params, consts, carry, nsub, grid, fixed_tiles, ch
     ``params``, ``consts`` and ``carry`` as :func:`.fused_evp_padded.
     padded_evp_substeps` takes them.  CUDA tensors go to the CUDA kernel,
     which runs its own tile plan, ``chunk`` substeps a launch (at most, and
-    by default, the kernel's K), writes the carry tensors' interiors in
-    place and returns them (their halos are then undefined); CPU tensors go
+    by default, the kernel's K), writes the carry tensors' interiors (and
+    their halos along a direction split across ranks) in place and returns
+    them (their other halos are then undefined); CPU tensors go
     to :func:`tiled_padded_evp_substeps_reference` with the tiles of
     ``fixed_tiles`` and chunks of ``chunk`` (default :func:`pick_chunk`)."""
     consts, carry = tuple(consts), tuple(carry)
@@ -258,8 +275,7 @@ def tiled_padded_evp_substeps(params, consts, carry, nsub, grid, fixed_tiles, ch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy, grid.Ny,
-                 int(grid.topology[0] == PERIODIC), int(grid.topology[1] == PERIODIC),
-                 int(has_drag), int(nsub), chunk, stream)
+                 *direction_kinds(grid), int(has_drag), int(nsub), chunk, stream)
     if err != 0:
         raise RuntimeError(f"tiled padded EVP kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp_tiled_padded', err)})")

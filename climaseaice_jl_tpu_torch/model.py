@@ -27,10 +27,10 @@ import dataclasses
 import torch
 
 from .utils import frozen_dataclass
-from .grids import Grid, BOUNDED, south_crop_grid
+from .grids import Grid, south_crop_grid
 from .state import SeaIceState, Clock, ModelFields
 from .fields import (fill_halos_many, peripheral_masks, immersed_only_ff, solid_cc_mask,
-                     _solid_base, _meshed)
+                     _solid_base)
 from .advection import horizontal_div_Uc, required_halo
 from .thermodynamics.heat_bcs import PrescribedTemperature
 from .thermodynamics.phase_transitions import PhaseTransitions
@@ -46,7 +46,6 @@ from .dynamics.fused_evp_curvilinear import (curvilinear_fused_available,
 from .dynamics.fused_evp_tiled_padded import (tiled_padded_available,
                                               tiled_padded_momentum_step)
 from .dynamics.fused_evp_tiled_curvilinear import (tiled_curvilinear_available,
-                                                   tiled_curvilinear_envelope,
                                                    tiled_curvilinear_momentum_step)
 from .dynamics.fixed_tile_advection import (fixed_tile_advection_available,
                                             make_fixed_tile_div)
@@ -364,37 +363,36 @@ def dynamic_step_tracers(model, state, G, dt, base=None):
 def meshed_momentum_route(model):
     """The momentum route of a shard's model (a grid that names mesh axes),
     as the JAX package dispatches it on its TPU (`model.py:401-445`):
-    "tiled_curvilinear" (kernel 2.7 under its pinned plan, meshed) or
-    "general" (the general path: exchanging fills under the 'per_substep'
-    halo policy, local fills under 'wide').  Where the JAX package would run
-    a kernel whose meshed branch is not ported, or under the 'overlap'
-    policy, it raises ``NotImplementedError`` naming queue 9: a shard never
-    goes quietly to another route."""
-    dyn = model.dynamics
-    solver = dyn.solver
-    grid = model.grid
+    "tiled_curvilinear" (kernel 2.7 on a grid with array metrics or a fold,
+    its pinned plan under ``fixed_tiles``, else its unpinned plan), without
+    ``fixed_tiles`` "padded" (2.3 meshed), with it "tiled_padded" (2.4 and
+    2.5 meshed), or "general" (the general path: exchanging fills under the
+    'per_substep' halo policy, local fills under 'wide', and under 'wide'
+    where a bounded direction is split, which the kernels' static fills
+    cannot wall).  The 'overlap' policy raises ``NotImplementedError``
+    naming queue 9: a shard never goes quietly to another route."""
+    solver = model.dynamics.solver
     if solver.halo_exchange == "overlap":
         raise NotImplementedError("the 'overlap' halo policy of the distributed step is not "
                                   "ported yet (queue 9)")
     if solver.fused == "never" or solver.halo_exchange != "wide":
         return "general"
-    fixed = fixed_tiles(grid, dyn) is not None
+    fixed = fixed_tiles(model.grid, model.dynamics) is not None
     if tiled_curvilinear_available(model):
         return "tiled_curvilinear"
-    if not fixed and tiled_curvilinear_envelope(model):
-        raise NotImplementedError("the wide-halo EVP on a sharded curvilinear grid without "
-                                  "fixed_tiles runs kernel 2.7's unpinned plan, which is not "
-                                  "ported yet (queue 9)")
-    split_bounded = any(grid.topology[d] == BOUNDED and _meshed(grid, d) for d in (0, 1))
-    if not split_bounded:
-        if fixed and tiled_padded_available(model):
-            raise NotImplementedError("the meshed branches of kernels 2.4 and 2.5 (fixed_tiles "
-                                      "on a sharded rectilinear grid) are not ported yet "
-                                      "(queue 9)")
-        if not fixed and padded_fused_available(model):
-            raise NotImplementedError("the meshed branch of kernel 2.3 (the wide-halo EVP on a "
-                                      "sharded rectilinear grid) is not ported yet (queue 9)")
+    if not fixed and padded_fused_available(model):
+        return "padded"
+    if fixed and tiled_padded_available(model):
+        return "tiled_padded"
     return "general"
+
+
+_MESHED_STEPS = {
+    "tiled_curvilinear": tiled_curvilinear_momentum_step,
+    "padded": padded_fused_momentum_step,
+    "tiled_padded": tiled_padded_momentum_step,
+    "general": split_explicit_momentum_step,
+}
 
 
 def momentum_step(model, state, dt, u_prev=None, v_prev=None):
@@ -418,10 +416,7 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     fused = dyn.solver.fused != "never"
     fixed = fixed_tiles(model.grid, dyn) is not None
     if model.grid.mesh_axes is not None:
-        if meshed_momentum_route(model) == "tiled_curvilinear":
-            upd = tiled_curvilinear_momentum_step(model, state, dt, u_start, v_start)
-        else:
-            upd = split_explicit_momentum_step(model, state, dt, u_start, v_start)
+        upd = _MESHED_STEPS[meshed_momentum_route(model)](model, state, dt, u_start, v_start)
     elif fused and curvilinear_fused_available(model):
         upd = curvilinear_fused_momentum_step(model, state, dt, u_start, v_start)
     elif fused and tiled_curvilinear_available(model):

@@ -13,9 +13,12 @@ on the shards at the global edges.
 steps the rank's interior-only shard (:func:`.multihost.shard_state` cuts
 it from a global interior-only state, :func:`strip_halos` makes one from a
 padded state).  With the 'wide' halo policy the split directions' halos are
-widened to 2·substeps+3 so that the substep loop needs no exchange; with
-``fixed_tiles`` on a folded or curvilinear grid the loop then runs kernel
-2.7 on the shard, and the result equals the serial step's bit for bit.
+widened to 2·substeps+3 so that the substep loop needs no exchange, and
+the loop runs on every shard in the kernel the JAX package runs there
+(:func:`..model.meshed_momentum_route`): 2.7 on a folded or curvilinear
+grid (its pinned plan with ``fixed_tiles``, else its unpinned one), on a
+rectilinear grid 2.3 without ``fixed_tiles`` and 2.4 with 2.5 with it.
+With ``fixed_tiles`` the result equals the serial step's bit for bit.
 """
 
 from __future__ import annotations
@@ -352,11 +355,12 @@ def make_distributed_step(model, mesh_shape, device=None):
     global model, which lives on the rank's device.
 
     With the 'wide' halo policy the split directions' halos grow to
-    2·substeps+3; a fold split across x then needs the fixed-tile
-    curvilinear route, which lets its halo evolve without refills.  Where
-    the JAX package would run a kernel whose meshed branch is not ported,
-    this raises ``NotImplementedError`` (queue 9) before any rank
-    communicates."""
+    2·substeps+3; a fold split across x then needs the tiled curvilinear
+    route, which lets its halo evolve without refills.  Before any rank
+    communicates, the momentum route of every shard is found
+    (:func:`..model.meshed_momentum_route`); the 'overlap' policy raises
+    ``NotImplementedError`` (queue 9), and shards whose routes differ raise
+    ``ValueError``: every rank must run the same kernels."""
     grid = model.grid
     _check_model_shardable(model)
     Px, Py = mesh_shape
@@ -378,16 +382,20 @@ def make_distributed_step(model, mesh_shape, device=None):
         grid = with_halo(grid, (hx, hy))
         model = model.evolve(grid=grid)
     if dyn is not None:
-        # the routes of shard (0, 0), before any rank communicates
-        probe = model.evolve(grid=_local_grid(grid, nx, ny, 0, 0, axes, mesh_shape))
+        # every shard's route, before any rank communicates
+        probes = [model.evolve(grid=_local_grid(grid, nx, ny, ix, iy, axes, mesh_shape))
+                  for ix in range(Px) for iy in range(Py)]
         if (solver.halo_exchange == "wide" and grid.north_fold and Px > 1
-                and not (solver.fused != "never" and tiled_curvilinear_envelope(probe))):
+                and not (solver.fused != "never" and tiled_curvilinear_envelope(probes[0]))):
             raise NotImplementedError(
                 "wide-halo EVP with a north fold split across the x mesh requires the fused "
                 "tiled curvilinear EVP path (set solver fused='always'/'auto' on TPU with an "
                 "eligible configuration); otherwise use halo_exchange='per_substep' or a "
                 "(1, Py) mesh")
-        meshed_momentum_route(probe)
+        routes = [meshed_momentum_route(p) for p in probes]
+        if len(set(routes)) > 1:
+            raise ValueError(f"the shards of mesh {tuple(mesh_shape)} would take different "
+                             f"momentum routes, in mesh order {routes}")
 
     mesh = make_mesh(mesh_shape, device)
     if grid.device != mesh.device:

@@ -20,13 +20,24 @@ of two ranks and one of four run all the cases (``parallel.launch.run_cases``):
   distributed step;
 * on (2, 2), a doubly periodic rectilinear float64 run under the
   'per_substep' policy (`tests/test_distributed.py:81`'s contract):
-  within rtol 1e-7, atol 1e-9 of the serial run.
+  within rtol 1e-7, atol 1e-9 of the serial run;
+* the wide-halo step without the tripolar fixed-tile mode, at the sizes of
+  the JAX package's tests, soft ice, ``NSUB`` substeps: on (2, 2) the 48²
+  doubly periodic case of `tests/test_distributed.py:211` (kernel 2.3 on
+  every shard), bitwise the port's serial step through the padded route and
+  within that test's bars of the JAX package's serial step; on (2, 2) and
+  (1, 4) the 48×128 ``fixed_tiles`` case of `:291` with WENO-7 (2.4, 2.5),
+  bitwise the port's serial step; on (1, 2) and (2, 2) the x-meshed-fold
+  case without ``fixed_tiles`` (2.7's unpinned plan), bitwise the serial
+  step whose momentum runs the same plan, and within ``BARS`` of the
+  default serial step (the whole-array kernel 2.6).
 
 In this process: the strip/unstrip round trip against the JAX package's,
-the refusals of what this slice does not port, and the plain versions of
-kernels 2.7 and 2.9 on one shard's padded arrays against the JAX kernels in
-interpret mode inside ``shard_map``."""
+the shards' routes and the refusals, and the plain versions of kernels 2.3,
+2.4, 2.5, 2.7 (both plans) and 2.9 on one shard's padded arrays against the
+JAX kernels in interpret mode inside ``shard_map``."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -36,10 +47,13 @@ import torch
 import climaseaice_jl_tpu_torch as cst
 from climaseaice_jl_tpu_torch import distributed_basin as db
 from climaseaice_jl_tpu_torch.convert import state_from_numpy, state_to_numpy
+from climaseaice_jl_tpu_torch import model as tmodel
 from climaseaice_jl_tpu_torch.grids import with_halo
 from climaseaice_jl_tpu_torch.model import meshed_momentum_route
 from climaseaice_jl_tpu_torch.parallel import launch, make_distributed_step
 from climaseaice_jl_tpu_torch.parallel import stepper as tstep
+from climaseaice_jl_tpu_torch.dynamics import fused_evp_padded as tpad
+from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_padded as ttp
 from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ttc
 from climaseaice_jl_tpu_torch.dynamics import fixed_tile_advection as tadv
 
@@ -128,10 +142,85 @@ def _rectilinear(halo_exchange="per_substep"):
     return model, cst.initial_state(model, h=h0, a=1.0, u=0.1)
 
 
-def _serial(model, state, steps, dt):
-    for _ in range(steps):
-        state = cst.step(model, state, dt)
+def _rect_case(m, fixed_tiles=None, P_star=27.5, topology=("periodic", "periodic"), halo=5,
+               **device):
+    """`tests/test_distributed.py:211`'s doubly periodic float32 case (48²,
+    WENO-5) or, with ``fixed_tiles``, `:291`'s (48×128, WENO-7), both under
+    the wide halo policy with ``NSUB`` substeps; the JAX package's or the
+    port's by its module ``m``."""
+    km = 1000.0
+    Ny, ly = (48, 10 * km) if fixed_tiles is None else (128, 20 * km)
+    grid = m.RectilinearGrid(size=(48, Ny), x=(-10 * km, 10 * km), y=(-ly, ly), halo=halo,
+                             dtype="float32", topology=topology, **device)
+    dynamics = m.SeaIceMomentumEquation(
+        rheology=m.ElastoViscoPlasticRheology(ice_compressive_strength=P_star),
+        coriolis=m.FPlane(f=1e-4), top_momentum_stress={"u": 0.01, "v": 0.01},
+        bottom_momentum_stress=m.SemiImplicitStress(),
+        solver=m.SplitExplicitSolver(substeps=NSUB, halo_exchange="wide", fused="always",
+                                     fixed_tiles=fixed_tiles))
+    return m.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
+                           advection=m.WENO(order=5 if fixed_tiles is None else 7),
+                           timestepper="ForwardEuler")
+
+
+def _rect_h0(fixed_tiles=None):
+    km = 1000.0
+    ly = 10 * km if fixed_tiles is None else 20 * km
+
+    def h0(x, y):
+        return 0.3 + 0.005 * (np.sin(60 * x / (20 * km)) + np.sin(30 * y / (2 * ly)))
+
+    return h0
+
+
+RECT_STEPS = 3
+
+
+@contextlib.contextmanager
+def _momentum_through(step_fn):
+    """The port's serial step with its momentum routed through ``step_fn``
+    (a launcher taking ``(model, state, dt, u_start, v_start)``)."""
+    def momentum(model, state, dt, u_prev=None, v_prev=None):
+        u0 = state.u if u_prev is None else u_prev
+        v0 = state.v if v_prev is None else v_prev
+        return state.evolve(**step_fn(model, state, dt, u0, v0))
+
+    original = tmodel.momentum_step
+    tmodel.momentum_step = momentum
+    try:
+        yield
+    finally:
+        tmodel.momentum_step = original
+
+
+def _serial(model, state, steps, dt, momentum=None):
+    with _momentum_through(momentum) if momentum else contextlib.nullcontext():
+        for _ in range(steps):
+            state = cst.step(model, state, dt)
     return {k: v for k, v in state_to_numpy(tstep.strip_halos(model, state)).items()}
+
+
+@pytest.fixture(scope="module")
+def rect():
+    """Paths A (no ``fixed_tiles``) and B (``FIXED``) at test size: the port's
+    model and state of each, the JAX package's model and state, and A's JAX
+    serial result after ``RECT_STEPS`` steps (interior-only)."""
+    import climaseaice_jl_tpu as csi
+    from climaseaice_jl_tpu.parallel.stepper import strip_halos as jax_strip
+    out = {}
+    for path, fixed in (("A", None), ("B", FIXED)):
+        with _x32():
+            mj = _rect_case(csi, fixed)
+            sj = csi.initial_state(mj, h=_rect_h0(fixed), a=1.0, u=0.05)
+            if path == "A":
+                ser = sj
+                for _ in range(RECT_STEPS):
+                    ser = csi.step(mj, ser, DT)
+                out["A_jax_serial"] = {n: np.asarray(getattr(jax_strip(mj, ser), n))
+                                       for n in ("u", "v", "h", "a")}
+        mt = _rect_case(cst, fixed, device="cpu")
+        out[path] = (mj, sj, mt, state_from_numpy(mt, state_to_numpy(sj)))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -156,11 +245,12 @@ _RUNS = {}
 
 
 @pytest.fixture(scope="module")
-def runs(case, drag_case):
+def runs(case, drag_case, rect):
     """One spawn per number of ranks, run on first use: on (1, 2) and
     (2, 2) the x-meshed-fold case and the basin; on two ranks also the
     72×48 case with and without its drag on (2, 1); on four the
-    rectilinear 'per_substep' run."""
+    rectilinear 'per_substep' run, paths A and B (B on (1, 4) too); last,
+    on each, the x-meshed-fold case without ``fixed_tiles``."""
     _, _, mt, st, _, _ = case
 
     def run(mesh):
@@ -177,6 +267,11 @@ def runs(case, drag_case):
                 mr, sr = _rectilinear()
                 cases.append(dict(model=mr, state=sr, mesh=mesh, steps=5, dt=60.0,
                                   device="cpu"))
+                cases += [dict(model=rect[p][2], state=rect[p][3], mesh=m, steps=RECT_STEPS,
+                               dt=DT, device="cpu")
+                          for p, m in (("A", (2, 2)), ("B", (2, 2)), ("B", (1, 4)))]
+            cases.append(dict(model=_port_case(fixed_tiles=None), state=st, mesh=mesh,
+                              steps=STEPS, dt=DT, device="cpu"))
             _RUNS[mesh] = launch.run_cases(cases, mesh[0] * mesh[1], timeout=600)
         return _RUNS[mesh]
 
@@ -236,6 +331,75 @@ def test_per_substep_rectilinear_within_contract(runs):
                                    err_msg=name)
 
 
+def test_wide_padded_case_equals_serial_padded_bitwise(rect, runs):
+    """Path A at test size on (2, 2): every shard runs kernel 2.3's meshed
+    branch (no fill along the split directions, whose halo points evolve in
+    place).  The result equals, bit for bit, the port's serial step whose
+    momentum goes through the padded route."""
+    mt, st = rect["A"][2:]
+    serial = _serial(mt, st, RECT_STEPS, DT, tpad.padded_fused_momentum_step)
+    result = runs((2, 2))[3]["fields"]
+    for name, got in result.items():
+        assert np.isfinite(got).all(), name
+        assert np.array_equal(got, serial[name]), (name, np.abs(got - serial[name]).max())
+
+
+def test_wide_padded_case_within_jax_bars(rect, runs):
+    """Path A on (2, 2) against the JAX package's serial step, with
+    `tests/test_distributed.py:238-248`'s bars: u, v within 2e-2 of the
+    velocity scale, h and ℵ within 1e-4 of their largest values."""
+    ref = rect["A_jax_serial"]
+    result = runs((2, 2))[3]["fields"]
+    vel = max(np.abs(ref["u"]).max(), np.abs(ref["v"]).max(), 1e-8)
+    for name, bar in (("u", 2e-2), ("v", 2e-2), ("h", 1e-4), ("a", 1e-4)):
+        scale = vel if name in ("u", "v") else max(np.abs(ref[name]).max(), 1e-8)
+        rel = np.abs(result[name].astype(np.float64) - ref[name]).max() / scale
+        assert rel < bar, (name, rel)
+
+
+@pytest.mark.parametrize("mesh, index", [((2, 2), 4), ((1, 4), 5)], ids=["2x2", "1x4"])
+def test_fixed_tile_rectilinear_case_equals_serial_bitwise(rect, runs, mesh, index):
+    """Path B at test size (`tests/test_distributed.py:291`'s contract):
+    2.4 and 2.5 meshed (the split directions' padded extent carried, ceil
+    tiles, the overhang clamp-gathered), 2.9 and the general column, bit for
+    bit the port's serial fixed-tile step on u, v, h, ℵ, σ and α."""
+    mt, st = rect["B"][2:]
+    serial = _serial(mt, st, RECT_STEPS, DT)
+    result = runs((2, 2))[index]
+    assert tuple(result["records"][-1]["index"]) == (mesh[0] - 1, mesh[1] - 1)
+    for name, got in result["fields"].items():
+        assert np.isfinite(got).all(), name
+        assert np.array_equal(got, serial[name]), (name, np.abs(got - serial[name]).max())
+
+
+@pytest.fixture(scope="module")
+def unpinned_serial(case):
+    """The x-meshed-fold case without ``fixed_tiles``: the serial step whose
+    momentum runs 2.7's unpinned plan, and the default serial step (2.6)."""
+    mt, st = _port_case(fixed_tiles=None), case[3]
+    return (_serial(mt, st, STEPS, DT, ttc.tiled_curvilinear_momentum_step),
+            _serial(mt, st, STEPS, DT))
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_wide_unpinned_case_equals_serial_bitwise(unpinned_serial, runs, mesh):
+    """The x-meshed-fold case without ``fixed_tiles`` and without the drag
+    (2.7's unpinned plan on every shard; the fold split across x on (2, 2),
+    refilled on the top shard on (1, 2)): bit for bit the serial step whose
+    momentum runs the same plan, and within ``BARS`` of the default serial
+    step, whose whole-array kernel 2.6 forms its coefficients otherwise
+    (γ² as c·Δt/(m·Az), where 2.7 has c·Δt·(1/Az)/m)."""
+    serial, default = unpinned_serial
+    result = runs(mesh)[-1]["fields"]
+    for name in COMPARED:
+        got = result[name]
+        assert np.isfinite(got).all(), name
+        assert np.array_equal(got, serial[name]), (name, np.abs(got - serial[name]).max())
+        ref = default[name].astype(np.float64)
+        rel = np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30)
+        assert rel <= BARS[name], (name, rel)
+
+
 # --- in this process ------------------------------------------------------------------------
 
 def test_strip_unstrip_round_trip_matches_jax(case):
@@ -262,31 +426,35 @@ def test_strip_unstrip_round_trip_matches_jax(case):
 
 
 def _refusal_models():
-    rect_fixed = cst.sea_ice_model(
-        cst.RectilinearGrid(size=(64, 256), halo=5, dtype="float32", device="cpu"),
-        dynamics=cst.SeaIceMomentumEquation(solver=cst.SplitExplicitSolver(
-            substeps=4, halo_exchange="wide", fixed_tiles=FIXED)),
-        ice_thermodynamics=None)
     return {
         "overlap": (_port_case(halo_exchange="overlap", fixed_tiles=None), (2, 2), "queue 9"),
-        "wide-unpinned": (_port_case(fixed_tiles=None), (1, 2), "queue 9"),
-        "rectilinear-fixed": (rect_fixed, (2, 2), "queue 9"),
         "xfold-narrow-halo": (_port_case(), (2, 1), "north fold split across the x mesh"),
     }
 
 
-@pytest.mark.parametrize("name", ["overlap", "wide-unpinned", "rectilinear-fixed",
-                                  "xfold-narrow-halo"])
+@pytest.mark.parametrize("name", ["overlap", "xfold-narrow-halo"])
 def test_refusals_before_any_exchange(name):
-    """What this slice does not port raises NotImplementedError in
+    """What the port does not run raises NotImplementedError in
     make_distributed_step, before it needs a process group: the 'overlap'
-    policy, the wide-halo EVP without fixed_tiles (2.7's unpinned plan),
-    fixed_tiles on a sharded rectilinear grid (2.4/2.5 meshed), and a fold
-    split across x whose y halo is below 2·substeps+3 (the JAX package's
-    message)."""
+    policy, and a fold split across x whose y halo is below 2·substeps+3
+    (the JAX package's message)."""
     model, mesh, match = _refusal_models()[name]
     with pytest.raises(NotImplementedError, match=match):
         make_distributed_step(model, mesh)
+
+
+def test_shards_whose_routes_differ_raise(monkeypatch):
+    """make_distributed_step finds every shard's momentum route before any
+    rank communicates, and raises where they differ (here a route made to
+    depend on the shard's position)."""
+    model = _rect_case(cst, device="cpu")
+
+    def route(m):
+        return "padded" if float(m.grid.xc[m.grid.Hx]) < 0 else "general"
+
+    monkeypatch.setattr(tstep, "meshed_momentum_route", route)
+    with pytest.raises(ValueError, match="different momentum routes"):
+        make_distributed_step(model, (2, 2))
 
 
 def test_default_device_is_a_card_or_raises(monkeypatch):
@@ -302,102 +470,285 @@ def test_default_device_is_a_card_or_raises(monkeypatch):
     assert multihost.default_device() == torch.device("cuda", 1)
 
 
-def test_shard_route_is_the_meshed_pinned_kernel():
-    """A shard of the case under 'wide' takes kernel 2.7's route; under
-    'per_substep' the general path with exchanging fills."""
-    for policy, route in (("wide", "tiled_curvilinear"), ("per_substep", "general")):
-        model = _port_case(halo_exchange=policy)
-        grid = model.grid
-        if policy == "wide":
-            grid = with_halo(grid, (2 * NSUB + 3,) * 2)
-        probe = tstep._local_grid(grid, 24, 48, 1, 1, ("x", "y"), (2, 2))
-        assert meshed_momentum_route(model.evolve(grid=probe)) == route
+ROUTES = {
+    # name: (model, mesh, the shard's momentum route)
+    "A": (lambda: _rect_case(cst, device="cpu"), (2, 2), "padded"),
+    "B": (lambda: _rect_case(cst, FIXED, device="cpu"), (2, 2), "tiled_padded"),
+    "B-1x4": (lambda: _rect_case(cst, FIXED, device="cpu"), (1, 4), "tiled_padded"),
+    "C": (lambda: _port_case(fixed_tiles=None), (2, 2), "tiled_curvilinear"),
+    "tripolar-fixed": (_port_case, (2, 2), "tiled_curvilinear"),
+    "per_substep": (lambda: _port_case(halo_exchange="per_substep"), (2, 2), "general"),
+    "split-bounded": (lambda: _rect_case(cst, topology=("periodic", "bounded"), device="cpu"),
+                      (1, 2), "general"),
+}
 
 
-# --- kernels 2.7 and 2.9 on one shard against the JAX kernels ------------------------------------
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_shard_route(name):
+    """Every shard's momentum route under the wide halo policy, as the JAX
+    package dispatches it (`model.py:401-445`): path A to 2.3 meshed, path B
+    to 2.4 and 2.5 meshed, the tripolar case to 2.7 (its unpinned plan
+    without ``fixed_tiles``, its pinned plan with them); the general path
+    under 'per_substep', and where a bounded direction is split (2.3's
+    meshed gate, `pallas_evp_padded.py:66-74`)."""
+    build, mesh, route = ROUTES[name]
+    model = build()
+    grid = model.grid
+    solver = model.dynamics.solver
+    axes = ("x" if mesh[0] > 1 else None, "y" if mesh[1] > 1 else None)
+    if solver.halo_exchange == "wide":
+        H = 2 * solver.substeps + 3
+        grid = with_halo(grid, (H if axes[0] else grid.Hx, H if axes[1] else grid.Hy))
+    nx, ny = grid.Nx // mesh[0], grid.Ny // mesh[1]
+    for ix in range(mesh[0]):
+        for iy in range(mesh[1]):
+            probe = tstep._local_grid(grid, nx, ny, ix, iy, axes, mesh)
+            assert meshed_momentum_route(model.evolve(grid=probe)) == route, (ix, iy)
 
-def _jax_shard_kernels(mj, sj, mesh_shape):
-    """Inside the JAX package's shard_map: per shard the inputs of 2.7 and
-    its outputs, the inputs and output of 2.9 on h, each stacked and laid
-    out as the mesh lays out its shards."""
+
+# --- kernels 2.3, 2.4, 2.5, 2.7 and 2.9 on one shard against the JAX kernels ----------------------
+
+OUT6 = ("u", "v", "sig11", "sig22", "sig12", "alpha")
+
+
+def _on_jax_shards(mj, sj, local, n):
+    """Inside the JAX package's shard_map on a (2, 2) mesh with wide halos
+    (2·NSUB+3): ``local(lmodel, lstate, lmasks)``'s parameter vector and
+    ``n`` lists of 2-D arrays on each shard, each list stacked and laid out
+    as the mesh lays out its shards; and the padded shard shape."""
     import jax
     import jax.numpy as jnp
     from jax import lax
     from jax.sharding import PartitionSpec as P
     from climaseaice_jl_tpu.grids import with_halo as jax_with_halo
     from climaseaice_jl_tpu.parallel import stepper as js
-    from climaseaice_jl_tpu.dynamics import pallas_evp_tiled_curvilinear as jtc
-    from climaseaice_jl_tpu.dynamics.pallas_advection import make_fixed_tile_div
 
-    Px, Py = mesh_shape
+    mesh_shape = (2, 2)
     H = 2 * NSUB + 3
     grid = jax_with_halo(mj.grid, (H, H))
     model = mj.evolve(grid=grid)
-    nx, ny = grid.Nx // Px, grid.Ny // Py
+    nx, ny = grid.Nx // 2, grid.Ny // 2
     state_int = js.strip_halos(mj, sj)
-    solid_int = np.asarray(grid.interior(grid.solid_cc))
+    immersed = grid.solid_cc is not None
+    solid_int = (np.asarray(grid.interior(grid.solid_cc)) if immersed
+                 else np.zeros(grid.interior_shape, bool))
 
-    def local(state_int, solid_int):
+    def shard(state_int, solid_int):
         ix, iy = lax.axis_index("x"), lax.axis_index("y")
         lgrid = js._local_grid(grid, nx, ny, ix, iy, ("x", "y"), mesh_shape)
-        lmasks = js._local_masks(lgrid, solid_int, ix, iy, True)
+        lmasks = js._local_masks(lgrid, solid_int, ix, iy, immersed)
         lgrid = lgrid.evolve(solid_cc=lmasks.solid_cc)
         lmodel = model.evolve(grid=lgrid, masks=lmasks)
         ls = js._pad_state(state_int, lgrid, masks=lmasks)
-        params, planes, carry, _, _ = jtc._prepare_tiled_inputs(lmodel, ls, DT, ls.u, ls.v)
-        upd = jtc.tiled_curvilinear_momentum_step(lmodel, ls, DT, ls.u, ls.v, interpret=True)
-        out = [upd[n] for n in ("u", "v", "sig11", "sig22", "sig12", "alpha")]
-        div = make_fixed_tile_div(lmodel, ls.u, ls.v)(ls.h)
-        adv = [ls.u, ls.v, ls.h, lmasks.per_fc.astype(jnp.float32),
-               lmasks.per_cf.astype(jnp.float32), div]
-        return params, jnp.stack(planes), jnp.stack(carry), jnp.stack(out), jnp.stack(adv)
+        params, lists = local(lmodel, ls, lmasks)
+        return (params,) + tuple(jnp.stack(q) for q in lists)
 
     spec = jax.tree_util.tree_map(
         lambda l: P("x", "y") if getattr(l, "ndim", 0) == 2 else P(), state_int)
-    f = js.shard_map(local, js.make_mesh(mesh_shape), in_specs=(spec, P("x", "y")),
-                     out_specs=(P(), P(None, "x", "y"), P(None, "x", "y"), P(None, "x", "y"),
-                                P(None, "x", "y")))
+    f = js.shard_map(shard, js.make_mesh(mesh_shape), in_specs=(spec, P("x", "y")),
+                     out_specs=(P(),) + (P(None, "x", "y"),) * n)
     return [np.array(x) for x in jax.jit(f)(state_int, solid_int)], (nx + 2 * H, ny + 2 * H)
+
+
+def _jax_shard_kernels(mj, sj):
+    """Per shard of the tripolar case the inputs of 2.7 and its outputs,
+    and the inputs and output of 2.9 on h."""
+    import jax.numpy as jnp
+    from climaseaice_jl_tpu.dynamics import pallas_evp_tiled_curvilinear as jtc
+    from climaseaice_jl_tpu.dynamics.pallas_advection import make_fixed_tile_div
+
+    def local(lmodel, ls, lmasks):
+        params, planes, carry, _, _ = jtc._prepare_tiled_inputs(lmodel, ls, DT, ls.u, ls.v)
+        upd = jtc.tiled_curvilinear_momentum_step(lmodel, ls, DT, ls.u, ls.v, interpret=True)
+        out = [upd[n] for n in OUT6]
+        if lmodel.dynamics.solver.fixed_tiles is None:
+            return params, (planes, carry, out)
+        div = make_fixed_tile_div(lmodel, ls.u, ls.v)(ls.h)
+        adv = [ls.u, ls.v, ls.h, lmasks.per_fc.astype(jnp.float32),
+               lmasks.per_cf.astype(jnp.float32), div]
+        return params, (planes, carry, out, adv)
+
+    return _on_jax_shards(mj, sj, local, 3 if mj.dynamics.solver.fixed_tiles is None else 4)
+
+
+def _seeded(mj, sj, seed=21):
+    """The JAX state ``sj``'s thickness with seeded velocities."""
+    import climaseaice_jl_tpu as csi
+    g = mj.grid
+    rng = np.random.default_rng(seed)
+    u, v = (0.05 * rng.standard_normal(g.interior_shape).astype(np.float32) for _ in range(2))
+    return csi.initial_state(mj, h=np.asarray(g.interior(sj.h)), a=1.0, u=u, v=v)
+
+
+def _shard_cut(stack, shard, shape):
+    (ix, iy), (nxp, nyp) = shard, shape
+    return stack[:, ix * nxp:(ix + 1) * nxp, iy * nyp:(iy + 1) * nyp]
+
+
+def _port_shard_grid(model, shard):
+    """The port's grid of ``shard`` of a (2, 2) mesh with wide halos."""
+    H = 2 * NSUB + 3
+    g = with_halo(model.grid, (H, H))
+    return tstep._local_grid(g, g.Nx // 2, g.Ny // 2, *shard, ("x", "y"), (2, 2),
+                             tstep.ProcessMesh((2, 2), shard, "cpu", transport=False))
+
+
+def _assert_interiors_within_bars(grid, ref, res):
+    for name, r, o in zip(OUT6, ref, res):
+        a, b = grid.interior(torch.as_tensor(r)).double(), grid.interior(o).double()
+        assert torch.isfinite(b).all(), name
+        rel = ((b - a).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+        assert rel <= BARS[name], (name, rel)
+
+
+@pytest.fixture(scope="module")
+def rect_shard_kernels(rect):
+    """Paths A and B's JAX shard kernels in interpret mode, seeded
+    velocities: per shard the padded route's parameters, constants (on B
+    2.4's coefficients among them), carries, the route's outputs (2.3 on A,
+    2.5 on B), and h, ℵ and the peripheral masks."""
+    import jax.numpy as jnp
+    from climaseaice_jl_tpu.dynamics import pallas_evp_padded as jpad
+    from climaseaice_jl_tpu.dynamics import pallas_evp_tiled_padded as jtp
+    out = {}
+    for path, step in (("A", jpad.padded_fused_momentum_step),
+                       ("B", jtp.tiled_padded_momentum_step)):
+        def local(lmodel, ls, lmasks):
+            params, consts, carry, _, _ = jpad._prepare_inputs(lmodel, ls, DT, ls.u, ls.v)
+            upd = step(lmodel, ls, DT, ls.u, ls.v, interpret=True)
+            masks = [lmasks.per_fc.astype(jnp.float32), lmasks.per_cf.astype(jnp.float32)]
+            return params, (consts, carry, [upd[n] for n in OUT6], [ls.h, ls.a] + masks)
+
+        mj, sj = rect[path][:2]
+        with _x32():
+            out[path] = _on_jax_shards(mj, _seeded(mj, sj), local, 4)
+    return out
+
+
+SHARDS = [(1, 1), (0, 0)]
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_kernel_23_meshed_plain_on_a_shard_matches_jax(rect, rect_shard_kernels, shard):
+    """2.3's plain version on shard ``shard`` of path A's (2, 2) mesh (both
+    directions split: no fills, the halo points evolving in place), fed the
+    JAX shard's inputs, against the JAX kernel in interpret mode: interiors
+    within BARS after NSUB substeps, where filling the split directions as
+    periodic ones moves them further."""
+    mt = rect["A"][2]
+    (params, consts, carry, out, _), shape = rect_shard_kernels["A"]
+    grid = _port_shard_grid(mt, shard)
+    assert tpad.direction_kinds(grid) == (tpad.KIND_SPLIT,) * 2
+    consts, carry = (tuple(torch.as_tensor(q) for q in _shard_cut(x, shard, shape))
+                     for x in (consts, carry))
+    ref = _shard_cut(out, shard, shape)
+    res = tpad.padded_evp_substeps_reference(torch.as_tensor(params), consts, carry, NSUB, grid)
+    _assert_interiors_within_bars(grid, ref, res)
+    filled = tpad.padded_evp_substeps_reference(
+        torch.as_tensor(params), consts, carry, NSUB,
+        dataclasses.replace(grid, mesh_axes=None, mesh_shape=None))
+    a, b = grid.interior(torch.as_tensor(ref[0])), grid.interior(filled[0])
+    assert ((b - a).abs().max() / a.abs().max()).item() > BARS["u"]
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_kernel_24_meshed_plain_on_a_shard_matches_jax(rect, rect_shard_kernels, shard):
+    """2.4's plain version on shard ``shard`` of path B's (2, 2) mesh (the
+    images clamp at the padded edge along the split directions, where the
+    serial grid wraps them), on the JAX shard's h and ℵ, against
+    `_fixed_tile_prepare` in interpret mode at every padded point: the
+    activity masks equal (the peripheral ones applied, as the launcher
+    does), the other eight arrays within 4e-4
+    (`test_torch_fixed_tiles.py::test_prep_matches_jax`)."""
+    mt = rect["B"][2]
+    (_, consts, _, _, fields), shape = rect_shard_kernels["B"]
+    grid = _port_shard_grid(mt, shard)
+    consts = _shard_cut(consts, shard, shape)
+    h, a, per_fc, per_cf = (torch.as_tensor(q) for q in _shard_cut(fields, shard, shape))
+    prm = tpad.evp_prep_params(mt, mt.grid.scalar(DT))
+    out = tpad.evp_prep_reference(prm, h, a, grid)
+    names = ("P", "Pff", "gcc", "gff", "drag_u", "invm_u", "act_u", "drag_v", "invm_v", "act_v")
+    for name, k, q in zip(names, (0, 1, 2, 3, 4, 5, 6, 8, 9, 10), out):
+        if name.startswith("act"):
+            per = per_fc if name == "act_u" else per_cf
+            np.testing.assert_array_equal((q * (1 - per)).numpy(), consts[k], err_msg=name)
+        else:
+            np.testing.assert_allclose(q.numpy(), consts[k], rtol=4e-4, atol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_kernel_25_meshed_plain_on_a_shard_matches_jax(rect, rect_shard_kernels, shard):
+    """2.5's plain version on shard ``shard`` of path B's (2, 2) mesh (the
+    split directions' padded extent carried in ceil tiles, the overhang
+    clamp-gathered and dropped, no wall fills), fed the JAX shard's inputs,
+    against the JAX kernel in interpret mode: interiors within BARS after
+    NSUB substeps (one chunk)."""
+    mt = rect["B"][2]
+    (params, consts, carry, out, _), shape = rect_shard_kernels["B"]
+    grid = _port_shard_grid(mt, shard)
+    consts, carry = (tuple(torch.as_tensor(q) for q in _shard_cut(x, shard, shape))
+                     for x in (consts, carry))
+    res = ttp.tiled_padded_evp_substeps_reference(torch.as_tensor(params), consts, carry, NSUB,
+                                                  grid, FIXED)
+    _assert_interiors_within_bars(grid, _shard_cut(out, shard, shape), res)
+
+
+@pytest.fixture(scope="module")
+def unpinned_shard_kernels(case):
+    """The JAX shard kernel 2.7 of the tripolar case without
+    ``fixed_tiles`` (its unpinned plan, from the JAX package's planner),
+    seeded velocities: per shard its inputs and outputs."""
+    sj = case[1]
+    with _x32():
+        mj, _ = _jax_case(fixed_tiles=None)
+        return _jax_shard_kernels(mj, _seeded(mj, sj))
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_kernel_27_unpinned_plain_on_a_shard_matches_jax(unpinned_shard_kernels, shard):
+    """2.7's plain version under the port's unpinned plan on shard
+    ``shard`` of (2, 2) (the fold split across x, no refill), fed the JAX
+    shard's inputs, against the JAX kernel under its own unpinned plan in
+    interpret mode: interiors within BARS after NSUB substeps.  Without the
+    immersed drag the function does not depend on the chunk length, which
+    the two plans choose apart."""
+    (params, planes, carry, out), shape = unpinned_shard_kernels
+    grid = _port_shard_grid(_port_case(fixed_tiles=None), shard)
+    plan = ttc._unpinned_plan(grid, NSUB)
+    assert ttc._geometry(grid).refill is False
+    res = ttc.tiled_curvilinear_evp_substeps_reference(
+        torch.as_tensor(params), tuple(torch.as_tensor(q) for q in _shard_cut(planes, shard, shape)),
+        tuple(torch.as_tensor(q) for q in _shard_cut(carry, shard, shape)), NSUB, grid, plan,
+        (True, False))
+    _assert_interiors_within_bars(grid, _shard_cut(out, shard, shape), res)
 
 
 @pytest.fixture(scope="module")
 def shard_kernels(case):
     """The JAX shard kernels on the case's thickness with seeded velocities."""
-    import climaseaice_jl_tpu as csi
     mj, sj = case[:2]
-    g = mj.grid
-    rng = np.random.default_rng(21)
-    u, v = (0.05 * rng.standard_normal(SIZE).astype(np.float32) for _ in range(2))
     with _x32():
-        sj = csi.initial_state(mj, h=np.asarray(g.interior(sj.h)), a=1.0, u=u, v=v)
-        return _jax_shard_kernels(mj, sj, (2, 2))
+        return _jax_shard_kernels(mj, _seeded(mj, sj))
 
 
-@pytest.mark.parametrize("shard", [(1, 1), (0, 0)])
+@pytest.mark.parametrize("shard", SHARDS)
 def test_kernel_27_plain_on_a_shard_matches_jax(case, shard_kernels, shard):
     """2.7's plain version on shard ``shard`` of (2, 2) (no wrap along the
     split directions, gated walls, no refill of the fold split across x),
     fed the JAX shard's inputs, against the JAX kernel in interpret mode:
     interiors within BARS after 8 substeps."""
-    mt = case[2]
-    (params, planes, carry, out, _), (nxp, nyp) = shard_kernels
-    ix, iy = shard
-    cut = (slice(None), slice(ix * nxp, (ix + 1) * nxp), slice(iy * nyp, (iy + 1) * nyp))
-    H = 2 * NSUB + 3
-    grid = tstep._local_grid(with_halo(mt.grid, (H, H)), 24, 48, ix, iy, ("x", "y"), (2, 2),
-                             tstep.ProcessMesh((2, 2), shard, "cpu", transport=False))
+    (params, planes, carry, out, _), shape = shard_kernels
+    grid = _port_shard_grid(case[2], shard)
     plan = ttc._fixed_plan(grid, NSUB, FIXED)
     assert ttc._geometry(grid).refill is False
     res = ttc.tiled_curvilinear_evp_substeps_reference(
-        torch.as_tensor(params), tuple(torch.as_tensor(q) for q in planes[cut]),
-        tuple(torch.as_tensor(q) for q in carry[cut]), NSUB, grid, plan, (True, False))
-    for name, r, o in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), out[cut], res):
-        a, b = grid.interior(torch.as_tensor(r)).double(), grid.interior(o).double()
-        rel = ((b - a).abs().max() / a.abs().max().clamp_min(1e-30)).item()
-        assert rel <= BARS[name], (name, rel)
+        torch.as_tensor(params), tuple(torch.as_tensor(q) for q in _shard_cut(planes, shard, shape)),
+        tuple(torch.as_tensor(q) for q in _shard_cut(carry, shard, shape)), NSUB, grid, plan,
+        (True, False))
+    _assert_interiors_within_bars(grid, _shard_cut(out, shard, shape), res)
 
 
-@pytest.mark.parametrize("shard", [(1, 1), (0, 0)])
+@pytest.mark.parametrize("shard", SHARDS)
 def test_kernel_29_plain_on_a_shard_matches_jax(case, shard_kernels, shard):
     """2.9's plain version on shard ``shard`` of (2, 2), seeded velocities,
     against the JAX kernel in interpret mode over the whole padded arrays:
@@ -604,3 +955,65 @@ def test_cuda_meshed_kernels_match_plain(cuda_device):
                     for n in ("dy_fc", "dx_cf", "az_cc"))
     args = (lg, (m.advection, m.advection), cut(s.u), cut(s.v), cut(s.h), masks, metrics)
     assert torch.equal(tadv.fixed_tile_div(*args), tadv.fixed_tile_div_reference(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_wide_halo_kernels_match_plain(cuda_device):
+    """On the card, on shard (1, 1) of (2, 2) meshes with halos 2·NSUB+3,
+    seeded velocities: 2.3 meshed (path A's case) and 2.5 meshed (path B's)
+    equal their plain versions bitwise over the interiors, 2.4 meshed over
+    the padded arrays; 2.7's unpinned plan (the tripolar basin without
+    ``fixed_tiles``) over the interiors, with 1 + 3·NSUB launches a call
+    (the fold split across x is not refilled)."""
+    H, shard = 2 * NSUB + 3, (1, 1)
+    rng = np.random.default_rng(4)
+    for fixed in (None, FIXED):
+        m = _rect_case(cst, fixed, halo=H, device=cuda_device)
+        g = m.grid
+        u, v = (torch.as_tensor(0.05 * rng.standard_normal(g.interior_shape),
+                                dtype=torch.float32, device=cuda_device) for _ in range(2))
+        h = torch.as_tensor(0.3 + 0.01 * rng.random(g.interior_shape), dtype=torch.float32,
+                            device=cuda_device)
+        s = cst.initial_state(m, h=h, a=1.0, u=u, v=v)
+        nx, ny = g.Nx // 2, g.Ny // 2
+        lg = tstep._local_grid(g, nx, ny, *shard, ("x", "y"), (2, 2),
+                               tstep.ProcessMesh((2, 2), shard, cuda_device, transport=False))
+
+        def cut(q):
+            return q[nx:nx + nx + 2 * H, ny:ny + ny + 2 * H].contiguous()
+
+        params, consts, carry, _ = tpad.padded_evp_inputs(m, s, DT, s.u, s.v)
+        consts, carry = tuple(cut(q) for q in consts), tuple(cut(q) for q in carry)
+        if fixed is None:
+            out = tpad.padded_evp_substeps(params, consts, [q.clone() for q in carry], NSUB, lg)
+            ref = tpad.padded_evp_substeps_reference(params, consts, carry, NSUB, lg)
+        else:
+            prm = tpad.evp_prep_params(m, g.scalar(DT))
+            h, a = cut(s.h), cut(s.a)
+            assert all(torch.equal(o, r) for o, r in zip(tpad.evp_prep(prm, h, a, lg),
+                                                         tpad.evp_prep_reference(prm, h, a, lg)))
+            out = ttp.tiled_padded_evp_substeps(params, consts, [q.clone() for q in carry],
+                                                NSUB, lg, fixed)
+            ref = ttp.tiled_padded_evp_substeps_reference(params, consts, carry, NSUB, lg,
+                                                          fixed)
+        for o, r in zip(out, ref):
+            assert torch.equal(lg.interior(o), lg.interior(r))
+    m, s = db.build(48, 96, substeps=NSUB, halo=H, device=cuda_device)
+    g = m.grid
+    lg = tstep._local_grid(g, 24, 48, *shard, ("x", "y"), (2, 2),
+                           tstep.ProcessMesh((2, 2), shard, cuda_device, transport=False))
+
+    def cut(q):
+        return q[24:24 + 24 + 2 * H, 48:48 + 48 + 2 * H].contiguous()
+
+    params, planes, carry, _, flags = ttc.tiled_curvilinear_inputs(m, s, DT, s.u, s.v)
+    planes, carry = tuple(cut(q) for q in planes), tuple(cut(q) for q in carry)
+    plan = ttc._unpinned_plan(lg, NSUB)
+    ttc.tiled_curvilinear_evp_counter.reset()
+    out = ttc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry], NSUB,
+                                             lg, plan, flags)
+    assert ttc.tiled_curvilinear_evp_counter.launches == 1 + 3 * NSUB
+    ref = ttc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, NSUB, lg, plan,
+                                                       flags)
+    for o, r in zip(out, ref):
+        assert torch.equal(lg.interior(o), lg.interior(r))

@@ -23,7 +23,7 @@ Phases, each of which raises (exit code 1) when it fails:
    at 512² (262,144 points) goes through ``csrc/evp.cu`` (2.1) only, one at
    768² (589,824 points, above the 571,099 points where the JAX package
    switches) through ``csrc/evp_tiled.cu`` (2.2) only, and one at 4096²
-   through 2.2, finite;
+   through 2.2, finite, each kernel with its launches per call;
 5. the same port on the card and on the CPU (the plain version), 128² soft
    ice, 2 RK3 steps; bars as in phase 2 and 1e-5 for h/ℵ;
 6. the padded EVP kernel vs its plain version on the card: the bounded and
@@ -50,8 +50,10 @@ Phases, each of which raises (exit code 1) when it fails:
     tripolar Arctic basin of ``validation/run_tripolar_basin.py:build(1152,
     960)`` (1162×970 padded, Zipper fold, land, ImmersedDrag, f(φ) planes)
     in soft ice with seeded velocities, 120 substeps, over the whole padded
-    arrays; bars as in phase 2; times per call of both; then the same check
-    on a 360×160 latitude-longitude grid (no fold, no land, no drag, FPlane);
+    arrays: bitwise and within phase 2's bars, the kernel's settled-block
+    flags equal to their plain version's, the settled share printed; times
+    per call of both; then the same check on a 360×160 latitude-longitude
+    grid (no fold, no land, no drag, FPlane; no settled block);
 11. the slice's main path: the basin at the default P★ (snow,
     FieldTimeSeries fluxes, LatitudeCoriolis, StressFunction winds), dt 300
     s: one warm-up step, five timed ``cst.step`` calls and two iterations of
@@ -94,9 +96,10 @@ Phases, each of which raises (exit code 1) when it fails:
     curvilinear EVP loop on the 1162×1018 widened arrays (phase 2's bars
     over the interiors; with chunks of 4 and 2 substeps, and against the
     whole-array curvilinear kernel fed the same coefficients, bitwise or
-    within 1e-5, timed in turns with it); the ice strength on the
-    widened h, ℵ (within 2 ulp); both wind components (within 2 ulp); the
-    snow column physics with the solar FluxFunction (within 1e-5);
+    within 1e-5, timed in turns with it, with its share of settled
+    blocks); the ice strength on the widened h, ℵ (within 2 ulp); both
+    wind components (within 2 ulp); the snow column physics with the solar
+    FluxFunction (within 1e-5);
 18. the slice's main path: that basin at the default P★, dt 600 s, one
     warm-up step, five timed ``cst.step`` calls and two iterations of
     ``Simulation.run``; every field finite, halos included, h, hs ≥ 0,
@@ -113,15 +116,16 @@ Phases, each of which raises (exit code 1) when it fails:
     bars as in phase 12;
 21. the tiled EVP kernel (2.2) vs its plain version on the card: the
     flagship at 2048² in soft ice with seeded velocities, 120 substeps;
-    bitwise, or within phase 2's bars, with the largest ulp difference
-    printed; times per call of both and the bound; then 2.1 on the same
-    grid timed in turns with 2.2, each fed its own inputs, and how far the
-    two functions' results lie apart (a record, not a bar);
+    bitwise (0 ulp, a gate) and within phase 2's bars; its registers,
+    spill, shared memory and blocks per SM; times per call of both and the
+    bound; then 2.1 on the same grid timed in turns with 2.2, each fed its
+    own inputs (the run fails unless 2.2 is faster than 2.1), and how far
+    the two functions' results lie apart (a record, not a bar);
 22. the slice's main path: ``bench.py:build(2048, 120)`` at the default P★,
     one warm-up step, five timed ``cst.step`` calls and two iterations of
     ``Simulation.run``; finite and physical; per step 3 calls of 2.2 (one
-    coefficient launch and one per chunk each) and none of 2.1 or the other
-    EVP kernels; one profiled step's device-busy share;
+    launch per chunk of the route plan's K substeps) and none of 2.1 or the
+    other EVP kernels; one profiled step's device-busy share;
 23. the same port on the card and on the CPU, 768² soft ice (through 2.2
     and its plain version), 12 substeps, 2 RK3 steps; bars as in phase 5;
 24. kernels 2.7 and 2.9 on one shard of the distributed step: shard (1, 1)
@@ -184,14 +188,17 @@ Phases, each of which raises (exit code 1) when it fails:
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Without a CUDA device it exits with code 2 and prints no result.
+Without a CUDA device it exits with code 2 and prints no result.  Before it
+exits, whatever the outcome, it stops and reaps every process it started.
 """
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -219,10 +226,11 @@ FLOPS_PER_POINT_CALL = 2
 EVP_ARRAYS_READ = 18     # 12 constants + 6 carried fields
 EVP_ARRAYS_WRITTEN = 6
 EVP_PARAMS = 18
-# csrc/evp_tiled.cu computes evp.cu's substep function and derives its
-# coefficients once per call, per point: the four face averages 8, m_ff 4,
-# Pff 4, gcc and gff 2, the two 1/m 2, the two drags 2, ½P and ½Pff 2; it
-# reads m, ℵ, P, uⁿ, vⁿ and the 6 carried fields and writes those 6
+# csrc/evp_tiled.cu computes evp.cu's substep function; its function derives
+# the coefficients once per call, per point (the kernel derives them again
+# at each use, which the bound does not count): the four face averages 8,
+# m_ff 4, Pff 4, gcc and gff 2, the two 1/m 2, the two drags 2, ½P and ½Pff
+# 2; it reads m, ℵ, P, uⁿ, vⁿ and the 6 carried fields and writes those 6
 TILED_FLOPS_PER_POINT_CALL = 24
 TILED_ARRAYS_READ = 11
 # csrc/evp_padded.cu with immersed drag: σ relaxation 72, masked σ 3, each
@@ -618,12 +626,17 @@ def latlon_model(cst, Nx, Ny, substeps, device="cuda"):
 
 def compare_curvilinear(params, consts, carry, nsub, grid, f_planes, card, timed=True):
     """The curvilinear kernel against its plain version on the same card
-    tensors over the whole padded arrays (bars of phase 2); with ``timed``,
-    the CUDA-event times per call of both and the call's bounds."""
+    tensors over the whole padded arrays: bitwise (the kernel without the
+    settled-block skip was bitwise on both of phase 10's inputs), and within
+    phase 2's bars; its settled flags equal their plain version's; with
+    ``timed``, the CUDA-event times per call of both and the call's
+    bounds."""
     import torch
     from climaseaice_jl_tpu_torch.dynamics import fused_evp_curvilinear as fc
+    flags = fc.settled_blocks_reference(consts, grid)
+    settled = torch.full((flags.numel(),), -1, dtype=torch.int32, device=flags.device)
     out = fc.curvilinear_evp_substeps(params, consts, [q.clone() for q in carry], nsub, grid,
-                                      f_planes)
+                                      f_planes, settled=settled)
     ref = fc.curvilinear_evp_substeps_reference(params, consts, carry, nsub, grid, f_planes)
     torch.cuda.synchronize()
     worst_rel = worst_abs = 0.0
@@ -634,6 +647,17 @@ def compare_curvilinear(params, consts, carry, nsub, grid, f_planes, card, timed
         rel, abs_err = rel_diff(r, o)
         check(name, rel, bar)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    bitwise = all(torch.equal(r, o) for r, o in zip(ref, out))
+    ulps = max(max_ulp(r, o) for r, o in zip(ref, out))
+    same_flags = torch.equal(settled.view(flags.shape) != 0, flags)
+    print(f"    bitwise: {bitwise}; largest difference {ulps} ulp; settled blocks "
+          f"{flags.float().mean().item():.4f} ({int(flags.sum())} of {flags.numel()}), the "
+          f"kernel's flags equal their plain version's: {same_flags}")
+    if not bitwise or ulps:
+        raise AssertionError(f"the curvilinear kernel is {ulps} ulp from its plain version")
+    if not same_flags:
+        raise AssertionError("the curvilinear kernel's settled flags differ from the plain "
+                             "version's")
     if not timed:
         return None
     work = [q.clone() for q in carry]
@@ -648,7 +672,8 @@ def compare_curvilinear(params, consts, carry, nsub, grid, f_planes, card, timed
     ops_ms = curv_flops / FP32_FLOP_PER_S * 1e3
     print(f"    kernel {kernel_ms:.4f} ms/call ({3 * nsub + 3} launches), plain "
           f"{plain_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms "
-          f"({curv_flops / 1e9:.2f} GFLOP, {curv_bytes / 1e6:.1f} MB) on {card}")
+          f"({curv_flops / 1e9:.2f} GFLOP, {curv_bytes / 1e6:.1f} MB; the same work whatever "
+          f"the kernel skips) on {card}")
     return worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms
 
 
@@ -814,6 +839,40 @@ def card_name_and_power_limit():
     return out.strip().splitlines()[0]
 
 
+def child_pids():
+    """The processes whose parent is this one, from ``/proc``."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            with contextlib.suppress(OSError, IndexError, ValueError):
+                with open(f"/proc/{entry}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == os.getpid():
+                        pids.append(int(entry))
+    return pids
+
+
+def stop_children():
+    """Stop and reap every process this script started that is still there.
+    Spawning the ranks starts multiprocessing's resource tracker, which
+    otherwise lives until this process ends and is reaped by no one; the
+    semaphores it tracks are released first, so that nothing restarts it at
+    exit.  Any other child is killed."""
+    import multiprocessing
+    from multiprocessing import resource_tracker, util
+    gc.collect()
+    util._run_finalizers(0)
+    for p in multiprocessing.active_children():
+        p.kill()
+        p.join()
+    resource_tracker._resource_tracker._stop()
+    for pid in child_pids():
+        print(f"chip_smoke: stopping child process {pid}", file=sys.stderr)
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="FILE",
@@ -906,6 +965,7 @@ def main(argv=None):
         profiles.append(profile_step(cst, model, state, dt, f"{N}² flagship step", card))
 
     # --- 4. the dispatch boundary between 2.1 and 2.2 ------------------------------------
+    t22_chunk = fused_evp_tiled.chunk_substeps()
     for n, expected in ((512, (3, 0)), (768, (0, 3)), (4096, (0, 3))):
         big = flagship(cst, n, nsub)
         big_state = flagship_state(cst, big)
@@ -915,12 +975,16 @@ def main(argv=None):
         big_state = cst.step(big, big_state, dt)
         torch.cuda.synchronize()
         calls = (counter.calls, tiled_evp_counter.calls)
-        if calls != expected:
-            raise AssertionError(f"{n}² step: {calls[0]} calls of 2.1 and {calls[1]} of 2.2, "
-                                 f"expected {expected[0]} and {expected[1]}")
+        launches = (counter.launches, tiled_evp_counter.launches)
+        expected_launches = (expected[0] * 3 * nsub, expected[1] * -(-nsub // t22_chunk))
+        if calls != expected or launches != expected_launches:
+            raise AssertionError(f"{n}² step: {calls[0]} calls of 2.1 and {calls[1]} of 2.2 "
+                                 f"({launches} launches), expected {expected[0]} and "
+                                 f"{expected[1]} ({expected_launches})")
         check_state(big, big_state)
-        print(f"[4] {n}² step ({n * n} points): {calls[0]} calls of 2.1, {calls[1]} of 2.2, "
-              f"finite and physical, {time.perf_counter() - t0:.2f} s")
+        print(f"[4] {n}² step ({n * n} points): {calls[0]} calls of 2.1, {calls[1]} of 2.2 "
+              f"({launches[0]} and {launches[1]} launches), finite and physical, "
+              f"{time.perf_counter() - t0:.2f} s")
         del big, big_state
 
     # --- 5. card vs CPU -------------------------------------------------------------
@@ -1498,7 +1562,7 @@ def main(argv=None):
     bytes_ms, ops_ms = bounds_ms(
         ((TC_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + ftc.N_PARAMS) * 4,
         (CURV_FLOPS_PER_POINT_SUBSTEP * tsub + TC_FLOPS_PER_POINT_CALL) * points)
-    route_turns = []
+    route_turns, route_times = [], {}
     for name in ("pinned", "whole-array", "pinned", "whole-array"):
         if name == "pinned":
             turn_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps(
@@ -1507,9 +1571,13 @@ def main(argv=None):
             turn_ms = cuda_ms(lambda: fused_evp_curvilinear.curvilinear_evp_substeps(
                 p18, c_consts, work_whole, tsub, wgrid, c_planes), 20)
         route_turns.append(f"{name} {turn_ms:.4f}")
+        route_times.setdefault(name, []).append(turn_ms)
     print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms; in turns with the whole-array kernel, ms per "
-          f"call (20 calls): {', '.join(route_turns)}")
+          f"call (20 calls): {', '.join(route_turns)}; the whole-array kernel (2.6) over the "
+          f"pinned (2.7): at most "
+          f"{max(route_times['whole-array']) / min(route_times['pinned']):.4f}, with "
+          f"{fused_evp_curvilinear.settled_share(c_consts, wgrid):.4f} of its blocks settled")
     tc_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
     tc_shape = (f"{wgrid.nxp}x{wgrid.nyp} widened (1152x960 tripolar basin, land, fold, "
                 f"drag), {tsub} substeps")
@@ -1699,8 +1767,13 @@ def main(argv=None):
         rel, abs_err = rel_diff(r, o)
         check(name, rel, bar)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
-    print(f"    bitwise: {all(torch.equal(r, o) for r, o in zip(ref, out))}; largest "
-          f"difference {max(max_ulp(r, o) for r, o in zip(ref, out))} ulp")
+    t22_bitwise = all(torch.equal(r, o) for r, o in zip(ref, out))
+    t22_ulp = max(max_ulp(r, o) for r, o in zip(ref, out))
+    print(f"    bitwise: {t22_bitwise}; largest difference {t22_ulp} ulp")
+    if not t22_bitwise or t22_ulp:
+        raise AssertionError(f"2.2 is {t22_ulp} ulp from its plain version; it must be bitwise")
+    print(f"    {fused_evp_tiled.chunk_substeps()} substeps a launch, "
+          f"{fused_evp_tiled.describe()}")
     work = [q.clone() for q in carry]
     kernel_ms = cuda_ms(lambda: fused_evp_tiled.tiled_evp_substeps(params, *inputs, work, nsub),
                         10)
@@ -1722,7 +1795,7 @@ def main(argv=None):
     apart = ", ".join(f"{name} {rel_diff(o, r)[0]:.3e}" for name, o, r in zip(names, out, rich))
     print(f"    2.1 against 2.2, relative to 2.2's largest value: {apart}")
     r_work = [q.clone() for q in r_carry]
-    turns = []
+    turns, turn_times = [], {}
     for name in ("2.2", "2.1", "2.2", "2.1"):
         if name == "2.2":
             turn_ms = cuda_ms(lambda: fused_evp_tiled.tiled_evp_substeps(params, *inputs, work,
@@ -1731,7 +1804,12 @@ def main(argv=None):
             turn_ms = cuda_ms(lambda: fused_evp.evp_substeps(r_params, r_consts, r_work, nsub),
                               10)
         turns.append(f"{name} {turn_ms:.4f}")
+        turn_times.setdefault(name, []).append(turn_ms)
     print(f"    in turns, ms per call (CUDA events, 10 calls): {', '.join(turns)}, on {card}")
+    t22_ratio = max(turn_times["2.2"]) / min(turn_times["2.1"])
+    print(f"    2.2 over 2.1 in turns: at most {t22_ratio:.4f}")
+    if not t22_ratio < 1.0:
+        raise AssertionError(f"2.2 is not faster than 2.1 in turns ({t22_ratio:.4f})")
     del model, state, params, inputs, carry, out, ref, work, r_consts, r_carry, rich, r_work
 
     # --- 22. the periodic flagship above the whole-array limit: the slice's main path ------
@@ -1754,6 +1832,9 @@ def main(argv=None):
     t22_main_launches = tiled_evp_counter.launches
     expected = dict.fromkeys(counters, 0)
     expected["periodic_tiled"] = 3 * n_steps
+    if t22_launches_per_call != -(-nsub // t22_chunk):
+        raise AssertionError(f"2.2 made {t22_launches_per_call} launches a call, its plan "
+                             f"{-(-nsub // t22_chunk)}")
     if calls != expected or t22_main_launches != 3 * n_steps * t22_launches_per_call:
         raise AssertionError(f"{N2}² flagship EVP calls {calls}, 2.2 launches "
                              f"{t22_main_launches}; expected {expected} and "
@@ -2342,4 +2423,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -59,23 +59,60 @@ __device__ __forceinline__ bool locate(int nx, int ny, Point& p) {
   return true;
 }
 
+// The parameters of the σ relaxation and of the updates, with their
+// reciprocals and squares, formed from params by the operations the
+// per-point functions used to apply at every point: a kernel may form them
+// once per thread and pass them to every point it computes.
+struct StressParams {
+  float inv_dx, inv_dy, e_inv2, a_min, a_max, d_min, inv_dmin, amin2, amax2;
+  bool repl_on;
+};
+
+__device__ __forceinline__ StressParams stress_params(const float* __restrict__ prm) {
+  StressParams q;
+  q.inv_dx = 1.0f / prm[P_DX];
+  q.inv_dy = 1.0f / prm[P_DY];
+  q.e_inv2 = prm[P_EINV2];
+  q.a_min = prm[P_AMIN];
+  q.a_max = prm[P_AMAX];
+  q.d_min = prm[P_DMIN];
+  q.inv_dmin = 1.0f / q.d_min;
+  q.amin2 = q.a_min * q.a_min;
+  q.amax2 = q.a_max * q.a_max;
+  q.repl_on = prm[P_REPL] != 0.0f;
+  return q;
+}
+
+struct UpdateParams {
+  float inv_dt, inv_dx, inv_dy, f_cor, rC;
+};
+
+__device__ __forceinline__ UpdateParams update_params(const float* __restrict__ prm) {
+  UpdateParams q;
+  q.inv_dt = 1.0f / prm[P_DT];
+  q.inv_dx = 1.0f / prm[P_DX];
+  q.inv_dy = 1.0f / prm[P_DY];
+  q.f_cor = prm[P_F];
+  q.rC = prm[P_RC];
+  return q;
+}
+
 // σ relaxation at one point: strain rates from the u, v neighbourhood
 // U[a][b] = u(i + a − 1, j + b − 1) (V likewise), then Δ, ζ/η, the
 // replacement pressure and the dynamic γ (pallas_evp.py:230-276).  Updates
 // s11, s22, s12 in place and returns α.
 __device__ __forceinline__ float stress_point(
-    const float* __restrict__ prm, const float (&U)[3][3], const float (&V)[3][3],
+    const StressParams& q, const float (&U)[3][3], const float (&V)[3][3],
     float P, float Pff, float gcc, float gff, float& s11, float& s22, float& s12) {
-  const float inv_dx = 1.0f / prm[P_DX];
-  const float inv_dy = 1.0f / prm[P_DY];
-  const float e_inv2 = prm[P_EINV2];
-  const float a_min = prm[P_AMIN];
-  const float a_max = prm[P_AMAX];
-  const float d_min = prm[P_DMIN];
-  const float inv_dmin = 1.0f / d_min;
-  const float amin2 = a_min * a_min;
-  const float amax2 = a_max * a_max;
-  const bool repl_on = prm[P_REPL] != 0.0f;
+  const float inv_dx = q.inv_dx;
+  const float inv_dy = q.inv_dy;
+  const float e_inv2 = q.e_inv2;
+  const float a_max = q.a_max;
+  const float d_min = q.d_min;
+  const float inv_dmin = q.inv_dmin;
+  const float amin2 = q.amin2;
+  const float amax2 = q.amax2;
+  const bool repl_on = q.repl_on;
 
   // ϵ̇₁₁, ϵ̇₂₂ and their sum d / difference t at the cc points
   // (i + a - 1, j + b - 1), a, b ∈ {0, 1}
@@ -151,6 +188,12 @@ __device__ __forceinline__ float stress_point(
   return ok_cc ? g2cc * rg_cc : a_max;
 }
 
+__device__ __forceinline__ float stress_point(
+    const float* __restrict__ prm, const float (&U)[3][3], const float (&V)[3][3],
+    float P, float Pff, float gcc, float gff, float& s11, float& s22, float& s12) {
+  return stress_point(stress_params(prm), U, V, P, Pff, gcc, gff, s11, s22, s12);
+}
+
 // σ relaxation at every point of an nx×ny array, neighbours by index wrap.
 __global__ void __launch_bounds__(BX * BY) evp_stress(
     const float* __restrict__ prm,
@@ -189,15 +232,15 @@ __global__ void __launch_bounds__(BX * BY) evp_stress(
 // already multiplied by their masks; the immersed-drag coefficients
 // imms/immn are read only with has_drag.
 __device__ __forceinline__ float u_update_point(
-    const float* __restrict__ prm, float s11m, float s11m_w, float s12m, float s12m_n,
+    const UpdateParams& q, float s11m, float s11m_w, float s12m, float s12m_n,
     float v, float v_n, float v_w, float v_wn, float ve, float ve_n, float ve_w,
     float ve_wn, float uk, float u_n, float ue, float tau, float drag, float invm,
     float un, float act, bool has_drag, float imms, float immn, float al, float al_w) {
-  const float inv_dt = 1.0f / prm[P_DT];
-  const float inv_dx = 1.0f / prm[P_DX];
-  const float inv_dy = 1.0f / prm[P_DY];
-  const float f_cor = prm[P_F];
-  const float rC = prm[P_RC];
+  const float inv_dt = q.inv_dt;
+  const float inv_dx = q.inv_dx;
+  const float inv_dy = q.inv_dy;
+  const float f_cor = q.f_cor;
+  const float rC = q.rC;
   const float div_x = (s11m - s11m_w) * inv_dx + (s12m_n - s12m) * inv_dy;
   // (c,f) → (f,c): 0.25·((q[i,j] + q[i,j+1]) + (q[i-1,j] + q[i-1,j+1]))
   const float v_fc = 0.25f * ((v + v_n) + (v_w + v_wn));
@@ -217,15 +260,15 @@ __device__ __forceinline__ float u_update_point(
 // (pallas_evp_padded.py:325-340).  Suffixes: _s (i, j−1), _e (i+1, j),
 // _es (i+1, j−1).
 __device__ __forceinline__ float v_update_point(
-    const float* __restrict__ prm, float s22m, float s22m_s, float s12m, float s12m_e,
+    const UpdateParams& q, float s22m, float s22m_s, float s12m, float s12m_e,
     float u, float u_s, float u_e, float u_es, float ue, float ue_s, float ue_e,
     float ue_es, float vk, float v_e, float ve, float tau, float drag, float invm,
     float vn, float act, bool has_drag, float immw, float imme, float al, float al_s) {
-  const float inv_dt = 1.0f / prm[P_DT];
-  const float inv_dx = 1.0f / prm[P_DX];
-  const float inv_dy = 1.0f / prm[P_DY];
-  const float f_cor = prm[P_F];
-  const float rC = prm[P_RC];
+  const float inv_dt = q.inv_dt;
+  const float inv_dx = q.inv_dx;
+  const float inv_dy = q.inv_dy;
+  const float f_cor = q.f_cor;
+  const float rC = q.rC;
   const float div_y = (s22m - s22m_s) * inv_dy + (s12m_e - s12m) * inv_dx;
   // (f,c) → (c,f): 0.25·((q[i,j] + q[i,j-1]) + (q[i+1,j] + q[i+1,j-1]))
   const float u_cf = 0.25f * ((u + u_s) + (u_e + u_es));
@@ -239,6 +282,26 @@ __device__ __forceinline__ float v_update_point(
   G = invm > 0.0f ? G : 0.0f;
   const float idtau = 0.5f * (al + al_s) * inv_dt;
   return (vk * idtau + G) / (idtau + rC * speed * drag) * act;
+}
+
+__device__ __forceinline__ float u_update_point(
+    const float* __restrict__ prm, float s11m, float s11m_w, float s12m, float s12m_n,
+    float v, float v_n, float v_w, float v_wn, float ve, float ve_n, float ve_w,
+    float ve_wn, float uk, float u_n, float ue, float tau, float drag, float invm,
+    float un, float act, bool has_drag, float imms, float immn, float al, float al_w) {
+  return u_update_point(update_params(prm), s11m, s11m_w, s12m, s12m_n, v, v_n, v_w, v_wn,
+                        ve, ve_n, ve_w, ve_wn, uk, u_n, ue, tau, drag, invm, un, act,
+                        has_drag, imms, immn, al, al_w);
+}
+
+__device__ __forceinline__ float v_update_point(
+    const float* __restrict__ prm, float s22m, float s22m_s, float s12m, float s12m_e,
+    float u, float u_s, float u_e, float u_es, float ue, float ue_s, float ue_e,
+    float ue_es, float vk, float v_e, float ve, float tau, float drag, float invm,
+    float vn, float act, bool has_drag, float immw, float imme, float al, float al_s) {
+  return v_update_point(update_params(prm), s22m, s22m_s, s12m, s12m_e, u, u_s, u_e, u_es,
+                        ue, ue_s, ue_e, ue_es, vk, v_e, ve, tau, drag, invm, vn, act,
+                        has_drag, immw, imme, al, al_s);
 }
 
 }  // namespace csi_evp

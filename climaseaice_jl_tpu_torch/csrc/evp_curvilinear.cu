@@ -34,22 +34,39 @@
 // is 25 GFLOP (0.37 ms at 67 TFLOP/s) against 216 MB (0.065 ms at 3.35
 // TB/s): the call is bound by operations.
 //
-// Design (simple and right first), as evp_padded.cu: one thread per padded
-// point, threadIdx.x along the contiguous y axis, neighbours by index wrap
-// over the padded extent (the TPU kernel's `pltpu.roll`).  One prep launch
-// computes the loop-invariant metric forms (Δ², reciprocals) into a scratch
-// block; two launches fill the incoming u and v; then per substep three
-// launches: `curv_stress`, then `curv_u_update` and `curv_v_update` in the
-// substep's order (odd substeps v then u, even u then v).  A thread of an
-// update kernel maps its point to the source of the composed fill and
-// computes the update there, so a fill costs no pass of its own; the v seam
-// thread computes the update at its own column and at its mirror.  u and v
-// ping-pong between the caller's buffer and a scratch buffer, because halo
-// and seam threads read the neighbourhoods of points that other threads of
-// the same launch write.  Rows that are land across every x run like any
-// other; their results are the values the TPU tier's solid-row crop writes
-// there (u = v = 0, σ unchanged, α = α⁺), so no crop is needed for the
-// numbers.
+// Design, as evp_padded.cu: one thread per padded point, threadIdx.x along
+// the contiguous y axis, neighbours by index wrap over the padded extent
+// (the TPU kernel's `pltpu.roll`).  One prep launch (`curv_prep`) computes
+// the loop-invariant forms into a scratch block: the metric forms (Δ²,
+// reciprocals), the transverse averages of the ocean velocity (ve at (f,c),
+// ue at (c,f)), τ·drag for u and v, and one byte a point holding the 0/1
+// arrays act_u, act_v, msk_cc and msk_ff as bits; and it flags the settled
+// blocks (below).  Two launches fill the incoming u and v; then per
+// substep three launches: `curv_stress`, then `curv_u_update` and
+// `curv_v_update` in the substep's order (odd substeps v then u, even u
+// then v).  A thread of an update kernel maps its point to the source of
+// the composed fill and computes the update there, so a fill costs no pass
+// of its own; the v seam thread computes the update at its own column and
+// at its mirror.  u and v ping-pong between the caller's buffer and a
+// scratch buffer, because halo and seam threads read the neighbourhoods of
+// points that other threads of the same launch write.
+//
+// Settled blocks.  A point is dead where gcc ≤ 0, gff ≤ 0, act_u = act_v =
+// 0 and 1/m ≤ 0 at (f,c) and (c,f): there σ relaxes by +0 (σ + 0 from the
+// first substep on), α = α⁺, and an update with G = 0 and act = 0 gives
+// u = (u·1/Δτ)/(1/Δτ)·0, which is +0 from the second substep on (the sign
+// of the first substep's zero follows u's), given finite velocities nearby
+// and α⁺ > 0.  The prep launch flags a block of the launch grid as settled
+// where every point within one of its points, and within one of every fill
+// source its threads compute at (the fold's and the seam mirror's
+// included), is dead: then every value the block writes is fixed after
+// substep 2, and by the end of substep 3 both buffers of u and of v hold
+// it.  From substep FIRST_SKIPPED = 4 on a settled block returns at once,
+// in all three launches; nothing is read back to the host.  On the
+// tripolar basin 76 % of the blocks are settled: the southern rows that
+// are land across every x (the TPU tier crops those rows) and the
+// continents.  A grid with no land has no settled block and pays one
+// flag load a block.
 //
 // f: with `f_fc`/`f_cf` null the scalar f of params is used at every point,
 // otherwise the two planes; an FPlane gives bit for bit the scalar form.
@@ -66,6 +83,36 @@ namespace {
 
 using namespace csi_curv;
 
+constexpr int FIRST_SKIPPED = 4;   // the first substep a settled block skips
+
+// the forms of the prep launch after csi_curv's metric forms
+enum CurvForm { F_VE_FC = N_FORMS, F_UE_CF, F_TAUD_U, F_TAUD_V, N_CURV_FORMS };
+
+// bits of the flag byte
+enum FlagBit { B_ACT_U = 1, B_ACT_V = 2, B_MSK_CC = 4, B_MSK_FF = 8 };
+
+// The updates' reader of the forms made once per call (RawForms' values:
+// the flags are 0 or 1, the averages and products the same operations).
+struct CallForms {
+  const unsigned char* __restrict__ bits;
+  const float* __restrict__ ve_fc_;
+  const float* __restrict__ ue_cf_;
+  const float* __restrict__ taud_u;
+  const float* __restrict__ taud_v;
+  __device__ __forceinline__ float msk_cc(int k) const { return (bits[k] & B_MSK_CC) ? 1.0f : 0.0f; }
+  __device__ __forceinline__ float msk_ff(int k) const { return (bits[k] & B_MSK_FF) ? 1.0f : 0.0f; }
+  __device__ __forceinline__ float act_u(int k) const { return (bits[k] & B_ACT_U) ? 1.0f : 0.0f; }
+  __device__ __forceinline__ float act_v(int k) const { return (bits[k] & B_ACT_V) ? 1.0f : 0.0f; }
+  __device__ __forceinline__ float ve_fc(int ks, int, int, int) const { return ve_fc_[ks]; }
+  __device__ __forceinline__ float ue_cf(int ks, int, int, int) const { return ue_cf_[ks]; }
+  __device__ __forceinline__ float tau_drag_u(int k, float) const { return taud_u[k]; }
+  __device__ __forceinline__ float tau_drag_v(int k, float) const { return taud_v[k]; }
+};
+
+__device__ __forceinline__ bool settled_block(const int* __restrict__ settled, int skip) {
+  return skip && settled[blockIdx.y * gridDim.x + blockIdx.x];
+}
+
 __device__ __forceinline__ bool locate_point(const Layout& L, int& i, int& j, int& k) {
   j = blockIdx.x * BX + threadIdx.x;
   i = blockIdx.y * BY + threadIdx.y;
@@ -74,23 +121,67 @@ __device__ __forceinline__ bool locate_point(const Layout& L, int& i, int& j, in
   return true;
 }
 
-// Δ²cc, Δ²ff, 1/Δ at the faces (pallas_evp_curvilinear.py:237-250)
-__global__ void __launch_bounds__(256) metric_forms(
+// a point where the loop leaves σ, α, u and v at fixed values
+__device__ __forceinline__ bool dead(const Consts& c, int k) {
+  return c.gcc[k] <= 0.0f && c.gff[k] <= 0.0f && c.act_u[k] == 0.0f && c.act_v[k] == 0.0f &&
+         c.invm_u[k] <= 0.0f && c.invm_v[k] <= 0.0f;
+}
+
+// every point within one of (i, j), by wrap over the padded extent, dead
+__device__ __forceinline__ bool dead_around(const Consts& c, const Layout& L, int i, int j) {
+  bool d = true;
+#pragma unroll
+  for (int a = -1; a <= 1; ++a) {
+    const int r = wrap(i + a, L.nxp) * L.nyp;
+#pragma unroll
+    for (int b = -1; b <= 1; ++b) d = d && dead(c, r + wrap(j + b, L.nyp));
+  }
+  return d;
+}
+
+// The loop-invariant forms at point k (Δ²cc, Δ²ff, 1/Δ at the faces as
+// pallas_evp_curvilinear.py:237-250; the ocean velocity's transverse
+// averages, τ·drag and the flag bits as the updates form them), and each
+// block's settled flag.
+__global__ void __launch_bounds__(BX * BY) curv_prep(
     const float* __restrict__ dx_cc, const float* __restrict__ dx_fc,
     const float* __restrict__ dx_cf, const float* __restrict__ dx_ff,
     const float* __restrict__ dy_cc, const float* __restrict__ dy_fc,
-    const float* __restrict__ dy_cf, const float* __restrict__ dy_ff,
-    float* __restrict__ forms, long long n) {
-  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  forms[F_DY_CC2 * n + k] = dy_cc[k] * dy_cc[k];
-  forms[F_DX_CC2 * n + k] = dx_cc[k] * dx_cc[k];
-  forms[F_DX_FF2 * n + k] = dx_ff[k] * dx_ff[k];
-  forms[F_DY_FF2 * n + k] = dy_ff[k] * dy_ff[k];
-  forms[F_INV_DY_FC * n + k] = 1.0f / dy_fc[k];
-  forms[F_INV_DX_CF * n + k] = 1.0f / dx_cf[k];
-  forms[F_INV_DX_FC * n + k] = 1.0f / dx_fc[k];
-  forms[F_INV_DY_CF * n + k] = 1.0f / dy_cf[k];
+    const float* __restrict__ dy_cf, const float* __restrict__ dy_ff, Consts c, Layout L,
+    float* __restrict__ forms, unsigned char* __restrict__ bits, int* __restrict__ settled) {
+  int i, j, k;
+  bool ok = true;
+  if (locate_point(L, i, j, k)) {
+    const long long n = static_cast<long long>(L.nxp) * L.nyp;
+    forms[F_DY_CC2 * n + k] = dy_cc[k] * dy_cc[k];
+    forms[F_DX_CC2 * n + k] = dx_cc[k] * dx_cc[k];
+    forms[F_DX_FF2 * n + k] = dx_ff[k] * dx_ff[k];
+    forms[F_DY_FF2 * n + k] = dy_ff[k] * dy_ff[k];
+    forms[F_INV_DY_FC * n + k] = 1.0f / dy_fc[k];
+    forms[F_INV_DX_CF * n + k] = 1.0f / dx_cf[k];
+    forms[F_INV_DX_FC * n + k] = 1.0f / dx_fc[k];
+    forms[F_INV_DY_CF * n + k] = 1.0f / dy_cf[k];
+    const int ny = L.nyp;
+    const int iw = wrap(i - 1, L.nxp) * ny, ie = wrap(i + 1, L.nxp) * ny, r = i * ny;
+    const int jn = wrap(j + 1, ny), js = wrap(j - 1, ny);
+    const RawForms raw{&c};
+    forms[F_VE_FC * n + k] = raw.ve_fc(k, r + jn, iw + j, iw + jn);
+    forms[F_UE_CF * n + k] = raw.ue_cf(k, r + js, ie + j, ie + js);
+    forms[F_TAUD_U * n + k] = raw.tau_drag_u(k, c.drag_u[k]);
+    forms[F_TAUD_V * n + k] = raw.tau_drag_v(k, c.drag_v[k]);
+    bits[k] = static_cast<unsigned char>((c.act_u[k] != 0.0f ? B_ACT_U : 0) |
+                                         (c.act_v[k] != 0.0f ? B_ACT_V : 0) |
+                                         (c.msk_cc[k] != 0.0f ? B_MSK_CC : 0) |
+                                         (c.msk_ff[k] != 0.0f ? B_MSK_FF : 0));
+    int si, sj, sm = 0;
+    ok = dead_around(c, L, i, j);
+    if (ok && u_source(L, i, j, si, sj) != 0.0f) ok = dead_around(c, L, si, sj);
+    const int kind = v_source(L, i, j, si, sj, sm);
+    if (ok && kind != V_ZERO) ok = dead_around(c, L, si, sj);
+    if (ok && kind == V_SEAM) ok = dead_around(c, L, sm, sj);
+  }
+  const int all = __syncthreads_and(ok);
+  if (threadIdx.x == 0 && threadIdx.y == 0) settled[blockIdx.y * gridDim.x + blockIdx.x] = all;
 }
 
 // Halo fills of the incoming u and v into other arrays.
@@ -120,9 +211,10 @@ __global__ void __launch_bounds__(BX * BY) curv_stress(
     const float* __restrict__ prm, Metrics m, Consts c, Layout L,
     const float* __restrict__ u, const float* __restrict__ v,
     float* __restrict__ s11, float* __restrict__ s22,
-    float* __restrict__ s12, float* __restrict__ al) {
+    float* __restrict__ s12, float* __restrict__ al, const int* __restrict__ settled,
+    int skip) {
   int i, j, k;
-  if (!locate_point(L, i, j, k)) return;
+  if (settled_block(settled, skip) || !locate_point(L, i, j, k)) return;
   const int nx = L.nxp, ny = L.nyp;
   // rows and columns at offsets -1, 0, +1 (wrapped over the padded extent)
   const int R[3] = {wrap(i - 1, nx) * ny, i * ny, wrap(i + 1, nx) * ny};
@@ -133,57 +225,59 @@ __global__ void __launch_bounds__(BX * BY) curv_stress(
 
 // the u and v updates at (si, sj), neighbours by wrap over the padded extent
 __device__ __forceinline__ float u_here(const float* prm, const Metrics& m, const Consts& c,
-                                        const Layout& L, int has_drag, const float* u,
-                                        const float* v, const float* s11, const float* s22,
-                                        const float* s12, const float* al, int si, int sj) {
+                                        const CallForms& F, const Layout& L, int has_drag,
+                                        const float* u, const float* v, const float* s11,
+                                        const float* s22, const float* s12, const float* al,
+                                        int si, int sj) {
   const int ny = L.nyp;
   const int iw = wrap(si - 1, L.nxp), jn = wrap(sj + 1, ny);
-  return u_at(prm, m, c, has_drag, u, v, s11, s22, s12, al, si * ny + sj, iw * ny + sj,
+  return u_at(prm, m, c, F, has_drag, u, v, s11, s22, s12, al, si * ny + sj, iw * ny + sj,
               si * ny + jn, iw * ny + jn);
 }
 
 __device__ __forceinline__ float v_here(const float* prm, const Metrics& m, const Consts& c,
-                                        const Layout& L, int has_drag, const float* u,
-                                        const float* v, const float* s11, const float* s22,
-                                        const float* s12, const float* al, int si, int sj) {
+                                        const CallForms& F, const Layout& L, int has_drag,
+                                        const float* u, const float* v, const float* s11,
+                                        const float* s22, const float* s12, const float* al,
+                                        int si, int sj) {
   const int ny = L.nyp;
   const int js = wrap(sj - 1, ny), ie = wrap(si + 1, L.nxp);
-  return v_at(prm, m, c, has_drag, u, v, s11, s22, s12, al, si * ny + sj, si * ny + js,
+  return v_at(prm, m, c, F, has_drag, u, v, s11, s22, s12, al, si * ny + sj, si * ny + js,
               ie * ny + sj, ie * ny + js);
 }
 
 // u update followed by the (f,c) fill with the fold
 __global__ void __launch_bounds__(BX * BY) curv_u_update(
-    const float* __restrict__ prm, Metrics m, Consts c, Layout L, int has_drag,
+    const float* __restrict__ prm, Metrics m, Consts c, CallForms F, Layout L, int has_drag,
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ s11, const float* __restrict__ s22,
     const float* __restrict__ s12, const float* __restrict__ al,
-    float* __restrict__ u_out) {
+    float* __restrict__ u_out, const int* __restrict__ settled, int skip) {
   int i, j, k, si, sj;
-  if (!locate_point(L, i, j, k)) return;
+  if (settled_block(settled, skip) || !locate_point(L, i, j, k)) return;
   const float sign = u_source(L, i, j, si, sj);
   u_out[k] = sign == 0.0f ? 0.0f
-             : sign * u_here(prm, m, c, L, has_drag, u, v, s11, s22, s12, al, si, sj);
+             : sign * u_here(prm, m, c, F, L, has_drag, u, v, s11, s22, s12, al, si, sj);
 }
 
 // v update followed by the (c,f) fill with the fold: the seam row takes
 // 0.5·(v(i) − v(mirror)) of two freshly updated values
 __global__ void __launch_bounds__(BX * BY) curv_v_update(
-    const float* __restrict__ prm, Metrics m, Consts c, Layout L, int has_drag,
+    const float* __restrict__ prm, Metrics m, Consts c, CallForms F, Layout L, int has_drag,
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ s11, const float* __restrict__ s22,
     const float* __restrict__ s12, const float* __restrict__ al,
-    float* __restrict__ v_out) {
+    float* __restrict__ v_out, const int* __restrict__ settled, int skip) {
   int i, j, k, si, sj, sm = 0;
-  if (!locate_point(L, i, j, k)) return;
+  if (settled_block(settled, skip) || !locate_point(L, i, j, k)) return;
   const int kind = v_source(L, i, j, si, sj, sm);
   float val = 0.0f;
   if (kind != V_ZERO) {
-    val = v_here(prm, m, c, L, has_drag, u, v, s11, s22, s12, al, si, sj);
+    val = v_here(prm, m, c, F, L, has_drag, u, v, s11, s22, s12, al, si, sj);
     if (kind == V_FLIP) {
       val = -val;
     } else if (kind == V_SEAM) {
-      val = 0.5f * (val - v_here(prm, m, c, L, has_drag, u, v, s11, s22, s12, al, sm, sj));
+      val = 0.5f * (val - v_here(prm, m, c, F, L, has_drag, u, v, s11, s22, s12, al, sm, sj));
     }
   }
   v_out[k] = val;
@@ -193,10 +287,14 @@ __global__ void __launch_bounds__(BX * BY) curv_v_update(
 
 // Runs `nsub` substeps on the current contents of u, v, s11, s22, s12, al
 // (each nxp×nyp, row-major, y contiguous) on `stream`; u_tmp and v_tmp are
-// scratch arrays of that shape and `forms` scratch for 8 of them.  The
-// results are left in u, v, s11, s22, s12, al.  The drag arrays may be null
-// when has_drag is 0, f_fc and f_cf null for the scalar f of params.
-// Returns 0, or the first nonzero cudaGetLastError() after a launch.
+// scratch arrays of that shape, `forms` scratch for N_CURV_FORMS (12) of
+// them, `bits` scratch of nxp·nyp bytes and `settled` one int per block of
+// the launch grid (ceil(nyp / 32) · ceil(nxp / 8), row-major by block row
+// along x).  act_u, act_v, msk_cc and msk_ff must hold only 0 and 1.  The
+// results are left in u, v, s11, s22, s12, al, the settled flags in
+// `settled`.  The drag arrays may be null when has_drag is 0, f_fc and f_cf
+// null for the scalar f of params.  Returns 0, or the first nonzero
+// cudaGetLastError() after a launch.
 extern "C" int csi_evp_curvilinear_substeps(
     const float* params,
     const float* dx_cc, const float* dx_fc, const float* dx_cf, const float* dx_ff,
@@ -212,7 +310,7 @@ extern "C" int csi_evp_curvilinear_substeps(
     const float* tau_u, const float* tau_v, const float* ue, const float* ve,
     const float* f_fc, const float* f_cf,
     float* u, float* v, float* s11, float* s22, float* s12, float* al,
-    float* u_tmp, float* v_tmp, float* forms,
+    float* u_tmp, float* v_tmp, float* forms, unsigned char* bits, int* settled,
     int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int per_x, int per_y,
     int fold, int has_drag, int nsub, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -226,12 +324,14 @@ extern "C" int csi_evp_curvilinear_substeps(
   const Consts c{P, Pff, gcc, gff, drag_u, invm_u, act_u, un, drag_v, invm_v,
                  act_v, vn, msk_cc, msk_ff, imms_u, immn_u, immw_v, imme_v,
                  tau_u, tau_v, ue, ve, f_fc, f_cf};
+  const CallForms F{bits, forms + F_VE_FC * n, forms + F_UE_CF * n, forms + F_TAUD_U * n,
+                    forms + F_TAUD_V * n};
   const dim3 block(BX, BY);
   const dim3 grid((nyp + BX - 1) / BX, (nxp + BY - 1) / BY);
   cudaError_t err;
 
-  metric_forms<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      dx_cc, dx_fc, dx_cf, dx_ff, dy_cc, dy_fc, dy_cf, dy_ff, forms, n);
+  curv_prep<<<grid, block, 0, s>>>(dx_cc, dx_fc, dx_cf, dx_ff, dy_cc, dy_fc, dy_cf, dy_ff, c,
+                                   L, forms, bits, settled);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   float* u_cur = u_tmp;
@@ -244,20 +344,21 @@ extern "C" int csi_evp_curvilinear_substeps(
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   for (int k = 1; k <= nsub; ++k) {
+    const int skip = k >= FIRST_SKIPPED;
     curv_stress<<<grid, block, 0, s>>>(params, m, c, L, u_cur, v_cur, s11, s22,
-                                       s12, al);
+                                       s12, al, settled, skip);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     for (int half = 0; half < 2; ++half) {
       // odd substeps: v then u; even substeps: u then v
       if ((k % 2 == 0) == (half == 0)) {
-        curv_u_update<<<grid, block, 0, s>>>(params, m, c, L, has_drag, u_cur,
-                                             v_cur, s11, s22, s12, al, u_oth);
+        curv_u_update<<<grid, block, 0, s>>>(params, m, c, F, L, has_drag, u_cur,
+                                             v_cur, s11, s22, s12, al, u_oth, settled, skip);
         float* t = u_cur;
         u_cur = u_oth;
         u_oth = t;
       } else {
-        curv_v_update<<<grid, block, 0, s>>>(params, m, c, L, has_drag, u_cur,
-                                             v_cur, s11, s22, s12, al, v_oth);
+        curv_v_update<<<grid, block, 0, s>>>(params, m, c, F, L, has_drag, u_cur,
+                                             v_cur, s11, s22, s12, al, v_oth, settled, skip);
         float* t = v_cur;
         v_cur = v_oth;
         v_oth = t;

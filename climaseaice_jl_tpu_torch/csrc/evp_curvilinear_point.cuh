@@ -48,6 +48,33 @@ struct Consts {
   const float *f_fc, *f_cf;
 };
 
+// How an update reads the loop constants that are 0/1 flags, the transverse
+// averages of the ocean velocity and the top stress times the drag.
+// `RawForms` reads and forms them from the caller's arrays at every point,
+// as the plain version's operations do (2.7); evp_curvilinear.cu (2.6)
+// passes a reader of the same values formed once per call.
+struct RawForms {
+  const Consts* c;
+  __device__ __forceinline__ float msk_cc(int k) const { return c->msk_cc[k]; }
+  __device__ __forceinline__ float msk_ff(int k) const { return c->msk_ff[k]; }
+  __device__ __forceinline__ float act_u(int k) const { return c->act_u[k]; }
+  __device__ __forceinline__ float act_v(int k) const { return c->act_v[k]; }
+  // (c,f) → (f,c): 0.25·((q[i,j] + q[i,j+1]) + (q[i-1,j] + q[i-1,j+1]))
+  __device__ __forceinline__ float ve_fc(int ks, int kn, int kw, int kwn) const {
+    return 0.25f * ((c->ve[ks] + c->ve[kn]) + (c->ve[kw] + c->ve[kwn]));
+  }
+  // (f,c) → (c,f): 0.25·((q[i,j] + q[i,j-1]) + (q[i+1,j] + q[i+1,j-1]))
+  __device__ __forceinline__ float ue_cf(int ks, int kso, int ke, int kes) const {
+    return 0.25f * ((c->ue[ks] + c->ue[kso]) + (c->ue[ke] + c->ue[kes]));
+  }
+  __device__ __forceinline__ float tau_drag_u(int k, float drag) const {
+    return c->tau_u[k] * drag;
+  }
+  __device__ __forceinline__ float tau_drag_v(int k, float drag) const {
+    return c->tau_v[k] * drag;
+  }
+};
+
 __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
 }
@@ -244,9 +271,10 @@ __device__ __forceinline__ void stress_at(const float* __restrict__ prm, const M
 
 // the semi-implicit u update at ks (pallas_evp_curvilinear.py:375-408), with
 // kw = (i-1, j), kn = (i, j+1), kwn = (i-1, j+1)
+template <class Forms>
 __device__ __forceinline__ float u_at(const float* prm, const Metrics& m, const Consts& c,
-                                      int has_drag, const float* u, const float* v,
-                                      const float* s11, const float* s22,
+                                      const Forms& F, int has_drag, const float* u,
+                                      const float* v, const float* s11, const float* s22,
                                       const float* s12, const float* al,
                                       int ks, int kw, int kn, int kwn) {
   const float inv_dt = 1.0f / prm[P_DT];
@@ -254,20 +282,21 @@ __device__ __forceinline__ float u_at(const float* prm, const Metrics& m, const 
   const float f = c.f_fc ? c.f_fc[ks] : prm[P_F];
 
   // divergence of σ at (f,c) from the masked σ
-  const float s11m = s11[ks] * c.msk_cc[ks], s22m = s22[ks] * c.msk_cc[ks];
-  const float s11m_w = s11[kw] * c.msk_cc[kw], s22m_w = s22[kw] * c.msk_cc[kw];
+  const float mk = F.msk_cc(ks), mk_w = F.msk_cc(kw);
+  const float s11m = s11[ks] * mk, s22m = s22[ks] * mk;
+  const float s11m_w = s11[kw] * mk_w, s22m_w = s22[kw] * mk_w;
   const float sD = s11m + s22m, sD_w = s11m_w + s22m_w;
   const float yT = m.dy_cc2[ks] * (s11m - s22m);
   const float yT_w = m.dy_cc2[kw] * (s11m_w - s22m_w);
-  const float xS = m.dx_ff2[ks] * (s12[ks] * c.msk_ff[ks]);
-  const float xS_n = m.dx_ff2[kn] * (s12[kn] * c.msk_ff[kn]);
+  const float xS = m.dx_ff2[ks] * (s12[ks] * F.msk_ff(ks));
+  const float xS_n = m.dx_ff2[kn] * (s12[kn] * F.msk_ff(kn));
   const float div_x = (m.dy_fc[ks] * (sD - sD_w) * 0.5f
                        + (yT - yT_w) * m.inv_dy_fc[ks] * 0.5f
                        + (xS_n - xS) * m.inv_dx_fc[ks]) * m.inv_az_fc[ks];
 
   // (c,f) → (f,c): 0.25·((q[i,j] + q[i,j+1]) + (q[i-1,j] + q[i-1,j+1]))
   const float v_fc = 0.25f * ((v[ks] + v[kn]) + (v[kw] + v[kwn]));
-  const float ve_fc = 0.25f * ((c.ve[ks] + c.ve[kn]) + (c.ve[kw] + c.ve[kwn]));
+  const float ve_fc = F.ve_fc(ks, kn, kw, kwn);
   const float uk = u[ks];
   const float ue = c.ue[ks];
   const float du = ue - uk;
@@ -276,19 +305,28 @@ __device__ __forceinline__ float u_at(const float* prm, const Metrics& m, const 
   const float drag = c.drag_u[ks];
   const float invm = c.invm_u[ks];
 
-  float G = f * v_fc - c.tau_u[ks] * drag + rC * speed * ue * drag + div_x * invm;
+  float G = f * v_fc - F.tau_drag_u(ks, drag) + rC * speed * ue * drag + div_x * invm;
   if (has_drag) G = G - (c.imms_u[ks] * uk + c.immn_u[ks] * u[kn]) * invm;
   G = G + (c.un[ks] - uk) * inv_dt;
   G = invm > 0.0f ? G : 0.0f;
   const float idtau = 0.5f * (al[ks] + al[kw]) * inv_dt;  // 1/Δτ
-  return (uk * idtau + G) / (idtau + rC * speed * drag) * c.act_u[ks];
+  return (uk * idtau + G) / (idtau + rC * speed * drag) * F.act_u(ks);
+}
+
+__device__ __forceinline__ float u_at(const float* prm, const Metrics& m, const Consts& c,
+                                      int has_drag, const float* u, const float* v,
+                                      const float* s11, const float* s22,
+                                      const float* s12, const float* al,
+                                      int ks, int kw, int kn, int kwn) {
+  return u_at(prm, m, c, RawForms{&c}, has_drag, u, v, s11, s22, s12, al, ks, kw, kn, kwn);
 }
 
 // the semi-implicit v update at ks (pallas_evp_curvilinear.py:375-422), with
 // kso = (i, j-1), ke = (i+1, j), kes = (i+1, j-1)
+template <class Forms>
 __device__ __forceinline__ float v_at(const float* prm, const Metrics& m, const Consts& c,
-                                      int has_drag, const float* u, const float* v,
-                                      const float* s11, const float* s22,
+                                      const Forms& F, int has_drag, const float* u,
+                                      const float* v, const float* s11, const float* s22,
                                       const float* s12, const float* al,
                                       int ks, int kso, int ke, int kes) {
   const float inv_dt = 1.0f / prm[P_DT];
@@ -296,20 +334,21 @@ __device__ __forceinline__ float v_at(const float* prm, const Metrics& m, const 
   const float f = c.f_cf ? c.f_cf[ks] : prm[P_F];
 
   // divergence of σ at (c,f) from the masked σ
-  const float s11m = s11[ks] * c.msk_cc[ks], s22m = s22[ks] * c.msk_cc[ks];
-  const float s11m_s = s11[kso] * c.msk_cc[kso], s22m_s = s22[kso] * c.msk_cc[kso];
+  const float mk = F.msk_cc(ks), mk_s = F.msk_cc(kso);
+  const float s11m = s11[ks] * mk, s22m = s22[ks] * mk;
+  const float s11m_s = s11[kso] * mk_s, s22m_s = s22[kso] * mk_s;
   const float sD = s11m + s22m, sD_s = s11m_s + s22m_s;
   const float xT = m.dx_cc2[ks] * (s11m - s22m);
   const float xT_s = m.dx_cc2[kso] * (s11m_s - s22m_s);
-  const float yS = m.dy_ff2[ks] * (s12[ks] * c.msk_ff[ks]);
-  const float yS_e = m.dy_ff2[ke] * (s12[ke] * c.msk_ff[ke]);
+  const float yS = m.dy_ff2[ks] * (s12[ks] * F.msk_ff(ks));
+  const float yS_e = m.dy_ff2[ke] * (s12[ke] * F.msk_ff(ke));
   const float div_y = (m.dx_cf[ks] * (sD - sD_s) * 0.5f
                        - (xT - xT_s) * m.inv_dx_cf[ks] * 0.5f
                        + (yS_e - yS) * m.inv_dy_cf[ks]) * m.inv_az_cf[ks];
 
   // (f,c) → (c,f): 0.25·((q[i,j] + q[i,j-1]) + (q[i+1,j] + q[i+1,j-1]))
   const float u_cf = 0.25f * ((u[ks] + u[kso]) + (u[ke] + u[kes]));
-  const float ue_cf = 0.25f * ((c.ue[ks] + c.ue[kso]) + (c.ue[ke] + c.ue[kes]));
+  const float ue_cf = F.ue_cf(ks, kso, ke, kes);
   const float vk = v[ks];
   const float ve = c.ve[ks];
   const float dv = ve - vk;
@@ -318,12 +357,20 @@ __device__ __forceinline__ float v_at(const float* prm, const Metrics& m, const 
   const float drag = c.drag_v[ks];
   const float invm = c.invm_v[ks];
 
-  float G = -f * u_cf - c.tau_v[ks] * drag + rC * speed * ve * drag + div_y * invm;
+  float G = -f * u_cf - F.tau_drag_v(ks, drag) + rC * speed * ve * drag + div_y * invm;
   if (has_drag) G = G - (c.immw_v[ks] * vk + c.imme_v[ks] * v[ke]) * invm;
   G = G + (c.vn[ks] - vk) * inv_dt;
   G = invm > 0.0f ? G : 0.0f;
   const float idtau = 0.5f * (al[ks] + al[kso]) * inv_dt;
-  return (vk * idtau + G) / (idtau + rC * speed * drag) * c.act_v[ks];
+  return (vk * idtau + G) / (idtau + rC * speed * drag) * F.act_v(ks);
+}
+
+__device__ __forceinline__ float v_at(const float* prm, const Metrics& m, const Consts& c,
+                                      int has_drag, const float* u, const float* v,
+                                      const float* s11, const float* s22,
+                                      const float* s12, const float* al,
+                                      int ks, int kso, int ke, int kes) {
+  return v_at(prm, m, c, RawForms{&c}, has_drag, u, v, s11, s22, s12, al, ks, kso, ke, kes);
 }
 
 }  // namespace csi_curv

@@ -1,5 +1,5 @@
-// Tiled, substep-chunked αEVP loop for NVIDIA Hopper (sm_90a): doubly
-// periodic grids above the whole-array kernel's limit.
+// Tiled αEVP loop for NVIDIA Hopper (sm_90a): doubly periodic grids above
+// the whole-array kernel's limit.
 //
 // Replaces `climaseaice_jl_tpu/dynamics/pallas_evp_tiled.py::_tiled_kernel`
 // (2.2): the αEVP substeps of evp.cu on interior-only, doubly periodic,
@@ -7,45 +7,47 @@
 // m = h·ℵ·ρ, ℵ and P in the TPU kernel's own forms
 // (pallas_evp_tiled.py:253-282; the γ² coefficient is cα·Δt·(1/Δx·1/Δy)/m).
 //
-// Design.  The coefficients depend only on m, ℵ and P, which do not change
-// during a call, so one launch (`tiled_prep`, one thread per point) derives
-// them into device scratch: the same bits as deriving them per tile and
-// chunk as the TPU kernel does.  Then one launch per chunk of K substeps
-// (`tiled_chunk`): each block loads a tile of the six carried fields (u, v,
-// σ₁₁, σ₂₂, σ₁₂, α) with an overlap of W = 2·KMAX + 3 points on each side
-// into shared memory, runs evp_common.cuh's `stress_point`,
-// `u_update_point` and `v_update_point` K times there and writes the
-// tile's interior back.  A value at the tile's edge, whose neighbours
-// outside the tile are not known, spoils at most 2 points further inward
-// per substep, so the interior the block writes is exact.  The tile is
-// indexed by interior coordinates with periodic wrap (the only index rule:
-// no walls, fold, drag or mask), so a tile larger than the grid, or a ragged
-// last tile, holds the periodic images and writes each point once.  The
-// carried fields go from the input arrays to the scratch arrays and back
-// on alternate chunks, since neighbouring tiles read what a chunk
-// overwrites.  Odd substeps update v then u, even ones u then v; the
-// substep number comes from the chunk's base, as in
-// pallas_evp_tiled.py:368-385, 490-526, and the last chunk may be shorter
-// than K: a point's value does not depend on K.
-//
-// In shared memory the updates are in place, as in evp.cu: in the stress
-// phase a thread writes σ and α at its own point and reads σ only there;
-// in the u phase it writes u at its own point and reads u only there (no
-// immersed drag), in the v phase likewise v.  So one buffer a field will
-// do: 6 × 96 × 96 floats, 221,184 bytes, one block of 512 threads per SM.
-// The TPU kernel's (TX, TY, Wy) plan served Mosaic's (8, 128) tiling and is
-// not this file's.
-//
 // What bounds it on an H100: per point and substep the function needs
 // evp.cu's 142 float32 operations (chip_smoke.py's FLOPS_PER_POINT_SUBSTEP)
 // and per call 24 for the coefficients; a call reads 11 arrays (m, ℵ, P,
 // uⁿ, vⁿ and the carried six) and writes 6, once.  At 2048² and 120
 // substeps that is 71.6 GFLOP (1.07 ms at 67 TFLOP/s) against 285 MB
-// (0.085 ms at 3.35 TB/s): bound by operations.  The kernel does more:
-// a 96 × 96 tile writes 74 × 74 points (1.68× the points), a thread
-// recomputes its neighbours' strain rates (183 operations), and every
-// substep reads the twelve constants of its tile from device memory (L2).
-// Making it fast is later work.
+// (0.085 ms at 3.35 TB/s): bound by operations.  A kernel that keeps no
+// state on chip between substeps moves instead, per substep, what one
+// substep reads and writes: 10 arrays in (u, v, σ₁₁, σ₂₂, σ₁₂, m, ℵ, P, uⁿ,
+// vⁿ) and 5 out (α only at the end), 252 MB at 2048², 0.075 ms.
+//
+// Design.  One launch runs K substeps (a chunk) on tiles of TX × TY output
+// points.  A block loads its tile with an overlap of H = 2K points on each
+// side into shared memory: u, v, σ₁₁, σ₂₂, σ₁₂ and the inputs m, ℵ, P (α
+// is not loaded: a substep's σ relaxation recomputes it before any update
+// reads it).  The loop's nine derived coefficients are not stored
+// anywhere: each point derives the ones it needs from m, ℵ, P in shared
+// memory, with the operations `fused_evp_tiled.tiled_evp_coefficients`
+// applies, where it uses them (Pff, γ² at cc and ff in the σ relaxation;
+// 1/m, drag and the active flag at (f,c) or (c,f) in an update); uⁿ and
+// vⁿ are read at the point from device memory.  Substep t of a chunk
+// computes σ and its first half-update on the tile grown by 2(K − t) + 1,
+// its second half-update on the tile grown by 2(K − t): each phase reads
+// neighbours one point away, so after K substeps the tile itself is exact.
+// The carried fields go from the input arrays to the scratch arrays and
+// back on alternate chunks, since neighbouring tiles read what a chunk
+// overwrites.  Odd substeps update v then u, even ones u then v; the
+// substep number comes from the chunk's base, and the last chunk may be
+// shorter than K: a point's value does not depend on K or on the tile.
+//
+// The plan: K = 2, tiles of 32 × 64 output points, 512 threads, 104 KB of
+// shared memory, so two blocks (32 warps) an SM; one launch per two
+// substeps, 1.17× the points computed.  (One substep a launch on 16 × 64
+// tiles, four blocks an SM, was measured 1.21× slower on an H100: PERF.md.)
+// Region loops divide only by compile-time widths and tile writes index by
+// powers of two.  The parameters' reciprocals are formed once per thread
+// (evp_common.cuh's StressParams and UpdateParams).
+//
+// In shared memory the updates are in place, as in evp.cu: in the σ phase
+// a thread writes σ and α at its own point and reads σ only there; in the
+// u phase it writes u at its own point and reads u only there (no immersed
+// drag), in the v phase likewise v.
 //
 // Arithmetic: built with -fmad=false (`_build.py`) in the plain version's
 // operation order, so the kernel equals
@@ -58,206 +60,263 @@ namespace {
 
 using namespace csi_evp;
 
-constexpr int KMAX = 4;             // the most substeps a launch runs
-constexpr int W = 2 * KMAX + 3;     // overlap on each side of a tile
-constexpr int TX = 96;              // tile rows (x)
-constexpr int TY = 96;              // tile columns (y, the contiguous axis)
-constexpr int OX = TX - 2 * W;      // interior rows a tile writes
-constexpr int OY = TY - 2 * W;      // interior columns a tile writes
-constexpr int NT = TX * TY;
-constexpr int TBX = 32;             // threads along y
-constexpr int TBY = 16;             // threads along x
-constexpr int NTHREADS = TBX * TBY;
-constexpr size_t SMEM_BYTES = 6 * NT * sizeof(float);
+constexpr int N_SHARED = 9;   // tile arrays: u, v, σ₁₁, σ₂₂, σ₁₂, α, m, ℵ, P
 
-// The twelve constants of the loop, in evp.cu's roles: P and the starting
-// velocities as given, the other nine derived by `tiled_prep`.
-struct Consts {
-  const float *P, *Pff, *gcc, *gff;
-  const float *drag_u, *invm_u, *act_u, *un;
-  const float *drag_v, *invm_v, *act_v, *vn;
-};
-
-struct Coeffs {
-  float *Pff, *gcc, *gff, *drag_u, *invm_u, *act_u, *drag_v, *invm_v, *act_v;
+struct Inputs {
+  const float *m, *a, *P, *un, *vn;
 };
 
 struct Fields {
   float *u, *v, *s11, *s22, *s12, *al;
 };
 
-// 2.2's coefficients at one point (pallas_evp_tiled.py:253-282), in the
-// plain version's order; neighbours by periodic wrap.
-__global__ void __launch_bounds__(BX * BY) tiled_prep(
-    const float* __restrict__ prm, const float* __restrict__ m,
-    const float* __restrict__ a, const float* __restrict__ P, Coeffs c, int nx, int ny) {
-  Point p;
-  if (!locate(nx, ny, p)) return;
-  const float inv_dx = 1.0f / prm[P_DX];
-  const float inv_dy = 1.0f / prm[P_DY];
-  const float inv_az = inv_dx * inv_dy;
-  const float num = prm[P_CALPHA] * prm[P_DT] * inv_az;
-  const float mass_min = prm[P_MASSMIN];
-  const float conc_min = prm[P_CONCMIN];
-  const int kw = p.row_m + p.j, ks = p.row_0 + p.jm, kws = p.row_m + p.jm;
+struct Plan {
+  static constexpr int K = 2;               // substeps a launch
+  static constexpr int TX = 32;             // output rows (x)
+  static constexpr int TY = 64;             // output columns (y, contiguous)
+  static constexpr int NTH = 512;           // threads a block
+  static constexpr int MINB = 1024 / NTH;   // blocks an SM: 32 warps, ≤ 64 registers
+  static constexpr int H = 2 * K;           // overlap on each side
+  static constexpr int SX = TX + 2 * H;     // shared rows
+  static constexpr int SY = TY + 2 * H;     // shared row stride
+  static constexpr int NS = SX * SY;
+  static constexpr size_t SMEM = N_SHARED * NS * sizeof(float);
+  static_assert((TY & (TY - 1)) == 0, "TY must be a power of two");
+};
 
-  const float m_fc = 0.5f * (m[p.k] + m[kw]);
-  const float a_fc = 0.5f * (a[p.k] + a[kw]);
-  const float m_cf = 0.5f * (m[p.k] + m[ks]);
-  const float a_cf = 0.5f * (a[p.k] + a[ks]);
-  const float invm_u = m_fc > 0.0f ? 1.0f / m_fc : 0.0f;
-  const float invm_v = m_cf > 0.0f ? 1.0f / m_cf : 0.0f;
-  // cc → ff: 0.25·((q[i,j] + q[i,j-1]) + (q[i-1,j] + q[i-1,j-1]))
-  const float m_ff = 0.25f * ((m[p.k] + m[ks]) + (m[kw] + m[kws]));
-  c.Pff[p.k] = 0.25f * ((P[p.k] + P[ks]) + (P[kw] + P[kws]));
-  c.gcc[p.k] = m[p.k] > 0.0f ? num / m[p.k] : -1.0f;
-  c.gff[p.k] = m_ff > 0.0f ? num / m_ff : -1.0f;
-  c.drag_u[p.k] = invm_u * a_fc;
-  c.invm_u[p.k] = invm_u;
-  c.act_u[p.k] = (m_fc >= mass_min && a_fc >= conc_min) ? 1.0f : 0.0f;
-  c.drag_v[p.k] = invm_v * a_cf;
-  c.invm_v[p.k] = invm_v;
-  c.act_v[p.k] = (m_cf >= mass_min && a_cf >= conc_min) ? 1.0f : 0.0f;
+// What every phase of a block reads: the shared tile, the wrapped global
+// offsets of its rows and columns, and the parameters.
+struct Tile {
+  float *u, *v, *s11, *s22, *s12, *al, *m, *a, *P;
+  const int *crow, *ccol;   // global row offsets (times ny) and columns
+  StressParams sp;
+  UpdateParams up;
+  float num, mass_min, conc_min, ue, ve, tau_u, tau_v;
+};
+
+// f(s, r, c) at every point of the tile grown by R on each side: shared
+// index s, shared row r and column c.
+template <int R, class F>
+__device__ __forceinline__ void over_region(F&& f) {
+  constexpr int RX = Plan::TX + 2 * R, RY = Plan::TY + 2 * R, N = RX * RY, O = Plan::H - R;
+  static_assert(O >= 1, "a region reads one point beyond itself");
+  for (int l = threadIdx.x; l < N; l += Plan::NTH) {
+    const int r = l / RY;
+    const int c = l - r * RY;
+    f((r + O) * Plan::SY + (c + O), r + O, c + O);
+  }
 }
 
-// Substeps k0 + 1 … k0 + nk on one tile.
-__global__ void __launch_bounds__(NTHREADS) tiled_chunk(
-    const float* __restrict__ prm, Consts c, int nx, int ny, Fields in, Fields out,
-    int k0, int nk) {
-  extern __shared__ float sm[];
-  __shared__ int crow[TX], ccol[TY];   // wrapped rows (times ny) and columns
-  float* u = sm;
-  float* v = sm + NT;
-  float* s11 = sm + 2 * NT;
-  float* s22 = sm + 3 * NT;
-  float* s12 = sm + 4 * NT;
-  float* al = sm + 5 * NT;
-  const int gx0 = blockIdx.y * OX - W;   // interior coordinates of tile point (0, 0)
-  const int gy0 = blockIdx.x * OY - W;
-  const int tid = threadIdx.y * TBX + threadIdx.x;
-  const float ue = prm[P_UE], ve = prm[P_VE];
-  const float tau_u = prm[P_TAUU], tau_v = prm[P_TAUV];
-
-  for (int l = tid; l < TX; l += NTHREADS) crow[l] = wrapi(gx0 + l, nx) * ny;
-  for (int l = tid; l < TY; l += NTHREADS) ccol[l] = wrapi(gy0 + l, ny);
-  __syncthreads();
-  for (int l = tid; l < NT; l += NTHREADS) {
-    const int k = crow[l / TY] + ccol[l % TY];
-    u[l] = in.u[k];
-    v[l] = in.v[k];
-    s11[l] = in.s11[k];
-    s22[l] = in.s22[k];
-    s12[l] = in.s12[k];
-    al[l] = in.al[k];
-  }
-  __syncthreads();
-
-  for (int t = 0; t < nk; ++t) {
-    const int substep = k0 + t + 1;
-    for (int l = tid; l < NT; l += NTHREADS) {
-      const int li = l / TY, lj = l % TY;
-      float U[3][3], V[3][3];
+// σ relaxation at shared point s, with Pff and the γ² coefficients derived
+// as tiled_evp_coefficients derives them
+__device__ __forceinline__ void stress_at(const Tile& t, int s) {
+  constexpr int SY = Plan::SY;
+  float U[3][3], V[3][3];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const int r = clampi(li + a - 1, 0, TX - 1) * TY;
+  for (int a = 0; a < 3; ++a) {
 #pragma unroll
-        for (int b = 0; b < 3; ++b) {
-          const int q = r + clampi(lj + b - 1, 0, TY - 1);
-          U[a][b] = u[q];
-          V[a][b] = v[q];
-        }
-      }
-      const int k = crow[li] + ccol[lj];
-      float x11 = s11[l], x22 = s22[l], x12 = s12[l];
-      al[l] = stress_point(prm, U, V, c.P[k], c.Pff[k], c.gcc[k], c.gff[k], x11, x22, x12);
-      s11[l] = x11;
-      s22[l] = x22;
-      s12[l] = x12;
+    for (int b = 0; b < 3; ++b) {
+      U[a][b] = t.u[s + (a - 1) * SY + (b - 1)];
+      V[a][b] = t.v[s + (a - 1) * SY + (b - 1)];
     }
+  }
+  const int ks = s - 1, kw = s - SY, kws = s - SY - 1;
+  // cc → ff: 0.25·((q[i,j] + q[i,j-1]) + (q[i-1,j] + q[i-1,j-1]))
+  const float Pff = 0.25f * ((t.P[s] + t.P[ks]) + (t.P[kw] + t.P[kws]));
+  const float m_ff = 0.25f * ((t.m[s] + t.m[ks]) + (t.m[kw] + t.m[kws]));
+  const float mc = t.m[s];
+  const float gcc = mc > 0.0f ? t.num / mc : -1.0f;
+  const float gff = m_ff > 0.0f ? t.num / m_ff : -1.0f;
+  float x11 = t.s11[s], x22 = t.s22[s], x12 = t.s12[s];
+  t.al[s] = stress_point(t.sp, U, V, t.P[s], Pff, gcc, gff, x11, x22, x12);
+  t.s11[s] = x11;
+  t.s22[s] = x22;
+  t.s12[s] = x12;
+}
+
+// the u update at shared point s (global offset k), with 1/m, drag and the
+// active flag at (f,c) derived from m, ℵ at s and its west neighbour
+__device__ __forceinline__ void u_at(const Tile& t, const float* __restrict__ un, int s,
+                                     int k) {
+  constexpr int SY = Plan::SY;
+  const int lw = s - SY, ln = s + 1, lwn = s - SY + 1;
+  const float m_fc = 0.5f * (t.m[s] + t.m[lw]);
+  const float a_fc = 0.5f * (t.a[s] + t.a[lw]);
+  const float invm = m_fc > 0.0f ? 1.0f / m_fc : 0.0f;
+  const float drag = invm * a_fc;
+  const float act = (m_fc >= t.mass_min && a_fc >= t.conc_min) ? 1.0f : 0.0f;
+  t.u[s] = u_update_point(t.up, t.s11[s], t.s11[lw], t.s12[s], t.s12[ln], t.v[s], t.v[ln],
+                          t.v[lw], t.v[lwn], t.ve, t.ve, t.ve, t.ve, t.u[s], 0.0f, t.ue,
+                          t.tau_u, drag, invm, un[k], act, false, 0.0f, 0.0f, t.al[s],
+                          t.al[lw]);
+}
+
+// the v update at shared point s, coefficients at (c,f) from s and its
+// south neighbour
+__device__ __forceinline__ void v_at(const Tile& t, const float* __restrict__ vn, int s,
+                                     int k) {
+  constexpr int SY = Plan::SY;
+  const int ls = s - 1, le = s + SY, les = s + SY - 1;
+  const float m_cf = 0.5f * (t.m[s] + t.m[ls]);
+  const float a_cf = 0.5f * (t.a[s] + t.a[ls]);
+  const float invm = m_cf > 0.0f ? 1.0f / m_cf : 0.0f;
+  const float drag = invm * a_cf;
+  const float act = (m_cf >= t.mass_min && a_cf >= t.conc_min) ? 1.0f : 0.0f;
+  t.v[s] = v_update_point(t.up, t.s22[s], t.s22[ls], t.s12[s], t.s12[le], t.u[s], t.u[ls],
+                          t.u[le], t.u[les], t.ue, t.ue, t.ue, t.ue, t.v[s], 0.0f, t.ve,
+                          t.tau_v, drag, invm, vn[k], act, false, 0.0f, 0.0f, t.al[s],
+                          t.al[ls]);
+}
+
+template <int R>
+__device__ __forceinline__ void update_region(const Tile& t, const Inputs& in, bool u_phase) {
+  if (u_phase) {
+    over_region<R>([&](int s, int r, int c) { u_at(t, in.un, s, t.crow[r] + t.ccol[c]); });
+  } else {
+    over_region<R>([&](int s, int r, int c) { v_at(t, in.vn, s, t.crow[r] + t.ccol[c]); });
+  }
+}
+
+// substeps T … K of the chunk (substep k0 + T first), stopping after nk
+template <int T>
+__device__ __forceinline__ void substeps(const Tile& t, const Inputs& in, int k0, int nk) {
+  if constexpr (T <= Plan::K) {
+    if (T > nk) return;
+    constexpr int R = 2 * (Plan::K - T);   // the region exact after this substep
+    over_region<R + 1>([&](int s, int, int) { stress_at(t, s); });
     __syncthreads();
-    for (int half = 0; half < 2; ++half) {
-      // odd substeps: v then u; even substeps: u then v
-      if ((substep % 2 == 0) == (half == 0)) {
-        for (int l = tid; l < NT; l += NTHREADS) {
-          const int li = l / TY, lj = l % TY;
-          const int iw = li > 0 ? li - 1 : 0;
-          const int jn = lj < TY - 1 ? lj + 1 : TY - 1;
-          const int lw = iw * TY + lj, ln = li * TY + jn, lwn = iw * TY + jn;
-          const int k = crow[li] + ccol[lj];
-          u[l] = u_update_point(prm, s11[l], s11[lw], s12[l], s12[ln], v[l], v[ln], v[lw],
-                                v[lwn], ve, ve, ve, ve, u[l], 0.0f, ue, tau_u, c.drag_u[k],
-                                c.invm_u[k], c.un[k], c.act_u[k], false, 0.0f, 0.0f, al[l],
-                                al[lw]);
-        }
-      } else {
-        for (int l = tid; l < NT; l += NTHREADS) {
-          const int li = l / TY, lj = l % TY;
-          const int js = lj > 0 ? lj - 1 : 0;
-          const int ie = li < TX - 1 ? li + 1 : TX - 1;
-          const int ls = li * TY + js, le = ie * TY + lj, les = ie * TY + js;
-          const int k = crow[li] + ccol[lj];
-          v[l] = v_update_point(prm, s22[l], s22[ls], s12[l], s12[le], u[l], u[ls], u[le],
-                                u[les], ue, ue, ue, ue, v[l], 0.0f, ve, tau_v, c.drag_v[k],
-                                c.invm_v[k], c.vn[k], c.act_v[k], false, 0.0f, 0.0f, al[l],
-                                al[ls]);
-        }
-      }
-      __syncthreads();
-    }
+    // odd substeps: v then u; even substeps: u then v
+    const bool even = (k0 + T) % 2 == 0;
+    update_region<R + 1>(t, in, even);
+    __syncthreads();
+    update_region<R>(t, in, !even);
+    __syncthreads();
+    substeps<T + 1>(t, in, k0, nk);
   }
+}
 
-  // the tile's interior points inside the domain go back to device memory
-  for (int l = tid; l < NT; l += NTHREADS) {
-    const int li = l / TY, lj = l % TY;
-    const int gx = gx0 + li, gy = gy0 + lj;
-    if (li < W || li >= W + OX || lj < W || lj >= W + OY || gx >= nx || gy >= ny) continue;
-    const int k = gx * ny + gy;
-    out.u[k] = u[l];
-    out.v[k] = v[l];
-    out.s11[k] = s11[l];
-    out.s22[k] = s22[l];
-    out.s12[k] = s12[l];
-    out.al[k] = al[l];
+// Substeps k0 + 1 … k0 + nk on one tile; α is written only with write_al.
+__global__ void __launch_bounds__(Plan::NTH, Plan::MINB) tiled_chunk(
+    const float* __restrict__ prm, Inputs in, int nx, int ny, Fields src, Fields dst,
+    int k0, int nk, int write_al) {
+  extern __shared__ float sm[];
+  __shared__ int crow[Plan::SX], ccol[Plan::SY];
+  constexpr int NS = Plan::NS, SY = Plan::SY;
+  const int gx0 = blockIdx.y * Plan::TX - Plan::H;   // interior coordinates of shared (0, 0)
+  const int gy0 = blockIdx.x * Plan::TY - Plan::H;
+  for (int l = threadIdx.x; l < Plan::SX; l += Plan::NTH) crow[l] = wrapi(gx0 + l, nx) * ny;
+  for (int l = threadIdx.x; l < SY; l += Plan::NTH) ccol[l] = wrapi(gy0 + l, ny);
+
+  Tile t;
+  t.u = sm;
+  t.v = sm + NS;
+  t.s11 = sm + 2 * NS;
+  t.s22 = sm + 3 * NS;
+  t.s12 = sm + 4 * NS;
+  t.al = sm + 5 * NS;
+  t.m = sm + 6 * NS;
+  t.a = sm + 7 * NS;
+  t.P = sm + 8 * NS;
+  t.crow = crow;
+  t.ccol = ccol;
+  t.sp = stress_params(prm);
+  t.up = update_params(prm);
+  // the γ² numerator in tiled_evp_coefficients' order: cα·Δt·(1/Δx·1/Δy)
+  t.num = prm[P_CALPHA] * prm[P_DT] * (t.sp.inv_dx * t.sp.inv_dy);
+  t.mass_min = prm[P_MASSMIN];
+  t.conc_min = prm[P_CONCMIN];
+  t.ue = prm[P_UE];
+  t.ve = prm[P_VE];
+  t.tau_u = prm[P_TAUU];
+  t.tau_v = prm[P_TAUV];
+  __syncthreads();
+
+  for (int l = threadIdx.x; l < NS; l += Plan::NTH) {
+    const int r = l / SY;
+    const int k = crow[r] + ccol[l - r * SY];
+    t.u[l] = src.u[k];
+    t.v[l] = src.v[k];
+    t.s11[l] = src.s11[k];
+    t.s22[l] = src.s22[k];
+    t.s12[l] = src.s12[k];
+    t.m[l] = in.m[k];
+    t.a[l] = in.a[k];
+    t.P[l] = in.P[k];
   }
+  __syncthreads();
+
+  substeps<1>(t, in, k0, nk);
+
+  // the tile's points inside the domain go back to device memory
+  for (int l = threadIdx.x; l < Plan::TX * Plan::TY; l += Plan::NTH) {
+    const int r = l / Plan::TY;              // a shift: TY is a power of two
+    const int c = l & (Plan::TY - 1);
+    const int gx = gx0 + Plan::H + r, gy = gy0 + Plan::H + c;
+    if (gx >= nx || gy >= ny) continue;
+    const int k = gx * ny + gy;
+    const int s = (r + Plan::H) * SY + (c + Plan::H);
+    dst.u[k] = t.u[s];
+    dst.v[k] = t.v[s];
+    dst.s11[k] = t.s11[s];
+    dst.s22[k] = t.s22[s];
+    dst.s12[k] = t.s12[s];
+    if (write_al) dst.al[k] = t.al[s];
+  }
+}
+
+cudaError_t prepare() {
+  return cudaFuncSetAttribute(tiled_chunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(Plan::SMEM));
 }
 
 }  // namespace
 
-// The most substeps a launch runs (the overlap W is sized for it).
-extern "C" int csi_evp_tiled_chunk_substeps() { return KMAX; }
+// The substeps one launch runs (the plan's K).
+extern "C" int csi_evp_tiled_chunk_substeps() { return Plan::K; }
 
-// Runs `nsub` substeps on u, v, s11, s22, s12, al (each nx×ny, row-major,
-// y contiguous) from m, a, P, un, vn of the same shape, on `stream`: one
-// launch derives the coefficients into the nine scratch arrays `c_*`, then
-// one launch per chunk of KMAX substeps ping-pongs the fields with the six
+// The kernel's build and occupancy into out[6]: registers a thread, spill
+// bytes a thread, static and dynamic shared bytes a block, blocks an SM,
+// threads a block.  Returns 0 or a CUDA error.
+extern "C" int csi_evp_tiled_describe(int* out) {
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, tiled_chunk)) != cudaSuccess) return err;
+  int blocks = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tiled_chunk, Plan::NTH,
+                                                           Plan::SMEM)) != cudaSuccess)
+    return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = static_cast<int>(Plan::SMEM);
+  out[4] = blocks;
+  out[5] = Plan::NTH;
+  return 0;
+}
+
+// Runs `nsub` substeps on u, v, s11, s22, s12, al (each nx×ny, row-major, y
+// contiguous) from m, a, P, un, vn of the same shape, on `stream`: one
+// launch per chunk of K substeps, ping-ponging the fields with the six
 // scratch arrays `t_*`.  The results are left in u … al.  Returns 0, or the
 // first nonzero CUDA error.
 extern "C" int csi_evp_tiled_substeps(
     const float* params, const float* m, const float* a, const float* P,
     const float* un, const float* vn,
-    float* c_Pff, float* c_gcc, float* c_gff, float* c_drag_u, float* c_invm_u,
-    float* c_act_u, float* c_drag_v, float* c_invm_v, float* c_act_v,
     float* u, float* v, float* s11, float* s22, float* s12, float* al,
     float* t_u, float* t_v, float* t_s11, float* t_s22, float* t_s12, float* t_al,
     int nx, int ny, int nsub, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      tiled_chunk, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return err;
-  const Coeffs co{c_Pff, c_gcc, c_gff, c_drag_u, c_invm_u, c_act_u, c_drag_v, c_invm_v,
-                  c_act_v};
-  tiled_prep<<<dim3((ny + BX - 1) / BX, (nx + BY - 1) / BY), dim3(BX, BY), 0, s>>>(
-      params, m, a, P, co, nx, ny);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const Consts c{P, c_Pff, c_gcc, c_gff, c_drag_u, c_invm_u, c_act_u, un,
-                 c_drag_v, c_invm_v, c_act_v, vn};
+  const Inputs in{m, a, P, un, vn};
   Fields f{u, v, s11, s22, s12, al};
   Fields g{t_u, t_v, t_s11, t_s22, t_s12, t_al};
-  const dim3 block(TBX, TBY);
-  const dim3 grid((ny + OY - 1) / OY, (nx + OX - 1) / OX);
-  for (int k0 = 0; k0 < nsub; k0 += KMAX) {
-    const int nk = nsub - k0 < KMAX ? nsub - k0 : KMAX;
-    tiled_chunk<<<grid, block, SMEM_BYTES, s>>>(params, c, nx, ny, f, g, k0, nk);
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((ny + Plan::TY - 1) / Plan::TY, (nx + Plan::TX - 1) / Plan::TX);
+  for (int k0 = 0; k0 < nsub; k0 += Plan::K) {
+    const int nk = nsub - k0 < Plan::K ? nsub - k0 : Plan::K;
+    tiled_chunk<<<grid, Plan::NTH, Plan::SMEM, s>>>(params, in, nx, ny, f, g, k0, nk,
+                                                    k0 + nk == nsub);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const Fields t = f;
     f = g;

@@ -56,9 +56,12 @@ N_CONSTS = 14       # as fused_evp_padded: P, Pff, gcc, gff, drag_u, invm_u, act
 N_DRAG = 4
 N_STRESS = 4
 N_CARRY = 6
-N_FORMS = 8         # the loop-invariant metric forms the kernel's prep launch makes
+N_FORMS = 12        # the loop-invariant forms the kernel's prep launch makes: 8 metric
+                    # forms, the two ocean velocity averages, τ·drag for u and v
 LAUNCHES_PER_SUBSTEP = 3
-LAUNCHES_PER_CALL = 3   # the metric forms and the initial u and v halo fills
+LAUNCHES_PER_CALL = 3   # the forms and settled flags, the initial u and v halo fills
+BLOCK = (8, 32)     # the kernel's blocks: rows along x, columns along y
+FIRST_SKIPPED = 4   # the first substep a settled block skips (csrc/evp_curvilinear.cu)
 
 curvilinear_evp_counter = KernelCounter()
 
@@ -340,28 +343,114 @@ def curvilinear_evp_substeps_reference(params, consts, carry, nsub, grid, f_plan
     return u, v, s11, s22, s12, alpha
 
 
+# --- the settled blocks ---------------------------------------------------------
+
+def _fill_source(i, H, N, periodic, face):
+    """The padded index that the halo fill copies padded index ``i`` from
+    along one direction, −1 where it writes zero (the kernel's
+    ``fill_source``)."""
+    if H == 0:
+        return i
+    if periodic:
+        return np.where(i < H, i + N, np.where(i >= H + N, i - N, i))
+    if face:
+        return np.where((i < H) | (i > H + N), -1, i)
+    return np.clip(i, H, H + N - 1)
+
+
+def fill_sources(grid):
+    """Where the kernel's update threads compute, as numpy index arrays over
+    the padded points: for u (f,c) the source (si, sj) of the composed fill
+    and whether there is one; for v (c,f) the source, whether there is one,
+    and on the seam row the mirror column (``u_source``, ``v_source``)."""
+    i, j = np.meshgrid(np.arange(grid.nxp), np.arange(grid.nyp), indexing="ij")
+    per_x, per_y = grid.topology[0] == PERIODIC, grid.topology[1] == PERIODIC
+    seam = grid.Hy + grid.Ny
+
+    def fold_column(face):
+        return (((grid.Nx if face else grid.Nx - 1) - (i - grid.Hx)) % grid.Nx) + grid.Hx
+
+    u_si = _fill_source(i, grid.Hx, grid.Nx, per_x, True)
+    u_sj = _fill_source(j, grid.Hy, grid.Ny, per_y, False)
+    v_si = _fill_source(i, grid.Hx, grid.Nx, per_x, False)
+    v_sj = _fill_source(j, grid.Hy, grid.Ny, per_y, True)
+    v_sm = np.zeros_like(i)
+    on_seam = np.zeros(i.shape, bool)
+    if grid.north_fold:
+        top = j >= seam
+        u_si = np.where(top, fold_column(True), u_si)
+        u_sj = np.where(top, 2 * seam - 1 - j, u_sj)
+        on_seam = j == seam
+        v_sm = np.where(top, fold_column(False), 0)
+        v_si = np.where(top & ~on_seam, v_sm, v_si)
+        v_sj = np.where(top, np.where(on_seam, seam, 2 * seam - j), v_sj)
+    u_on = (u_si >= 0) & (u_sj >= 0)
+    v_on = (v_si >= 0) & (v_sj >= 0)
+    return dict(u=(u_si, u_sj, u_on), v=(v_si, v_sj, v_on), seam=(v_sm, on_seam))
+
+
+def settled_blocks_reference(consts, grid):
+    """Plain version of the kernel's flag launch: for each block of the
+    launch grid (``BLOCK`` points; ceil(nxp/8) × ceil(nyp/32)), True where
+    every point within one (by wrap over the padded extent) of each of its
+    points, and of each fill source its update threads compute at (the
+    seam's mirror included), is dead: gcc ≤ 0, gff ≤ 0, act_u = act_v = 0,
+    1/m ≤ 0 at (f,c) and (c,f).  From substep ``FIRST_SKIPPED`` on the
+    kernel does no work in such a block: every value it writes there is
+    fixed after substep 2 (see csrc/evp_curvilinear.cu)."""
+    core = tuple(consts)[N_METRICS:N_METRICS + N_CONSTS]
+    (_, _, gcc, gff, _, invm_u, act_u, _, _, invm_v, act_v, _, _, _) = core
+    dead = ((gcc <= 0) & (gff <= 0) & (act_u == 0) & (act_v == 0)
+            & (invm_u <= 0) & (invm_v <= 0))
+    around = dead.clone()
+    for a in (-1, 0, 1):
+        for b in (-1, 0, 1):
+            around &= torch.roll(dead, (-a, -b), (0, 1))   # dead at (i + a, j + b)
+    src = fill_sources(grid)
+    ok = around.clone()
+    for si, sj, on in (src["u"], src["v"], (src["seam"][0], src["v"][1], src["seam"][1])):
+        on = torch.as_tensor(on, device=ok.device)
+        at = around[torch.as_tensor(np.maximum(si, 0), device=ok.device),
+                    torch.as_tensor(np.maximum(sj, 0), device=ok.device)]
+        ok &= torch.where(on, at, True)
+    bx, by = BLOCK
+    nbx, nby = -(-grid.nxp // bx), -(-grid.nyp // by)
+    padded = torch.ones((nbx * bx, nby * by), dtype=torch.bool, device=ok.device)
+    padded[:grid.nxp, :grid.nyp] = ok
+    return padded.reshape(nbx, bx, nby, by).all(dim=3).all(dim=1)
+
+
+def settled_share(consts, grid):
+    """The share of the kernel's blocks that are settled (host value)."""
+    return float(settled_blocks_reference(consts, grid).float().mean().item())
+
+
 # --- the kernel's wrapper -------------------------------------------------------
 
 def _curvilinear_entry():
     fn = _build.load("evp_curvilinear").csi_evp_curvilinear_substeps
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * (1 + N_METRICS + N_CONSTS + N_DRAG + N_STRESS
-                                            + 2 + N_CARRY + 3)
+                                            + 2 + N_CARRY + 5)
                        + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def curvilinear_evp_substeps(params, consts, carry, nsub, grid, f_planes=None):
+def curvilinear_evp_substeps(params, consts, carry, nsub, grid, f_planes=None, settled=None):
     """Run ``nsub`` αEVP substeps on padded arrays of ``grid``'s shape.
 
     ``params``: float32[18] (the layout of :mod:`.fused_evp`); ``consts``:
-    the 12 metric arrays, the 14 constant arrays, then the 4 immersed-drag
-    coefficient arrays if there is drag, then the 4 stress arrays;
-    ``carry``: (u, v, σ₁₁, σ₂₂, σ₁₂, α); ``f_planes``: (f_fc, f_cf) or None
-    for the scalar f of ``params``.  CUDA tensors go to the CUDA kernel,
-    which updates the carry tensors in place and returns them; CPU tensors
-    go to :func:`curvilinear_evp_substeps_reference`."""
+    the 12 metric arrays, the 14 constant arrays (act_u, act_v, msk_cc and
+    msk_ff holding only 0 and 1, as the launcher makes them), then the 4
+    immersed-drag coefficient arrays if there is drag, then the 4 stress
+    arrays; ``carry``: (u, v, σ₁₁, σ₂₂, σ₁₂, α); ``f_planes``: (f_fc, f_cf)
+    or None for the scalar f of ``params``.  CUDA tensors go to the CUDA
+    kernel, which updates the carry tensors in place and returns them; CPU
+    tensors go to :func:`curvilinear_evp_substeps_reference`.  ``settled``:
+    an int32 CUDA tensor of ceil(nxp/8)·ceil(nyp/32) elements into which
+    the kernel writes its settled flags (:func:`settled_blocks_reference`
+    flattened), or None."""
     consts, carry = tuple(consts), tuple(carry)
     base = N_METRICS + N_CONSTS + N_STRESS
     if len(consts) not in (base, base + N_DRAG) or len(carry) != N_CARRY:
@@ -388,13 +477,21 @@ def curvilinear_evp_substeps(params, consts, carry, nsub, grid, f_planes=None):
     f_ptrs = [q.data_ptr() for q in planes] if planes else [None, None]
     scratch = (torch.empty_like(carry[0]), torch.empty_like(carry[1]))
     forms = torch.empty((N_FORMS,) + shape, dtype=torch.float32, device=device)
+    bits = torch.empty(shape, dtype=torch.uint8, device=device)
+    blocks = -(-shape[0] // BLOCK[0]) * -(-shape[1] // BLOCK[1])
+    if settled is None:
+        settled = torch.empty(blocks, dtype=torch.int32, device=device)
+    elif (settled.dtype != torch.int32 or settled.device != device
+          or settled.numel() != blocks or not settled.is_contiguous()):
+        raise ValueError(f"settled must be a contiguous int32 tensor of {blocks} elements "
+                         f"on {device}")
     ptrs = [params.data_ptr()]
     ptrs += [q.data_ptr() for q in core]
     ptrs += [None if q is None else q.data_ptr() for q in drag]
     ptrs += [q.data_ptr() for q in consts[-N_STRESS:]]
     ptrs += f_ptrs
     ptrs += [q.data_ptr() for q in carry + scratch]
-    ptrs += [forms.data_ptr()]
+    ptrs += [forms.data_ptr(), bits.data_ptr(), settled.data_ptr()]
     fn = _curvilinear_entry()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -45,7 +45,6 @@ from .fused_evp import (KernelCounter, N_CARRY, _P_CALPHA, _P_CONCMIN,
 from .rheologies import ice_strength
 
 N_INPUTS = 5     # m, ℵ, P, uⁿ, vⁿ
-N_COEFFS = 9     # Pff, gcc, gff, drag_u, invm_u, act_u, drag_v, invm_v, act_v
 
 tiled_evp_counter = KernelCounter()
 
@@ -104,15 +103,38 @@ def tiled_evp_substeps_reference(params, m, a, P, un, vn, carry, nsub):
 
 # --- the kernel's wrapper -------------------------------------------------------
 
-def _tiled_entry():
+def _tiled_lib():
     lib = _build.load("evp_tiled")
     fn = lib.csi_evp_tiled_substeps
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * (1 + N_INPUTS + N_COEFFS + 2 * N_CARRY)
+        fn.argtypes = ([ctypes.c_void_p] * (1 + N_INPUTS + 2 * N_CARRY)
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.csi_evp_tiled_chunk_substeps.argtypes = []
         lib.csi_evp_tiled_chunk_substeps.restype = ctypes.c_int
-    return fn, lib.csi_evp_tiled_chunk_substeps()
+        lib.csi_evp_tiled_describe.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.csi_evp_tiled_describe.restype = ctypes.c_int
+    return lib
+
+
+def chunk_substeps():
+    """The substeps one launch of the built kernel runs."""
+    return _tiled_lib().csi_evp_tiled_chunk_substeps()
+
+
+def describe():
+    """The built kernel on the current card: registers and spill bytes a
+    thread, static and dynamic shared bytes a block, resident blocks an SM
+    and threads a block (the CUDA runtime's attributes and occupancy
+    calculator)."""
+    out = (ctypes.c_int * 6)()
+    err = _tiled_lib().csi_evp_tiled_describe(out)
+    if err != 0:
+        raise RuntimeError(f"tiled EVP kernel attributes: CUDA error {err} "
+                           f"({cuda_error_string('evp_tiled', err)})")
+    keys = ("registers", "spill_bytes", "static_shared_bytes", "dynamic_shared_bytes",
+            "blocks_per_sm", "threads_per_block")
+    return dict(zip(keys, out))
 
 
 def tiled_evp_substeps(params, m, a, P, un, vn, carry, nsub):
@@ -120,10 +142,11 @@ def tiled_evp_substeps(params, m, a, P, un, vn, carry, nsub):
 
     ``params``: float32[18] (:mod:`.fused_evp`'s layout); ``m``, ``a``,
     ``P``, ``un``, ``vn`` and the ``carry`` (u, v, σ₁₁, σ₂₂, σ₁₂, α): float32
-    arrays of one shape.  CUDA tensors go to the CUDA kernel (one launch
-    that derives the coefficients, then one per chunk of the kernel's K
-    substeps), which updates the carry tensors in place and returns them;
-    CPU tensors go to :func:`tiled_evp_substeps_reference`."""
+    arrays of one shape.  CUDA tensors go to the CUDA kernel (one launch per
+    chunk of :func:`chunk_substeps` substeps, each deriving the coefficients
+    it needs from m, ℵ and P on chip), which updates the carry tensors in
+    place and returns them; CPU tensors go to
+    :func:`tiled_evp_substeps_reference`."""
     inputs, carry = (m, a, P, un, vn), tuple(carry)
     if len(carry) != N_CARRY:
         raise ValueError(f"expected {N_CARRY} carries")
@@ -136,18 +159,19 @@ def tiled_evp_substeps(params, m, a, P, un, vn, carry, nsub):
         raise ValueError(f"no EVP kernel for device {device}")
     nx, ny = check_kernel_args(params, inputs + carry)
     nsub = int(nsub)
-    coeffs = tuple(torch.empty_like(m) for _ in range(N_COEFFS))
     scratch = tuple(torch.empty_like(q) for q in carry)
-    fn, K = _tiled_entry()
+    lib = _tiled_lib()
+    K = lib.csi_evp_tiled_chunk_substeps()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(params.data_ptr(), *(q.data_ptr() for q in inputs + coeffs + carry + scratch),
-                 nx, ny, nsub, stream)
+        err = lib.csi_evp_tiled_substeps(params.data_ptr(),
+                                         *(q.data_ptr() for q in inputs + carry + scratch),
+                                         nx, ny, nsub, stream)
     if err != 0:
         raise RuntimeError(f"tiled EVP kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp_tiled', err)})")
     tiled_evp_counter.calls += 1
-    tiled_evp_counter.launches += 1 + -(-nsub // K)
+    tiled_evp_counter.launches += -(-nsub // K)
     return carry
 
 

@@ -20,6 +20,7 @@ import climaseaice_jl_tpu_torch as cst
 from climaseaice_jl_tpu_torch import arctic_basin, model as tmodel
 from climaseaice_jl_tpu_torch.convert import state_from_numpy, state_to_numpy
 from climaseaice_jl_tpu_torch.dynamics import coriolis as tcoriolis, stresses as tstresses
+from climaseaice_jl_tpu_torch.dynamics import fused_evp_curvilinear as fec
 from climaseaice_jl_tpu_torch.dynamics.fused_evp import evp_counter
 from climaseaice_jl_tpu_torch.dynamics.fused_evp_curvilinear import (
     curvilinear_evp_counter, curvilinear_evp_inputs, curvilinear_evp_substeps,
@@ -581,6 +582,170 @@ def test_basin_float32_runs_through_entry_points():
     assert torch.equal(north, -mirror)
 
 
+# --- the settled blocks of the CUDA kernel (2.6) ------------------------------------
+
+def _settled_case(case):
+    """(params, consts, carry, grid, f_planes) of the curvilinear kernel on
+    the 96×80 basin (``basin``, LatitudeCoriolis) or the 32×64 folded basin
+    without fixed_tiles (``folded``, FPlane), 8 substeps, with seeded
+    velocities everywhere, land included, so that the sign of the zeros
+    that land points settle to is exercised."""
+    from climaseaice_jl_tpu_torch import distributed_basin
+    if case == "basin":
+        m = arctic_basin.basin_model(96, 80, substeps=8, device="cpu")
+        s, dt = arctic_basin.basin_state(m), 300.0
+    else:
+        m, s = distributed_basin.build(32, 64, substeps=8, device="cpu")
+        dt = 600.0
+    rng = np.random.default_rng(21)
+    noise = [0.05 * torch.tensor(rng.standard_normal(m.grid.shape), dtype=torch.float32)
+             for _ in range(2)]
+    params, consts, carry, _, planes = curvilinear_evp_inputs(m, s, dt, s.u + noise[0],
+                                                              s.v + noise[1])
+    return params, consts, carry, m.grid, planes
+
+
+def _kill(consts, grid, where):
+    """``consts`` with every point of the boolean (nxp, nyp) ``where`` made
+    dead: no mass at cc, ff, (f,c) and (c,f) (γ² coefficients −1, 1/m 0)
+    and inactive; the drag, masks and stresses as they were."""
+    out = list(consts)
+    for idx, value in ((2, -1.0), (3, -1.0), (5, 0.0), (6, 0.0), (9, 0.0), (10, 0.0)):
+        q = out[fec.N_METRICS + idx]
+        out[fec.N_METRICS + idx] = torch.where(where, torch.tensor(value, dtype=q.dtype), q)
+    return tuple(out)
+
+
+def _folded_dead_zone(grid):
+    """The southern 40 rows and 12 columns at each x edge of the padded
+    folded grid: with them dead, blocks settle at the south, along both x
+    edges and in the northern halo, whose fold sources lie at the other
+    x edge."""
+    i, j = torch.meshgrid(torch.arange(grid.nxp), torch.arange(grid.nyp), indexing="ij")
+    return (j < grid.Hy + 40) | (i < 12) | (i >= grid.nxp - 12)
+
+
+def _substeps_from(monkeypatch, first, params, consts, carry, grid, planes):
+    """One substep of the plain version numbered ``first`` (only its parity
+    matters): the plain loop's counter shifted."""
+    import builtins
+    monkeypatch.setattr(fec, "range", lambda a, b: builtins.range(a + first - 1, b + first - 1),
+                        raising=False)
+    try:
+        return fec.curvilinear_evp_substeps_reference(params, consts, carry, 1, grid, planes)
+    finally:
+        monkeypatch.delattr(fec, "range")
+
+
+def _bits(q):
+    return q.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("route", ["basin", "folded", "fixed_tiles"])
+def test_kernel_masks_are_zero_or_one(route):
+    """The CUDA kernel keeps act_u, act_v, msk_cc and msk_ff as one bit a
+    point, where its plain version multiplies by their values, so every
+    launcher that feeds it builds them from boolean masks: the basin and
+    the folded basin through :func:`curvilinear_evp_inputs`, and the
+    tripolar fixed-tile route's coefficients handed to the whole-array
+    kernel (`fused_evp_tiled_curvilinear.curvilinear_consts`)."""
+    if route == "fixed_tiles":
+        from climaseaice_jl_tpu_torch import distributed_basin
+        from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ttc
+        m, s = distributed_basin.build(32, 64, substeps=8, fixed_tiles=(8, 128), device="cpu")
+        plan = ttc._fixed_plan(m.grid, 8, (8, 128), widen_fold=True)
+        params, planes, _, grid, flags = ttc.tiled_curvilinear_inputs(
+            m, s, 600.0, s.u, s.v, Hw=2 * plan[0] + 5)
+        _, consts, _ = ttc.curvilinear_consts(params, planes, grid, plan, flags)
+    else:
+        _, consts, _, _, _ = _settled_case(route)
+    core = consts[fec.N_METRICS:fec.N_METRICS + fec.N_CONSTS]
+    for name, idx in (("act_u", 6), ("act_v", 10), ("msk_cc", 12), ("msk_ff", 13)):
+        q = core[idx]
+        assert bool(((q == 0) | (q == 1)).all()), (route, name)
+        assert bool((q == 1).any()), (route, name)
+
+
+@pytest.mark.parametrize("case", ["basin", "folded"])
+def test_settled_flags_are_conservative(case):
+    """The plain version of the kernel's flag launch: some blocks settled
+    and some not; one icy point (gcc > 0) in a settled block, or next to
+    it, unsettles it; on the folded grid a block of the northern halo whose
+    every point and neighbour is dead stays unsettled while one fold source
+    its threads compute at is active, and settles when that source dies."""
+    params, consts, carry, grid, planes = _settled_case(case)
+    flags = fec.settled_blocks_reference(consts, grid)
+    bx, by = fec.BLOCK
+    assert flags.shape == (-(-grid.nxp // bx), -(-grid.nyp // by))
+    if case == "basin":
+        assert flags.any() and not flags.all()
+        bi, bj = (int(q) for q in flags.nonzero()[0])
+        for di, dj in ((3, 5), (-1, 7), (bx, by)):   # inside, and one point outside
+            icy = list(consts)
+            gcc = icy[fec.N_METRICS + 2].clone()
+            gcc[(bi * bx + di) % grid.nxp, (bj * by + dj) % grid.nyp] = 1.0
+            icy[fec.N_METRICS + 2] = gcc
+            assert not fec.settled_blocks_reference(icy, grid)[bi, bj], (di, dj)
+    # every point dead: every block settled
+    base = fec.N_METRICS
+    core = _kill(consts, grid, torch.ones(grid.shape, dtype=torch.bool))
+    assert fec.settled_blocks_reference(core, grid).all()
+    if case == "folded":
+        # the halo point (Hx + 1, seam + 2) of block (0, top) takes u from the
+        # fold column Nx − 1 + Hx, far from the block's rows
+        i, j = grid.Hx + 1, grid.Hy + grid.Ny + 2
+        src = fec.fill_sources(grid)
+        si, sj = int(src["u"][0][i, j]), int(src["u"][1][i, j])
+        assert abs(si - i) > bx and j // by == sj // by
+        live = list(core)   # one active point at the fold source
+        gcc = live[base + 2].clone()
+        gcc[si, sj] = 1.0
+        live[base + 2] = gcc
+        flags = fec.settled_blocks_reference(live, grid)
+        assert not flags[0, j // by]
+        assert flags[0, 0]
+
+
+@pytest.mark.parametrize("drag", [True, False])
+@pytest.mark.parametrize("case", ["basin", "folded"])
+def test_settled_blocks_frozen_equal_plain_version(monkeypatch, case, drag):
+    """The kernel's skip emulated with its plain version: substeps one by
+    one, and from substep FIRST_SKIPPED on every point of a settled block
+    keeps what the kernel leaves there (σ and α from substep 3; u and v
+    from the buffer of that parity: substep 3's after odd substeps, 2's
+    after even ones).  Equal to the plain version over 9 substeps bit for
+    bit (signs of zero included), with and without the immersed drag
+    (its four arrays left out).  The 32×64 folded basin has no settled
+    block of its own, so there the points of ``_folded_dead_zone`` are
+    made dead, which settles blocks in the northern halo too."""
+    params, consts, carry, grid, planes = _settled_case(case)
+    if case == "folded":
+        consts = _kill(consts, grid, _folded_dead_zone(grid))
+    if not drag:
+        consts = consts[:fec.N_METRICS + fec.N_CONSTS] + consts[-fec.N_STRESS:]
+    assert (len(consts) == 34) == drag
+    nsub = 9   # odd: the result is the buffer of the odd substeps
+    full = fec.curvilinear_evp_substeps_reference(params, consts, carry, nsub, grid, planes)
+    bx, by = fec.BLOCK
+    flags = fec.settled_blocks_reference(consts, grid)
+    frozen = flags.repeat_interleave(bx, 0).repeat_interleave(by, 1)[:grid.nxp, :grid.nyp]
+    assert frozen.any()
+    if case == "folded":
+        assert flags[:, -1].any()   # blocks of the northern halo
+    first = fec.FIRST_SKIPPED
+    state, kept = tuple(carry), {}
+    for k in range(1, nsub + 1):
+        state = _substeps_from(monkeypatch, k, params, consts, state, grid, planes)
+        kept[k] = state
+        if k >= first:
+            # the last substep that wrote the u and v buffer read after substep k
+            last = first - 1 if (k - first + 1) % 2 == 0 else first - 2
+            held = list(kept[last][:2]) + list(kept[first - 1][2:])
+            state = tuple(torch.where(frozen, h, q) for h, q in zip(held, state))
+    for name, a, b in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), full, state):
+        assert torch.equal(_bits(a), _bits(b)), (case, drag, name)
+
+
 # --- the CUDA kernel ---------------------------------------------------------------
 
 @pytest.fixture
@@ -614,6 +779,37 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case):
                                    out, ref, (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
             assert torch.isfinite(a).all(), name
             assert _rel(b.cpu().numpy(), a.cpu().numpy()) <= tol, (nsub, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drag", [True, False])
+@pytest.mark.parametrize("case", ["basin", "folded"])
+def test_cuda_settled_blocks_match_plain_version(cuda_device, case, drag):
+    """The kernel on the inputs of test_settled_blocks_frozen_equal_plain_version
+    moved to the card (the 96×80 basin; the 32×64 folded basin with its dead
+    zone), 9 and 10 substeps: its settled flags equal the plain version's
+    (:func:`settled_blocks_reference`), and its results equal the plain
+    version's on the same CUDA tensors bit for bit."""
+    params, consts, carry, grid, planes = _settled_case(case)
+    if case == "folded":
+        consts = _kill(consts, grid, _folded_dead_zone(grid))
+    if not drag:
+        consts = consts[:fec.N_METRICS + fec.N_CONSTS] + consts[-fec.N_STRESS:]
+    dev = cuda_device
+    params, consts, carry = (params.to(dev), tuple(q.to(dev) for q in consts),
+                             tuple(q.to(dev) for q in carry))
+    planes = None if planes is None else tuple(q.to(dev) for q in planes)
+    flags = fec.settled_blocks_reference(consts, grid)
+    assert flags.any()
+    for nsub in (9, 10):
+        settled = torch.full((flags.numel(),), -1, dtype=torch.int32, device=dev)
+        out = curvilinear_evp_substeps(params, consts, [q.clone() for q in carry], nsub, grid,
+                                       planes, settled=settled)
+        ref = curvilinear_evp_substeps_reference(params, consts, carry, nsub, grid, planes)
+        torch.cuda.synchronize()
+        assert torch.equal(settled.view(flags.shape) != 0, flags)
+        for name, a, b in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), out, ref):
+            assert torch.equal(a, b), (nsub, name, (a - b).abs().max().item())
 
 
 @pytest.mark.cuda

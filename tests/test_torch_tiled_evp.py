@@ -147,6 +147,73 @@ def test_plain_version_plan_invariant(K):
             assert torch.equal(w, t), (name, K, TX, TY)
 
 
+def _reference_from(monkeypatch, first, params, inputs, carry, nsub):
+    """The plain version for substeps first … first + nsub − 1, as a chunk
+    of the kernel that starts there: the plain loop's substep counter
+    (:func:`.fused_evp.evp_substeps_reference`'s ``range``) shifted, which
+    only its parity reads."""
+    import builtins
+    monkeypatch.setattr(fe, "range",
+                        lambda a, b: builtins.range(a + first - 1, b + first - 1),
+                        raising=False)
+    try:
+        return ft.tiled_evp_substeps_reference(params, *inputs, carry, nsub)
+    finally:
+        monkeypatch.delattr(fe, "range")
+
+
+def _kernel_schedule(monkeypatch, inputs, carry, nsub, K, TX, TY):
+    """csrc/evp_tiled.cu's schedule emulated with the plain version: one
+    launch per chunk of K substeps (the last one shorter), each tile of
+    TX × TY output points gathered with an overlap of 2K by periodic wrap
+    from m, ℵ, P, uⁿ, vⁿ, u, v and σ (α is not loaded: a NaN stands for
+    it), its coefficients derived from the gathered m, ℵ, P alone, and its
+    output points written back to the other buffer."""
+    nx, ny = carry[0].shape
+    H = 2 * K
+    params = _params()
+    state = list(carry)
+    for k0 in range(0, nsub, K):
+        nk = min(K, nsub - k0)
+        new = [torch.empty_like(q) for q in state]
+        for x0 in range(0, nx, TX):
+            for y0 in range(0, ny, TY):
+                ix = torch.arange(x0 - H, x0 + TX + H) % nx
+                iy = torch.arange(y0 - H, y0 + TY + H) % ny
+                cut = [q[ix][:, iy] for q in tuple(inputs) + tuple(state)]
+                cut[-1] = torch.full_like(cut[-1], float("nan"))
+                out = _reference_from(monkeypatch, k0 + 1, params, cut[:5], cut[5:], nk)
+                wx, wy = min(TX, nx - x0), min(TY, ny - y0)
+                for n, o in zip(new, out):
+                    n[x0:x0 + wx, y0:y0 + wy] = o[H:H + wx, H:H + wy]
+        state = new
+    return state
+
+
+# (K substeps a launch, TX rows, TY columns of a tile's output) of
+# csrc/evp_tiled.cu's `Plan`
+KERNEL_PLAN = (2, 32, 64)
+
+
+@pytest.mark.parametrize("plan", [KERNEL_PLAN, (1, 16, 64)], ids=["kernel", "one-substep"])
+@pytest.mark.parametrize("shape, seed, nsub", [((40, 96), 11, 5), ((24, 40), 12, 6)])
+def test_kernel_schedule_matches_plain_version(monkeypatch, plan, shape, seed, nsub):
+    """The CUDA kernel's schedule (its tiles, its chunk length, the
+    coefficients derived per tile from m, ℵ, P, α never read), emulated
+    with the plain version, equals the plain version over the whole array
+    bitwise, in the kernel's plan and with one substep a launch on 16 × 64
+    tiles: on 40×96 (ragged last tiles, 5 substeps: the kernel's plan ends
+    on a short chunk) and 24×40 (tiles wider than the grid, periodic
+    images inside a tile, 6 substeps)."""
+    K, TX, TY = plan
+    inputs, carry = _fields(shape, seed)
+    inputs, carry = _torch(inputs), _torch(carry)
+    whole = ft.tiled_evp_substeps_reference(_params(), *inputs, carry, nsub)
+    tiled = _kernel_schedule(monkeypatch, inputs, carry, nsub, K, TX, TY)
+    for name, w, t in zip(NAMES, whole, tiled):
+        assert torch.equal(w, t), (name, plan, shape)
+
+
 def _square(lib, fused="always", substeps=8, N=128, **grid_kw):
     """tests/test_pallas_evp.py:84's `_build_square` (soft ice), stepped by
     SplitRungeKutta3."""
@@ -265,8 +332,9 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version(cuda_device):
     """The CUDA kernel against its plain version on the same CUDA tensors at
-    256², 18 substeps (an odd number of chunks, the last one short):
-    bitwise.  One coefficient launch and one per chunk."""
+    256², 18 substeps (the 9 chunks of the kernel's plan leave the results
+    in the scratch arrays, whose copy back is checked): bitwise.  One
+    launch per chunk."""
     inputs, carry = _fields((256, 256), 5)
     params = _params(cuda_device)
     inputs, carry = _torch(inputs, cuda_device), _torch(carry, cuda_device)
@@ -274,8 +342,26 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
     ft.tiled_evp_counter.reset()
     out = ft.tiled_evp_substeps(params, *inputs, [q.clone() for q in carry], 18)
     torch.cuda.synchronize()
-    _, K = ft._tiled_entry()
-    assert (ft.tiled_evp_counter.calls, ft.tiled_evp_counter.launches) == (1, 1 + -(-18 // K))
+    K = ft.chunk_substeps()
+    assert K == KERNEL_PLAN[0]
+    assert (ft.tiled_evp_counter.calls, ft.tiled_evp_counter.launches) == (1, -(-18 // K))
     for name, r, o in zip(NAMES, ref, out):
         assert torch.isfinite(o).all(), name
         assert torch.equal(r, o), (name, (r - o).abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_ragged_and_small_grids(cuda_device):
+    """Grids that the tiles do not divide (100×72) and grids smaller than a
+    tile (12×40, whose tiles hold periodic images), 7 substeps: bitwise
+    against the plain version, α's input ignored (NaN)."""
+    params = _params(cuda_device)
+    for shape, seed in (((100, 72), 6), ((12, 40), 7)):
+        inputs, carry = _fields(shape, seed)
+        inputs, carry = _torch(inputs, cuda_device), list(_torch(carry, cuda_device))
+        carry[5] = torch.full_like(carry[5], float("nan"))
+        ref = ft.tiled_evp_substeps_reference(params, *inputs, carry, 7)
+        out = ft.tiled_evp_substeps(params, *inputs, [q.clone() for q in carry], 7)
+        torch.cuda.synchronize()
+        for name, r, o in zip(NAMES, ref, out):
+            assert torch.equal(r, o), (shape, name, (r - o).abs().max().item())

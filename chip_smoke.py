@@ -29,20 +29,22 @@ Phases, each of which raises (exit code 1) when it fails:
 6. the padded EVP kernel vs its plain version on the card: the bounded and
    immersed configuration of ``validation/perf_sweep.py:build(512,
    bounded=True)`` (512² box, island of radius 60 km, ImmersedDrag) in soft
-   ice, 120 substeps, seeded velocities; bars as in phase 2 over the whole
-   padded arrays; times per call of both; then the curvilinear kernel on
+   ice, 120 substeps, seeded velocities; bitwise over the whole padded
+   arrays (0 ulp, a gate: the parent design was), so within phase 2's bars;
+   one launch a chunk of K substeps; its registers, spill, shared memory and
+   blocks per SM; times per call of both; then the curvilinear kernel on
    the same input, held against the padded kernel with the same bars, and
    the two kernels timed in turns;
 7. the slice's main path: that configuration at the default P★, one warm-up
    step and five timed steps; finite and physical, h = ℵ = 0 on land, u and
    v zero on peripheral nodes, the padded wrapper called 3 times per step
-   (3·120 + 2 launches per call) and the periodic one never;
+   (phase 6's launches per call) and the periodic one never;
 8. the example configurations through the normal entry points: the
    anticyclone (128², bounded, StressFunction wind, array ocean currents,
    150 substeps) for 5 ``cst.step`` calls, and the coastline (256×128,
    periodic-x, immersed coast, ImmersedDrag, 150 substeps) for 10
    iterations of ``Simulation.run`` with a callback; both finite, physical,
-   land empty and through the padded kernel;
+   land empty and through the padded kernel, one launch a chunk;
 9. the same port on the card and on the CPU, 128² bounded and immersed soft
    ice with a StressFunction wind, array ocean currents and ImmersedDrag,
    2 RK3 steps; bars as in phase 5;
@@ -72,10 +74,12 @@ Phases, each of which raises (exit code 1) when it fails:
     slice's 522² padded shape (phase 6's configuration with
     ``fixed_tiles=(8, 128)`` and the wide halo policy, soft ice, seeded
     velocities), each timed per call with its plain version: the EVP
-    coefficients (within 1 ulp); the tiled EVP loop (phase 2's bars over
-    the interiors, bitwise against itself with chunks of 2 and 4 substeps,
-    and against the padded kernel on the same input bitwise or within
-    1e-5, timed in turns with it); the WENO-7 advection (≤ 1e-6, and on the
+    coefficients (within 1 ulp); the tiled EVP loop (bitwise over the
+    interiors, 0 ulp, as the parent design was, so within phase 2's bars;
+    bitwise against itself with chunks of 1 and K substeps and against the
+    padded kernel on the same input; one launch a chunk; its registers,
+    spill, shared memory and blocks per SM; timed in turns with the padded
+    kernel); the WENO-7 advection (≤ 1e-6, and on the
     1162×970 basin grid with array metrics); the column thermodynamics of
     bare ice and of snow on ice under the basin's series and emission
     (≤ 1e-5);
@@ -159,11 +163,13 @@ Phases, each of which raises (exit code 1) when it fails:
 27. kernels 2.3, 2.4 and 2.5 meshed on shard (1, 1) of a (2, 2) mesh of the
     512² flagship with halos 2·120+3 (742² padded), soft ice, seeded
     velocities, 120 substeps: 2.3 (no fill along the split directions)
-    bitwise against its plain version over the interiors, also with
-    phase 6's island and drag put on the periodic grid, across all four
-    shards; 2.4 (images clamped at the padded edge) over the padded arrays;
-    2.5 (the padded extent carried) over the interiors; each timed per call
-    with its plain version and its bound;
+    bitwise against its plain version over the whole padded arrays, also
+    with phase 6's island and drag put on the periodic grid, across all
+    four shards; 2.4 (images clamped at the padded edge) over the padded
+    arrays; 2.5 (the padded extent carried) over the interiors, with its
+    distance over the split directions' padded extent printed (a record:
+    that band goes stale from the padded edge and depends on the chunk
+    length); each timed per call with its plain version and its bound;
 28. kernel 2.7's unpinned plan on a (1, 4) shard that holds the fold and on
     a (2, 2) shard of the 1152×960 basin without fixed_tiles (halos 51),
     soft ice, seeded velocities, 24 substeps: bitwise against its plain
@@ -700,22 +706,27 @@ def check_basin_state(model, state):
 
 
 def profile_device_ms(cst, model, state, dt):
-    """Device time (ms, the sum of the kernels' CUDA time) of one step under
-    torch.profiler, the count of device-to-host reads of a value that
-    make the host wait for the device, and the profiler's table by kernel."""
+    """Device time (ms) of one step under torch.profiler, the count of
+    device-to-host reads of a value that make the host wait for the device,
+    and the profiler's table by kernel.  The device time is the union of
+    the kernels' and copies' intervals, not their sum: a chunk of 2.3 or
+    2.5 launched as a programmatic dependent starts inside its predecessor,
+    and the profiler's duration of each counts that overlap."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         cst.step(model, state, dt)
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    # the kernels' own rows, as the table's "Self CUDA time total" sums them
-    # (an operator's row repeats the time of the kernels it launched)
-    total_us = sum(e.self_device_time_total for e in events
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        busy_us += max(end - max(start, reach), 0.0)
+        reach = max(reach, end)
+    events = prof.key_averages()
     syncs = sum(e.count for e in events if e.key == "aten::_local_scalar_dense")
-    return total_us / 1e3, syncs, events.table(sort_by="self_cuda_time_total", row_limit=40)
+    return busy_us / 1e3, syncs, events.table(sort_by="self_cuda_time_total", row_limit=40)
 
 
 def rel_diff(ref, x):
@@ -1018,6 +1029,7 @@ def main(argv=None):
     ref = fused_evp_padded.padded_evp_substeps_reference(params, consts, carry, nsub, grid)
     torch.cuda.synchronize()
     launches_per_call = padded_counter.launches
+    t23_chunk = fused_evp_padded.chunk_substeps()
     print(f"[6] padded EVP kernel vs plain version, {N}² bounded + island + drag, soft ice, "
           f"{nsub} substeps, whole {grid.nxp}×{grid.nyp} padded arrays:")
     worst_rel = worst_abs = 0.0
@@ -1026,6 +1038,13 @@ def main(argv=None):
         rel, abs_err = rel_diff(r, o)
         check(name, rel, bar)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    ulps = max(max_ulp(r, o) for r, o in zip(ref, out))
+    print(f"    bitwise over the whole padded arrays: {ulps == 0} (largest distance {ulps} ulp; "
+          f"the parent design was bitwise); {launches_per_call} launches a call, "
+          f"{t23_chunk} substeps a launch; {fused_evp_padded.describe()}")
+    if ulps or launches_per_call != -(-nsub // t23_chunk):
+        raise AssertionError(f"the padded kernel is {ulps} ulp from its plain version over the "
+                             f"padded arrays, {launches_per_call} launches a call")
     work = [q.clone() for q in carry]
     kernel_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps(
         params, consts, work, nsub, grid), 20)
@@ -1079,11 +1098,11 @@ def main(argv=None):
     padded_calls, padded_launches = padded_counter.calls, padded_counter.launches
     check_state(model, state)
     expected = 3 * steps
-    if (padded_calls != expected or padded_launches != expected * (3 * nsub + 2)
+    if (padded_calls != expected or padded_launches != expected * launches_per_call
             or counter.calls != 0):
         raise AssertionError(f"padded EVP wrapper: {padded_calls} calls, {padded_launches} "
                              f"launches, periodic wrapper {counter.calls} calls; expected "
-                             f"{expected}, {expected * (3 * nsub + 2)} and 0")
+                             f"{expected}, {expected * launches_per_call} and 0")
     print(f"[7] slice main path {N}² bounded + island + drag: {step_ms:.2f} ms/step (CUDA "
           f"events; host {host_ms:.2f} ms/step), {points / step_ms * 1e3:.4e} points/s, "
           f"padded EVP {padded_calls} calls / {padded_launches} launches in {steps} "
@@ -1110,8 +1129,10 @@ def main(argv=None):
         state = cst.step(model, state, 2 * MINUTE)
     torch.cuda.synchronize()
     check_state(model, state)
-    if padded_counter.calls != 15:
-        raise AssertionError(f"anticyclone: {padded_counter.calls} padded calls, expected 15")
+    if padded_counter.calls != 15 or padded_counter.launches != 15 * -(-150 // t23_chunk):
+        raise AssertionError(f"anticyclone: {padded_counter.calls} padded calls, "
+                             f"{padded_counter.launches} launches, expected 15 calls of "
+                             f"{-(-150 // t23_chunk)}")
     speed = model.grid.interior(state.u).abs().max().item()
     print(f"[8] anticyclone 128², 5 steps: finite and physical, max |u| {speed:.4e} m/s, "
           f"{padded_counter.calls} padded calls, {time.perf_counter() - t0:.2f} s")
@@ -1124,9 +1145,12 @@ def main(argv=None):
     t0 = time.perf_counter()
     sim.run()
     check_state(model, sim.state)
-    if padded_counter.calls != 30 or fired != [0, 5, 10]:
-        raise AssertionError(f"coastline: {padded_counter.calls} padded calls (expected "
-                             f"30), callback at {fired} (expected [0, 5, 10])")
+    if (padded_counter.calls != 30 or padded_counter.launches != 30 * -(-150 // t23_chunk)
+            or fired != [0, 5, 10]):
+        raise AssertionError(f"coastline: {padded_counter.calls} padded calls, "
+                             f"{padded_counter.launches} launches (expected 30 calls of "
+                             f"{-(-150 // t23_chunk)}), callback at {fired} (expected "
+                             f"[0, 5, 10])")
     print(f"    coastline 256×128, Simulation.run to iteration {sim.iteration}: finite and "
           f"physical, callback at {fired}, {padded_counter.calls} padded calls, "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1276,7 +1300,7 @@ def main(argv=None):
 
     # 2.5: the tiled EVP loop; against its plain version (the TPU kernel's
     # tiles of fixed_tiles), against the padded kernel on the same input, and
-    # with chunks of 4 and 2 substeps
+    # with chunks of K and 1 substeps
     params, consts, carry, _ = fused_evp_padded.padded_evp_inputs(model, state, dt,
                                                                   state.u, state.v)
     if len(consts) != 22:
@@ -1285,8 +1309,9 @@ def main(argv=None):
     out = fused_evp_tiled_padded.tiled_padded_evp_substeps(
         params, consts, [q.clone() for q in carry], nsub, grid, fixed)
     tiled_launches_per_call = tiled_counter.launches
+    t25_chunk = fused_evp_tiled_padded._tiled_entry()[1]
     half = fused_evp_tiled_padded.tiled_padded_evp_substeps(
-        params, consts, [q.clone() for q in carry], nsub, grid, fixed, chunk=2)
+        params, consts, [q.clone() for q in carry], nsub, grid, fixed, chunk=1)
     whole = fused_evp_padded.padded_evp_substeps(params, consts, [q.clone() for q in carry],
                                                  nsub, grid)
     ref = fused_evp_tiled_padded.tiled_padded_evp_substeps_reference(params, consts, carry,
@@ -1302,16 +1327,19 @@ def main(argv=None):
         rel, abs_err = rel_diff(I(r), I(o))
         check(name, rel, bar)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
-    same_plain = all(torch.equal(I(r), I(o)) for r, o in zip(ref, out))
+    ulps = max(max_ulp(I(r), I(o)) for r, o in zip(ref, out))
     same_padded = all(torch.equal(I(w), I(o)) for w, o in zip(whole, out))
     same_chunks = all(torch.equal(I(x), I(o)) for x, o in zip(half, out))
-    print(f"    bitwise: plain version {same_plain}, padded kernel {same_padded}, "
-          f"chunks of 2 and 4 {same_chunks}")
-    if not same_chunks:
-        raise AssertionError("the tiled kernel's interiors depend on the chunk length")
-    if not same_padded:
-        for name, w, o in zip(names, whole, out):
-            check(f"{name}/2.3", rel_diff(I(w), I(o))[0], 1e-5)
+    print(f"    bitwise: plain version {ulps == 0} (largest distance {ulps} ulp over the "
+          f"interiors; the parent design was bitwise), padded kernel {same_padded}, chunks of "
+          f"1 and {t25_chunk} {same_chunks}; {tiled_launches_per_call} launches a call; "
+          f"{fused_evp_tiled_padded.describe()}")
+    if ulps or not same_chunks or not same_padded:
+        raise AssertionError(f"the tiled kernel is {ulps} ulp from its plain version; same bits "
+                             f"as the padded kernel {same_padded}, across chunk lengths "
+                             f"{same_chunks}")
+    if tiled_launches_per_call != -(-nsub // t25_chunk):
+        raise AssertionError(f"the tiled kernel made {tiled_launches_per_call} launches a call")
     work = [q.clone() for q in carry]
     work_padded = [q.clone() for q in carry]
     kernel_ms = cuda_ms(lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps(
@@ -2053,9 +2081,10 @@ def main(argv=None):
     Hw = 2 * nsub + 3                     # the wide halo of the distributed step
     names = ("u", "v", "sig11", "sig22", "sig12", "alpha")
 
-    def meshed_check(label, kernel, plain, interior):
+    def meshed_check(label, kernel, plain, interior, record=None):
         """Bitwise kernel against plain version over ``interior``; their
-        largest differences (a record)."""
+        largest differences (a record), and the largest ulp distance over
+        ``interior`` and (a record) over ``record``."""
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         worst = (0.0, 0.0)
@@ -2064,7 +2093,11 @@ def main(argv=None):
                 raise AssertionError(f"{label}: {name} is not finite")
             rel, abs_err = rel_diff(interior(r), interior(o))
             worst = (max(worst[0], abs_err), max(worst[1], rel))
-        if not all(torch.equal(interior(r), interior(o)) for r, o in zip(ref, out)):
+        ulps = max(max_ulp(interior(r), interior(o)) for r, o in zip(ref, out))
+        print(f"  {label}: {ulps} ulp from the plain version"
+              + ("" if record is None else ", a record over the split directions' padded "
+                 f"extent: {max(max_ulp(record(r), record(o)) for r, o in zip(ref, out))} ulp"))
+        if ulps:
             raise AssertionError(f"{label}: not bitwise its plain version (largest relative "
                                  f"difference {worst[1]:.3e})")
         return worst
@@ -2091,12 +2124,13 @@ def main(argv=None):
         drag = len(consts) == 22
         padded_counter.reset()
         worst = meshed_check(
-            f"2.3 meshed ({label})",
+            f"2.3 meshed ({label}), whole padded arrays",
             lambda: fused_evp_padded.padded_evp_substeps(params, consts,
                                                          [q.clone() for q in carry], nsub,
                                                          m_.grid),
             lambda: fused_evp_padded.padded_evp_substeps_reference(params, consts, carry,
-                                                                   nsub, m_.grid), LI)
+                                                                   nsub, m_.grid),
+            lambda q: q)
         per_call = padded_counter.launches
         work = [q.clone() for q in carry]
         kernel_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps(
@@ -2108,7 +2142,7 @@ def main(argv=None):
             ((PADDED_ARRAYS_READ - (0 if drag else 4) + EVP_ARRAYS_WRITTEN) * points
              + EVP_PARAMS) * 4, (flops * nsub + PADDED_FLOPS_PER_POINT_CALL) * points)
         print(f"  2.3 meshed, {label} ({'island straddling the four shards, drag' if drag else 'no land'}), "
-              f"{lgrid.nxp}×{lgrid.nyp}: interiors bitwise equal to the plain version; "
+              f"{lgrid.nxp}×{lgrid.nyp}: bitwise equal to the plain version; "
               f"{per_call} launches a call; kernel {kernel_ms:.4f} ms/call, plain "
               f"{plain_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms")
         if label == "flagship":
@@ -2141,11 +2175,11 @@ def main(argv=None):
                                                                   lstate.u, lstate.v)
     tiled_counter.reset()
     worst = meshed_check(
-        "2.5 meshed",
+        "2.5 meshed, interiors",
         lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps(
             params, consts, [q.clone() for q in carry], nsub, lgrid, fixed),
         lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps_reference(
-            params, consts, carry, nsub, lgrid, fixed), LI)
+            params, consts, carry, nsub, lgrid, fixed), LI, record=lambda q: q)
     per_call = tiled_counter.launches
     work = [q.clone() for q in carry]
     kernel_ms = cuda_ms(lambda: fused_evp_tiled_padded.tiled_padded_evp_substeps(
@@ -2276,7 +2310,7 @@ def main(argv=None):
         return cmp
 
     stages = 3 * steps
-    a_launches = 3 * nsub + fused_evp_padded.LAUNCHES_PER_CALL
+    a_launches = -(-nsub // t23_chunk)
     for label, kw in (("A, soft ice", dict(P_star=27.5)), ("A", {})):
         res = results[label]
         launches_a = report(label, res, {"2.3": stages}, {"2.3": a_launches})

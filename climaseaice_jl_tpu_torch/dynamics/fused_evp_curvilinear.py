@@ -19,11 +19,13 @@ fold-filled velocities, as on the TPU.
 On the TPU the whole-array kernel (2.6) is limited by VMEM and by f being a
 scalar, so the tripolar basin takes the chunked kernel (2.7), whose tiles,
 chunk plan and self-evolving fold halo exist for VMEM and for meshes.  The
-CUDA kernel keeps its state in device memory and has neither limit; under
-``fixed_tiles`` the pinned plan of 2.7 has its own kernel
-(:mod:`.fused_evp_tiled_curvilinear`, sharing this kernel's per-point code,
-serial and on the shards of the distributed step), and the unpinned
-chunked design on shards is not ported (queue 9).
+CUDA kernel keeps its state in device memory and has neither limit.  2.7
+has its own kernel (:mod:`.fused_evp_tiled_curvilinear`, sharing this
+kernel's per-point code): the pinned plan under ``fixed_tiles``, serial and
+on the shards of the distributed step, and the unpinned plan on the shards
+of the 'wide' halo policy without ``fixed_tiles``
+(`fused_evp_tiled_curvilinear._unpinned_plan`, route "tiled_curvilinear" of
+``model.meshed_momentum_route``).
 
 :func:`curvilinear_evp_substeps` picks by the tensors' device: CUDA tensors
 go to the kernel, CPU tensors to :func:`curvilinear_evp_substeps_reference`.

@@ -58,8 +58,6 @@ N_CONSTS = 14       # P, Pff, gcc, gff, drag_u, invm_u, act_u, un,
 N_DRAG = 4          # immersed-drag coefficients: S/N faces of u, W/E faces of v
 N_STRESS = 4        # τᵤ, τᵥ (top), uₑ, vₑ (bottom), as arrays
 N_CARRY = 6         # u, v, σ₁₁, σ₂₂, σ₁₂, α
-LAUNCHES_PER_SUBSTEP = 3
-LAUNCHES_PER_CALL = 2   # the initial u and v halo fills
 
 padded_evp_counter = KernelCounter()
 
@@ -325,14 +323,46 @@ def padded_evp_substeps_reference(params, consts, carry, nsub, grid):
 
 # --- the kernel's wrapper -------------------------------------------------------
 
-def _padded_entry():
-    fn = _build.load("evp_padded").csi_evp_padded_substeps
+def _padded_lib():
+    lib = _build.load("evp_padded")
+    fn = lib.csi_evp_padded_substeps
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * (1 + N_CONSTS + N_DRAG + N_STRESS
-                                            + N_CARRY + 2)
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * (1 + N_CONSTS + N_DRAG + N_STRESS + 2 * N_CARRY)
+                       + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        lib.csi_evp_padded_chunk_substeps.argtypes = []
+        lib.csi_evp_padded_chunk_substeps.restype = ctypes.c_int
+        lib.csi_evp_padded_describe.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.csi_evp_padded_describe.restype = ctypes.c_int
+    return lib
+
+
+def chunk_substeps():
+    """The substeps one launch of the built kernel's tiled plan runs."""
+    return _padded_lib().csi_evp_padded_chunk_substeps()
+
+
+def describe_kernel(lib, entry, name):
+    """A built tile kernel on the current card, from its C entry ``entry``
+    (``csrc/evp_padded_tile.cuh``'s describe_tile_chunks): registers and
+    spill bytes a thread, static and dynamic shared bytes a block, resident
+    blocks an SM and threads a block."""
+    out = (ctypes.c_int * 6)()
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    err = fn(out)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel attributes: CUDA error {err} "
+                           f"({cuda_error_string(name, err)})")
+    keys = ("registers", "spill_bytes", "static_shared_bytes", "dynamic_shared_bytes",
+            "blocks_per_sm", "threads_per_block")
+    return dict(zip(keys, out))
+
+
+def describe():
+    """The built kernel's tiled plan on the current card (:func:`describe_kernel`)."""
+    return describe_kernel(_padded_lib(), "csi_evp_padded_describe", "evp_padded")
 
 
 def padded_evp_substeps(params, consts, carry, nsub, grid):
@@ -343,7 +373,9 @@ def padded_evp_substeps(params, consts, carry, nsub, grid):
     there is drag, then the 4 stress arrays; ``carry``: (u, v, σ₁₁, σ₂₂,
     σ₁₂, α).  CUDA tensors go to the CUDA kernel, which updates the carry
     tensors in place and returns them; CPU tensors go to
-    :func:`padded_evp_substeps_reference`."""
+    :func:`padded_evp_substeps_reference`.  The kernel holds msk_cc and
+    msk_ff as a byte a point: they must be 0 or 1, as
+    :func:`padded_evp_inputs` makes them."""
     consts, carry = tuple(consts), tuple(carry)
     if (len(consts) not in (N_CONSTS + N_STRESS, N_CONSTS + N_DRAG + N_STRESS)
             or len(carry) != N_CARRY):
@@ -361,21 +393,22 @@ def padded_evp_substeps(params, consts, carry, nsub, grid):
         raise ValueError(f"EVP arrays are {shape}, the grid's fields {grid.shape}")
     has_drag = len(consts) == N_CONSTS + N_DRAG + N_STRESS
     drag = consts[N_CONSTS:N_CONSTS + N_DRAG] if has_drag else (None,) * N_DRAG
-    scratch = (torch.empty_like(carry[0]), torch.empty_like(carry[1]))
+    scratch = tuple(torch.empty_like(q) for q in carry)
     ptrs = [params.data_ptr()]
     ptrs += [q.data_ptr() for q in consts[:N_CONSTS]]
     ptrs += [None if q is None else q.data_ptr() for q in drag]
     ptrs += [q.data_ptr() for q in consts[-N_STRESS:] + carry + scratch]
-    fn = _padded_entry()
+    launches = ctypes.c_int(0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy, grid.Ny,
-                 *direction_kinds(grid), int(has_drag), int(nsub), stream)
+        err = _padded_lib().csi_evp_padded_substeps(
+            *ptrs, grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy, grid.Ny,
+            *direction_kinds(grid), int(has_drag), int(nsub), ctypes.byref(launches), stream)
     if err != 0:
         raise RuntimeError(f"padded EVP kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp_padded', err)})")
     padded_evp_counter.calls += 1
-    padded_evp_counter.launches += LAUNCHES_PER_SUBSTEP * int(nsub) + LAUNCHES_PER_CALL
+    padded_evp_counter.launches += launches.value
     return carry
 
 

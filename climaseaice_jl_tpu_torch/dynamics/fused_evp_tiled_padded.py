@@ -46,8 +46,8 @@ from .. import _build
 from ..grids import PERIODIC
 from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff, _meshed
 from .fused_evp import KernelCounter, check_kernel_args, cuda_error_string, pick_chunk
-from .fused_evp_padded import (N_CONSTS, N_DRAG, N_STRESS, N_CARRY, direction_kinds,
-                               padded_evp_inputs, padded_fused_available,
+from .fused_evp_padded import (N_CONSTS, N_DRAG, N_STRESS, N_CARRY, describe_kernel,
+                               direction_kinds, padded_evp_inputs, padded_fused_available,
                                padded_loop_functions, run_substeps)
 
 WY = 64               # y overlap of 2-D tiles (`pallas_evp_tiled_padded.py:61`)
@@ -232,6 +232,13 @@ def _tiled_entry():
         fn.restype = ctypes.c_int
         lib.csi_evp_tiled_chunk_substeps.restype = ctypes.c_int
     return fn, lib.csi_evp_tiled_chunk_substeps()
+
+
+def describe():
+    """The built kernel on the current card (:func:`.fused_evp_padded.
+    describe_kernel`)."""
+    return describe_kernel(_build.load("evp_tiled_padded"), "csi_evp_tiled_padded_describe",
+                           "evp_tiled_padded")
 
 
 def tiled_padded_evp_substeps(params, consts, carry, nsub, grid, fixed_tiles, chunk=None):

@@ -267,6 +267,111 @@ def test_tiled_evp_plan_invariant():
             assert np.array_equal(_interior(m.grid, a), _interior(m.grid, other)), name
 
 
+# csrc/evp_tiled_padded.cu's plan: (K substeps a launch, TX rows, TY columns
+# of a tile's output)
+KERNEL_PLAN_25 = (2, 16, 32)
+
+
+def _interior_tiles(ext, H, N, kind, T, O):
+    """csrc/evp_tiled_padded.cu's InteriorGeometry along one direction, in
+    the form of tests/test_torch_immersed.py's `_torus_tiles`: tiles of the
+    carried extent in interior coordinates (the padded extent along a split
+    direction), carried fields at their interior images, constants at their
+    padded images, and the gated wall fills."""
+    split = kind == tpad.KIND_SPLIT
+    lo, n = (-H, N + 2 * H) if split else (0, N)
+    wall = kind == tpad.KIND_BOUNDED and H > 0
+    tiles = []
+    for b in range(-(-n // T)):
+        o0 = lo + b * T
+        g = np.arange(o0 - O, o0 + T + O)
+        if split:
+            ld = np.clip(g + H, 0, ext - 1)
+        else:
+            ld = H + (g % N if kind == tpad.KIND_PERIODIC else np.clip(g, 0, N - 1))
+        cs = H + g % N if kind == tpad.KIND_PERIODIC else np.clip(g + H, 0, ext - 1)
+        zero = wall & ((g < 0) | (g >= N))
+        tiles.append(dict(ld=ld, ldF=np.where(zero, -1, ld), ldC=ld, cs=cs, zero=zero,
+                          dF=np.zeros_like(g), dC=np.clip(g, 0, N - 1) - g if wall
+                          else np.zeros_like(g),
+                          out=np.where((g >= o0) & (g < min(o0 + T, lo + n)), H + g, -1)))
+    return tiles
+
+
+def _schedule_inputs(case, nsub):
+    """2.5's loop inputs at the default P★ in thin ice with a near-uniform
+    drift (tests/test_torch_immersed.py's state, where the σ relaxation's
+    clamps leave every dependency showing in the bits): the file's bounded
+    + island + drag and periodic-x cases, the island on 40×100 (ragged last
+    tiles along both directions), and shard (1, 1) of a (2, 2) mesh of the
+    periodic island with the wide halo 2·nsub + 3 ("split")."""
+    from test_torch_immersed import _shard_model
+    kw = dict(P_star=27500.0, substeps=nsub, device="cpu")
+    if case == "periodic-x":
+        m = _model(cst, topology=("periodic", "bounded"), land=False, **kw)
+    elif case == "ragged":
+        m = _model(cst, **kw)
+        m = m.evolve(grid=_grid(cst, size=(40, 100), device="cpu"))
+        m = cst.sea_ice_model(m.grid, dynamics=m.dynamics, advection=m.advection,
+                              timestepper="SplitRungeKutta3", ice_thermodynamics=None)
+    elif case == "split":
+        m = _model(cst, topology=("periodic", "periodic"), halo=2 * nsub + 3, **kw)
+    else:
+        m = _model(cst, **kw)
+    rng = np.random.default_rng(2)
+    shape = m.grid.interior_shape
+    s = cst.initial_state(m, h=torch.tensor(0.5 + 0.1 * rng.random(shape), dtype=torch.float32),
+                          a=1.0, u=torch.tensor(0.02 + 0.01 * rng.standard_normal(shape),
+                                                dtype=torch.float32),
+                          v=torch.tensor(0.01 * rng.standard_normal(shape), dtype=torch.float32))
+    if case == "split":
+        m, s = _shard_model(m, s, (1, 1), 2 * nsub + 3)
+    return m, tpad.padded_evp_inputs(m, s, 120.0, s.u, s.v)[:3]
+
+
+def _emulate_25(m, params, consts, carry, nsub, O):
+    from test_torch_immersed import _tile_schedule
+    K, TX, TY = KERNEL_PLAN_25
+    g = m.grid
+    kx, ky = tpad.direction_kinds(g)
+    return _tile_schedule(params, consts, [q.clone() for q in carry], nsub, K, O,
+                          _interior_tiles(g.nxp, g.Hx, g.Nx, kx, TX, O),
+                          _interior_tiles(g.nyp, g.Hy, g.Ny, ky, TY, O))
+
+
+@pytest.mark.parametrize("case, nsub", [("bounded-island", 5), ("periodic-x", 6),
+                                        ("ragged", 5), ("split", 5)])
+def test_kernel_schedule_matches_plain_version(case, nsub):
+    """2.5's schedule (csrc/evp_tiled_padded.cu's plan in interior
+    coordinates: its tiles, its K, its regions, α never loaded, the gated
+    wall fills as displacements to a source), emulated with the plain
+    version's phase functions (tests/test_torch_immersed.py's
+    `_tile_schedule`), equals tiled_padded_evp_substeps_reference's
+    interiors bitwise.  Along a split direction the halo band goes stale from the padded edge and
+    depends on the chunk length, so only the interiors are compared."""
+    m, (params, consts, carry) = _schedule_inputs(case, nsub)
+    K = KERNEL_PLAN_25[0]
+    tiles = (8, 128) if case != "ragged" else (8, None)
+    ref = ttiled.tiled_padded_evp_substeps_reference(params, consts, carry, nsub, m.grid,
+                                                     tiles)
+    out = _emulate_25(m, params, consts, carry, nsub, 2 * K)
+    for name, r, o in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), ref, out):
+        assert np.array_equal(_interior(m.grid, r), _interior(m.grid, o)), (case, name)
+
+
+@pytest.mark.parametrize("case", ["bounded-island", "split"])
+def test_kernel_schedule_needs_its_overlap(case):
+    """One position short of the overlap 2K, the schedule parts from the
+    plain version's interiors."""
+    nsub = 5
+    m, (params, consts, carry) = _schedule_inputs(case, nsub)
+    ref = ttiled.tiled_padded_evp_substeps_reference(params, consts, carry, nsub, m.grid,
+                                                     (8, 128))
+    out = _emulate_25(m, params, consts, carry, nsub, 2 * KERNEL_PLAN_25[0] - 1)
+    assert not all(np.array_equal(_interior(m.grid, r), _interior(m.grid, o))
+                   for r, o in zip(ref, out))
+
+
 # --- 2.9: the fixed-tile advection -----------------------------------------------------
 
 def _check_div(mj, mt, sj, out, tracer):
@@ -555,12 +660,14 @@ def test_cuda_prep_matches_plain(cuda_device):
 @pytest.mark.parametrize("case", ["bounded-island", "periodic-x"])
 def test_cuda_tiled_evp_matches_plain(cuda_device, case):
     """The tiled EVP kernel against its plain version on the card, soft ice,
-    120 substeps: interiors within u/v ≤ 1e-4, σ/α ≤ 4e-3 (phase 2's bars)."""
+    120 substeps: interiors bitwise, so within u/v ≤ 1e-4, σ/α ≤ 4e-3
+    (phase 2's bars)."""
     kw = (dict() if case == "bounded-island"
           else dict(topology=("periodic", "bounded"), land=False))
     m = _model(cst, substeps=120, device=cuda_device, **kw)
     s = _initial(cst, m)
     params, consts, carry, _ = tpad.padded_evp_inputs(m, s, 120.0, s.u, s.v)
+    assert ttiled._tiled_entry()[1] == KERNEL_PLAN_25[0]   # the plan the CPU emulation holds
     ref = ttiled.tiled_padded_evp_substeps_reference(params, consts, carry, 120, m.grid,
                                                      (8, 128))
     out = ttiled.tiled_padded_evp_substeps(params, consts, [q.clone() for q in carry], 120,
@@ -569,6 +676,7 @@ def test_cuda_tiled_evp_matches_plain(cuda_device, case):
     for name, a, b, bar in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), ref, out,
                                (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
         assert _rel(_interior(m.grid, a), _interior(m.grid, b)) <= bar, name
+        assert np.array_equal(_interior(m.grid, a), _interior(m.grid, b)), name
 
 
 @pytest.mark.cuda

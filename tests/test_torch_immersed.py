@@ -21,8 +21,9 @@ from climaseaice_jl_tpu_torch.dynamics import stresses as tstresses
 from climaseaice_jl_tpu_torch.dynamics.fused_evp import (
     evp_counter, fused_split_explicit_momentum_step)
 from climaseaice_jl_tpu_torch.dynamics.fused_evp_padded import (
-    padded_evp_counter, padded_evp_inputs, padded_evp_substeps,
-    padded_evp_substeps_reference, padded_fused_available, padded_fused_momentum_step)
+    KIND_PERIODIC, KIND_SPLIT, chunk_substeps, direction_kinds, padded_evp_counter,
+    padded_evp_inputs, padded_evp_substeps, padded_evp_substeps_reference,
+    padded_fused_available, padded_fused_momentum_step, padded_loop_functions)
 from climaseaice_jl_tpu_torch.dynamics.momentum import split_explicit_momentum_step
 from climaseaice_jl_tpu_torch.fields import (immersed_only_ff, mask_immersed_cc,
                                              peripheral_masks, solid_cc_mask)
@@ -452,6 +453,236 @@ def test_slice_float32_padded_matches_pallas():
     _land_stays_empty(mt, at)
 
 
+# --- the CUDA kernel's schedule, emulated with the plain version ---------------------
+#
+# csrc/evp_padded_tile.cuh runs K substeps a launch on tiles held with an
+# overlap of 2K positions; substep t computes σ and its first half-update on
+# the output tile grown by 2(K − t) + 1 and its second half-update on the tile
+# grown by 2(K − t); a velocity at a position is the update at its fill
+# source (or zero); α is not loaded.  What a tile position stands for comes
+# from a geometry: 2.3's tiles lie on the padded torus with one tile centred
+# on the padded edge along a filled direction (csrc/evp_padded.cu's
+# TorusGeometry), 2.5's in interior coordinates (tests/test_torch_fixed_tiles.py).
+
+# csrc/evp_padded.cu's plan: (K substeps a launch, TX rows, TY columns of a
+# tile's output)
+KERNEL_PLAN_23 = (2, 22, 24)
+
+
+def _fill_source(q, H, N, kind, face):
+    """csrc/evp_padded.cu's fill_source over an index array: the padded
+    index a fill copies from, −1 where it writes zero."""
+    if H == 0 or kind == KIND_SPLIT:
+        return q
+    if kind == KIND_PERIODIC:
+        return np.where(q < H, q + N, np.where(q >= H + N, q - N, q))
+    if face:
+        return np.where((q < H) | (q > H + N), -1, q)
+    return np.clip(q, H, H + N - 1)
+
+
+def _torus_tiles(ext, H, N, kind, T, O):
+    """csrc/evp_padded.cu's TorusGeometry along one direction: per tile, the
+    positions' carried, source and constant indices, the displacements to
+    their fill sources (``zero`` where the face fill writes 0) and their
+    output indices (−1: not written)."""
+    seam = H > 0 and kind != KIND_SPLIT
+    tiles = []
+    for b in range(-(-ext // T)):
+        if seam:
+            o0 = -(T // 2) if b == 0 else T // 2 + (b - 1) * T
+            end = o0 + T if b == 0 else min(o0 + T, ext - T // 2)
+        else:
+            o0, end = b * T, min(b * T + T, ext)
+        p = np.arange(o0 - O, o0 + T + O)
+        q = p % ext
+        f, c = _fill_source(q, H, N, kind, True), _fill_source(q, H, N, kind, False)
+
+        def step(src):   # to the source on the torus, across the edge where periodic
+            d = src - q
+            return np.where(d > 0, d - ext, np.where(d < 0, d + ext, d)) \
+                if kind == KIND_PERIODIC else d
+
+        tiles.append(dict(ld=q, ldF=f, ldC=c, cs=q, zero=f < 0,
+                          dF=np.where(f < 0, 0, step(f)), dC=step(c),
+                          out=np.where((p >= o0) & (p < end), q, -1)))
+    return tiles
+
+
+def _tile_schedule(params, consts, carry, nsub, K, O, tiles_x, tiles_y):
+    """The tile engine's schedule on padded arrays, with the plain version's
+    phase functions (:func:`padded_loop_functions` on the batch of tiles,
+    its circular shifts wrapping inside a tile): each chunk gathers every
+    tile (velocities at their fill sources, σ at the position, constants at
+    theirs, α unknown: NaN), merges each phase's values into its region
+    only, and writes the output positions back; a position whose source
+    lies outside the tile's inner positions computes at itself, as the
+    kernel's tables have it."""
+    SX, SY = len(tiles_x[0]["ld"]), len(tiles_y[0]["ld"])
+    TX, TY = SX - 2 * O, SY - 2 * O
+    pairs = [(tx, ty) for tx in tiles_x for ty in tiles_y]
+    B = len(pairs)
+
+    def per_tile(key, axis):
+        return torch.as_tensor(np.stack([t[axis][key] for t in pairs]))
+
+    def stacked(key):
+        return per_tile(key, 0)[:, :, None], per_tile(key, 1)[:, None, :]
+
+    def gather(q, rows, cols):
+        return q[rows.clamp(min=0), cols.clamp(min=0)]
+
+    def source(d, S):    # tile positions of the sources, kept inside the tile
+        at = torch.arange(S)[None, :] + d
+        return torch.where((at >= 1) & (at <= S - 2), at, torch.arange(S)[None, :])
+
+    ld_x, ld_y = stacked("ld")
+    cs_x, cs_y = stacked("cs")
+    zero_x, zero_y = stacked("zero")
+    ldF_x, ldF_y = stacked("ldF")
+    ldC_x, ldC_y = stacked("ldC")
+    sF_x = source(per_tile("dF", 0), SX)[:, :, None]
+    sC_x = source(per_tile("dC", 0), SX)[:, :, None]
+    sF_y = source(per_tile("dF", 1), SY)[:, None, :]
+    sC_y = source(per_tile("dC", 1), SY)[:, None, :]
+    out_x, out_y = stacked("out")
+    b = torch.arange(B)[:, None, None]
+
+    def fill_fc(q):      # u: face along x, centre along y
+        return torch.where(zero_x, 0.0, q[b, sF_x, sC_y])
+
+    def fill_cf(q):
+        return torch.where(zero_y, 0.0, q[b, sC_x, sF_y])
+
+    functions = padded_loop_functions(params, [gather(q, cs_x, cs_y) for q in consts],
+                                      fill_fc, fill_cf, ax=1)
+    stresses, u_update, v_update = functions
+
+    def region(R):
+        m = torch.zeros(SX, SY, dtype=torch.bool)
+        m[max(O - R, 0):O + TX + R, max(O - R, 0):O + TY + R] = True
+        return m
+
+    written = (out_x >= 0) & (out_y >= 0)
+    flat = (out_x * carry[0].shape[1] + out_y)[written.expand(B, SX, SY)]
+    state = [q.clone() for q in carry]
+    for k0 in range(0, nsub, K):
+        u = torch.where(zero_x, 0.0, gather(state[0], ldF_x, ldC_y))
+        v = torch.where(zero_y, 0.0, gather(state[1], ldC_x, ldF_y))
+        s11, s22, s12 = (gather(q, ld_x, ld_y) for q in state[2:5])
+        al = torch.full_like(u, float("nan"))
+        for t in range(1, min(K, nsub - k0) + 1):
+            R = 2 * (K - t)
+            inner, outer = region(R), region(R + 1)
+            new = stresses(u, v, s11, s22, s12)
+            s11, s22, s12, al = (torch.where(outer, n, o)
+                                 for n, o in zip(new, (s11, s22, s12, al)))
+            if (k0 + t) % 2 == 0:
+                u = torch.where(outer, u_update(u, v, s11, s12, al), u)
+                v = torch.where(inner, v_update(u, v, s22, s12, al), v)
+            else:
+                v = torch.where(outer, v_update(u, v, s22, s12, al), v)
+                u = torch.where(inner, u_update(u, v, s11, s12, al), u)
+        for q, tile in zip(state, (u, v, s11, s22, s12, al)):
+            q.view(-1)[flat] = tile[written.expand(B, SX, SY)]
+    return state
+
+
+def _shard_model(model, state, shard, H):
+    """Shard ``shard`` of a (2, 2) mesh of a global model whose halos are
+    ``H`` wide (chip_smoke.py's shard_model): a grid naming the mesh axes,
+    windows of the masks and of the state's EVP fields."""
+    from climaseaice_jl_tpu_torch.parallel.stepper import ProcessMesh, _local_grid
+    g = model.grid
+    nx, ny = g.Nx // 2, g.Ny // 2
+    lgrid = _local_grid(g, nx, ny, *shard, ("x", "y"), (2, 2),
+                        ProcessMesh((2, 2), shard, g.device, transport=False))
+
+    def cut(q):
+        if not isinstance(q, torch.Tensor):
+            return q
+        ix, iy = shard
+        return q[ix * nx:ix * nx + nx + 2 * H, iy * ny:iy * ny + ny + 2 * H].contiguous()
+
+    masks = model.masks
+    lmasks = masks.evolve(**{f: cut(getattr(masks, f)) for f in (
+        "solid_cc", "per_fc", "per_cf", "per_ff", "imm_ff", "solid_full")})
+    lstate = state.evolve(**{f: cut(getattr(state, f)) for f in (
+        "h", "a", "u", "v", "sig11", "sig22", "sig12", "alpha")})
+    return model.evolve(grid=lgrid.evolve(solid_cc=lmasks.solid_cc), masks=lmasks), lstate
+
+
+def _padded_case_inputs(case, nsub):
+    """The loop's inputs at the default P★ (stiff ice, where every
+    dependency shows in the bits; in soft ice the far ones round away) on
+    the CUDA test's 70×45 grids, or on shard (1, 1) of a (2, 2) mesh of a
+    40×40 periodic island with the wide halo 2·nsub + 3 ("split")."""
+    stiff = cst.ElastoViscoPlasticRheology()
+    if case == "split":
+        H = 2 * nsub + 3
+        grid = cst.ImmersedBoundaryGrid(
+            cst.RectilinearGrid(size=(40, 40), x=(0, L), y=(0, L), halo=H, dtype="float32",
+                                topology=("periodic", "periodic"), device="cpu"), island)
+        dyn = _dynamics(cst, "float32", nsub, "always", drag=cst.ImmersedDrag(coefficient=2e4))
+        dyn = dyn.evolve(rheology=stiff,
+                         solver=cst.SplitExplicitSolver(substeps=nsub, halo_exchange="wide"))
+        m = cst.sea_ice_model(grid, dynamics=dyn, ice_thermodynamics=None,
+                              advection=cst.WENO(order=5), timestepper="ForwardEuler")
+    else:
+        m = _case_model(cst, case, "float32", substeps=nsub, size=(70, 45), device="cpu")
+        m = m.evolve(dynamics=m.dynamics.evolve(rheology=stiff))
+    rng = np.random.default_rng(2)
+    s = tmodel.initial_state(m, h=0.5 + 0.1 * rng.random(m.grid.interior_shape), a=1.0,
+                             u=0.02 + 0.01 * rng.standard_normal(m.grid.interior_shape),
+                             v=0.01 * rng.standard_normal(m.grid.interior_shape))
+    if case == "split":
+        m, s = _shard_model(m, s, (1, 1), 2 * nsub + 3)
+    return m, padded_evp_inputs(m, s, 60.0, s.u, s.v)[:3]
+
+
+@pytest.mark.parametrize("case, nsub", [("walls", 5), ("immersed", 6), ("channel", 5),
+                                        ("split", 5)])
+def test_kernel_schedule_matches_plain_version(case, nsub):
+    """2.3's schedule (csrc/evp_padded.cu's plan on the padded torus, one
+    tile centred on the padded edge along a filled direction), emulated
+    with the plain version, equals padded_evp_substeps_reference bitwise
+    over the whole padded arrays, the outermost ring's σ and α included: on
+    the CUDA test's 70×45 grids (walls; island with drag; periodic x with a
+    coast), ragged last tiles, odd and even substep counts, and on a shard
+    whose two directions are split (no fill, the padded torus's own
+    neighbours); stiff ice, where every dependency shows."""
+    m, (params, consts, carry) = _padded_case_inputs(case, nsub)
+    K, TX, TY = KERNEL_PLAN_23
+    g = m.grid
+    kx, ky = direction_kinds(g)
+    tiles_x = _torus_tiles(g.nxp, g.Hx, g.Nx, kx, TX, 2 * K)
+    tiles_y = _torus_tiles(g.nyp, g.Hy, g.Ny, ky, TY, 2 * K)
+    assert g.nxp % TX and g.nyp % TY      # ragged last tiles
+    ref = padded_evp_substeps_reference(params, consts, carry, nsub, g)
+    out = _tile_schedule(params, consts, carry, nsub, K, 2 * K, tiles_x, tiles_y)
+    for name, r, o in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), ref, out):
+        assert torch.equal(r, o), (case, name)
+
+
+@pytest.mark.parametrize("case", ["channel", "split"])
+def test_kernel_schedule_needs_its_overlap(case):
+    """With tiles held one position short of the overlap 2K (the first
+    substep's σ region then reaching the tile's edge, whose neighbours wrap
+    inside the tile), the same schedule parts from the plain version: the
+    overlap is no wider than the function needs."""
+    nsub = 5
+    m, (params, consts, carry) = _padded_case_inputs(case, nsub)
+    K, TX, TY = KERNEL_PLAN_23
+    g = m.grid
+    kx, ky = direction_kinds(g)
+    O = 2 * K - 1
+    out = _tile_schedule(params, consts, carry, nsub, K, O,
+                         _torus_tiles(g.nxp, g.Hx, g.Nx, kx, TX, O),
+                         _torus_tiles(g.nyp, g.Hy, g.Ny, ky, TY, O))
+    ref = padded_evp_substeps_reference(params, consts, carry, nsub, g)
+    assert not all(torch.equal(r, o) for r, o in zip(ref, out))
+
+
 # --- the CUDA kernel ---------------------------------------------------------------
 
 @pytest.fixture
@@ -467,22 +698,27 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case):
     """The padded CUDA kernel vs padded_evp_substeps_reference on the same
     CUDA tensors, soft ice, 120 and 121 substeps (both parities of the
     ping-pong buffers), drag off (walls) and on, on a grid whose sides are
-    not multiples of the kernel's block.  Bars of chip_smoke.py phase 6:
-    u/v ≤ 1e-4, σ/α ≤ 4e-3 relative to the field's largest value, over the
-    whole padded arrays."""
+    not multiples of the kernel's block: bitwise over the whole padded
+    arrays (the outermost ring's σ and α from its torus neighbours
+    included), so within chip_smoke.py phase 6's bars, u/v ≤ 1e-4, σ/α ≤
+    4e-3 relative to the field's largest value; one launch a chunk of the
+    kernel's K substeps."""
     m = _case_model(cst, case, "float32", substeps=120, size=(70, 45), device=cuda_device)
     rng = np.random.default_rng(2)
     s = tmodel.initial_state(m, h=0.5 + 0.1 * rng.random(m.grid.interior_shape), a=1.0,
                              u=0.02 + 0.01 * rng.standard_normal(m.grid.interior_shape))
     params, consts, carry, _ = padded_evp_inputs(m, s, 60.0, s.u, s.v)
     assert (len(consts) == 22) == (case != "walls")
+    K = chunk_substeps()
+    assert K == KERNEL_PLAN_23[0]          # the plan the CPU emulation holds
     for nsub in (120, 121):
         ref = padded_evp_substeps_reference(params, consts, carry, nsub, m.grid)
         padded_evp_counter.reset()
         out = padded_evp_substeps(params, consts, [q.clone() for q in carry], nsub, m.grid)
         torch.cuda.synchronize()
-        assert (padded_evp_counter.calls, padded_evp_counter.launches) == (1, 3 * nsub + 2)
+        assert (padded_evp_counter.calls, padded_evp_counter.launches) == (1, -(-nsub // K))
         for name, a, b, tol in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"),
                                    out, ref, (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
             assert torch.isfinite(a).all(), name
             assert _rel(b.cpu().numpy(), a.cpu().numpy()) <= tol, (nsub, name)
+            assert torch.equal(a, b), (nsub, name)

@@ -5,20 +5,28 @@
                                        # one flagship (512² and 2048²), one
                                        # bounded, one tripolar basin and one
                                        # fixed-tile step to file F
+    python3 chip_smoke.py --parent D   # also hold 2.1 and 2.7 against a
+                                       # checkout D of commit 825cb6e, in turns
+                                       # (any other tree is refused)
 
 Drives the port (``climaseaice_jl_tpu_torch``) through the entry points a
 user calls and holds its CUDA kernels against their plain PyTorch versions.
 Phases, each of which raises (exit code 1) when it fails:
 
 1. build the CUDA kernels from ``climaseaice_jl_tpu_torch/csrc``;
-2. the EVP kernel vs its plain version on the card: the flagship at 512² in
-   soft ice (P★ = 27.5), 120 substeps; bars u/v ≤ 1e-4, σ/α ≤ 4e-3 relative
-   to the field's largest value; times per call of both;
+2. the EVP kernel (2.1) vs its plain version on the card: the flagship at
+   512² in soft ice (P★ = 27.5), 120 substeps; bitwise over the whole
+   interior (0 ulp, a gate), so within the bars u/v ≤ 1e-4, σ/α ≤ 4e-3
+   relative to the field's largest value; one launch a chunk of K
+   substeps; its registers, spill, shared memory and blocks per SM; times
+   per call of both and the bound; with ``--parent DIR``, the earlier
+   tree's 2.1 (built with and without multiply-add contraction), timed in
+   turns with it;
 3. the main path: the flagship step of ``bench.py:build(512, 120)`` (float32,
    αEVP with 120 substeps, WENO-7, bare-ice slab thermodynamics, RK3), one
    warm-up step and five timed steps; the state must stay finite with
    h ≥ 0 and 0 ≤ ℵ ≤ 1, and the EVP wrapper must have been called 3 times
-   per step with 3·120 kernel launches per call;
+   per step with phase 2's launches per call;
 4. the dispatch boundary between the periodic kernels: one flagship step
    at 512² (262,144 points) goes through ``csrc/evp.cu`` (2.1) only, one at
    768² (589,824 points, above the 571,099 points where the JAX package
@@ -97,11 +105,16 @@ Phases, each of which raises (exit code 1) when it fails:
     the basin of ``validation/run_distributed_basin.py:build(1152, 960,
     fixed_tiles=(8, 128))`` in soft ice with seeded velocities, 24
     substeps, each timed per call with its plain version: the pinned
-    curvilinear EVP loop on the 1162×1018 widened arrays (phase 2's bars
-    over the interiors; with chunks of 4 and 2 substeps, and against the
-    whole-array curvilinear kernel fed the same coefficients, bitwise or
-    within 1e-5, timed in turns with it, with its share of settled
-    blocks); the ice strength on the widened h, ℵ (within 2 ulp); both
+    curvilinear EVP loop on the 1162×1018 widened arrays (the plain
+    version's bits over the interiors, signed zeros included, a gate, so
+    within phase 2's bars; its settled-block
+    flags equal to their plain version's, the settled share printed; 2 +
+    refills + 3·24 launches; with chunks of 4 and 2 substeps, and against
+    the whole-array curvilinear kernel fed the same coefficients, bitwise
+    or within 1e-5, timed in turns with it, with that kernel's share of
+    settled blocks; with ``--parent DIR`` the earlier tree's 2.7's bits,
+    timed in turns with it); the ice strength on the
+    widened h, ℵ (within 2 ulp); both
     wind components (within 2 ulp); the snow column physics with the solar
     FluxFunction (within 1e-5);
 18. the slice's main path: that basin at the default P★, dt 600 s, one
@@ -137,8 +150,10 @@ Phases, each of which raises (exit code 1) when it fails:
     'wide' policy), soft ice, seeded velocities, 24 substeps; no wrap along
     the split directions, the walls gated on the shard's position, no
     refill of the fold split across x; each bitwise against its plain
-    version (2.7 over the interiors, 2.9 over the padded arrays), timed per
-    call with its plain version and its bound;
+    version (2.7 over the interiors, signed zeros included, with its settled
+    flags and share as in phase 17, 2.9 over the padded arrays), timed per
+    call with its plain
+    version and its bound (2.7 with ``--parent`` as in phase 17);
 25. the distributed step (``parallel.make_distributed_step``) on four gloo
     ranks sharing the card, after asking gloo whether its send and receive
     take CUDA tensors: the basin of phase 18 at the default P★, dt 600 s, 3
@@ -172,8 +187,10 @@ Phases, each of which raises (exit code 1) when it fails:
     length); each timed per call with its plain version and its bound;
 28. kernel 2.7's unpinned plan on a (1, 4) shard that holds the fold and on
     a (2, 2) shard of the 1152×960 basin without fixed_tiles (halos 51),
-    soft ice, seeded velocities, 24 substeps: bitwise against its plain
-    version over the interiors, timed, with its bound and launches;
+    soft ice, seeded velocities, 24 substeps: the plain version's bits over
+    the interiors, signed zeros included, its settled flags and share as in
+    phase 17, timed, with its bound and launches (with ``--parent`` as in
+    phase 17); and the settled share of each shard of path C (phase 30);
 29. the wide-halo distributed step on four gloo ranks sharing the card,
     3 RK3 steps: path A (``bench.py:build(512, 120)`` under
     ``halo_exchange="wide"``, soft ice and the default P★) bitwise equal to
@@ -756,6 +773,156 @@ def cuda_ms(fn, repeats):
     return start.elapsed_time(end) / repeats
 
 
+# sha256 of commit 825cb6e's climaseaice_jl_tpu_torch/csrc, as earlier_csrc
+# hashes a directory: the C entries below are called with that commit's
+# argument lists, which ctypes cannot check
+EARLIER_CSRC_SHA256 = "0ae8f29eaaf3b8f130e58ee95efaab9803e5c0aacb93f4d6441acfb0f602e670"
+
+
+def earlier_csrc(tree):
+    """The CUDA sources of ``tree``, a checkout of commit 825cb6e; raises
+    if they are not that commit's (the hash of each file's name and bytes,
+    in name order)."""
+    import hashlib
+    csrc = os.path.join(tree, "climaseaice_jl_tpu_torch", "csrc")
+    digest = hashlib.sha256()
+    for name in sorted(os.listdir(csrc)):
+        path = os.path.join(csrc, name)
+        if os.path.isfile(path):
+            with open(path, "rb") as f:
+                digest.update(name.encode() + b"\0" + f.read())
+    if digest.hexdigest() != EARLIER_CSRC_SHA256:
+        raise ValueError(f"{csrc} holds other sources than commit 825cb6e's: its C entries "
+                         f"would be called with the wrong arguments")
+    return csrc
+
+
+def earlier_library(name, csrc, nvcc_flags):
+    """Source ``name`` of the earlier tree's sources in directory ``csrc``
+    (see earlier_csrc), built with ``nvcc_flags`` into ``_build/earlier``
+    and loaded."""
+    import ctypes
+    import hashlib
+    import subprocess
+    from climaseaice_jl_tpu_torch import _build
+    tag = hashlib.sha256(" ".join((name,) + tuple(nvcc_flags)).encode()).hexdigest()[:16]
+    out = _build.BUILD_DIR / "earlier" / f"lib{name}_{tag}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build._nvcc(), *nvcc_flags, "-o", str(out),
+                               os.path.join(csrc, _build.SOURCES[name])],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA build of the earlier {name} failed:\n"
+                               f"{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(out))
+
+
+def earlier_evp(csrc, contract=False):
+    """Kernel 2.1 built from an earlier tree's sources in directory ``csrc``,
+    whose C entry is that of commit 825cb6e (three launches a substep, the
+    results left in the carry tensors), with the multiply-add contraction
+    that tree built it with (``contract``) or with -fmad=false: a function
+    of (params, consts, carry, nsub)."""
+    import ctypes
+    import torch
+    from climaseaice_jl_tpu_torch import _build
+    flags = tuple(f for f in _build.NVCC_FLAGS if not (contract and f == "-fmad=false"))
+    fn = earlier_library("evp", csrc, flags).csi_evp_substeps
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(params, consts, carry, nsub):
+        nx, ny = carry[0].shape
+        err = fn(params.data_ptr(), *(q.data_ptr() for q in tuple(consts) + tuple(carry)),
+                 nx, ny, nsub, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the earlier 2.1 failed: CUDA error {err}")
+        return carry
+    return run
+
+
+def earlier_tiled_curvilinear(csrc):
+    """Kernel 2.7 built from an earlier tree's sources in directory
+    ``csrc``, whose C entry is that of commit 825cb6e (every block through
+    every substep, one prep launch): a function with the arguments of
+    ``tiled_curvilinear_evp_substeps`` (without ``settled``)."""
+    import ctypes
+    import torch
+    from climaseaice_jl_tpu_torch import _build
+    from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ftc
+    fn = earlier_library("evp_tiled_curvilinear", csrc,
+                         _build.NVCC_FLAGS).csi_evp_tiled_curvilinear_substeps
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(params, planes, carry, nsub, grid, plan, flags, chunk=None):
+        geo = ftc._geometry(grid)
+        ptrs = (ctypes.c_void_p * (ftc.N_PLANES + 1))(
+            *[q.data_ptr() for q in planes], *([None] if len(planes) == ftc.N_PLANES else []))
+        scratch = torch.empty((ftc.N_SCRATCH,) + grid.shape, dtype=torch.float32,
+                              device=params.device)
+        work = torch.empty((ftc.N_WORK,) + grid.shape, dtype=torch.float32,
+                           device=params.device)
+        err = fn(params.data_ptr(), ctypes.addressof(ptrs), *[q.data_ptr() for q in carry],
+                 scratch.data_ptr(), work.data_ptr(), grid.nxp, grid.nyp, grid.Hx, grid.Nx,
+                 grid.Hy, grid.Ny, *(int(w) for w in geo.wrap), *(int(b) for b in geo.bounded),
+                 int(grid.north_fold), *geo.gates, int(geo.refill), int(flags[0]),
+                 int(flags[1]), int(nsub), plan[0] if chunk is None else int(chunk),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the earlier 2.7 failed: CUDA error {err}")
+        return carry
+    return run
+
+
+def in_turns(fns, repeats):
+    """Each of ``fns`` (label → function) timed by cuda_ms in turns, forwards
+    then backwards: label → [ms, ms]."""
+    times = {}
+    for label in list(fns) + list(fns)[::-1]:
+        times.setdefault(label, []).append(cuda_ms(fns[label], repeats))
+    return times
+
+
+def earlier_against(earlier, out, params, planes, carry, tsub, grid, plan, flags, card):
+    """The earlier tree's 2.7 (``earlier``, from earlier_tiled_curvilinear)
+    on the same input as the output ``out`` of this tree's: the same bits
+    over the interiors, and both timed in turns."""
+    import torch
+    from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ftc
+    old = earlier(params, planes, [q.clone() for q in carry], tsub, grid, plan, flags)
+    torch.cuda.synchronize()
+    ulp = max(max_ulp(grid.interior(x), grid.interior(o)) for x, o in zip(old, out))
+    if ulp or not all(same_bits(grid.interior(x), grid.interior(o)) for x, o in zip(old, out)):
+        raise AssertionError(f"2.7 is not the earlier tree's bits ({ulp} ulp)")
+    w_new, w_old = [q.clone() for q in carry], [q.clone() for q in carry]
+    times = in_turns({"2.7": lambda: ftc.tiled_curvilinear_evp_substeps(
+                          params, planes, w_new, tsub, grid, plan, flags),
+                      "earlier 2.7": lambda: earlier(params, planes, w_old, tsub, grid, plan,
+                                                     flags)}, 20)
+    print("    against the earlier tree's 2.7: 0 ulp over the interiors; in turns, ms per call "
+          "(20 calls, forwards then backwards): "
+          + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in times.items())
+          + f", on {card}")
+
+
+def tc_launches(tsub, K, refill):
+    """Kernel 2.7's launches a call: the prep and the flags, one refill a
+    chunk of K substeps where the fold is refilled, three a substep."""
+    return 2 + 3 * tsub + (-(-tsub // K) if refill else 0)
+
+
+def settled_record(settled, want):
+    """The kernel's settled flags (int32) against their plain version's:
+    (share, settled blocks, blocks), raising where they differ."""
+    got = settled.reshape(want.shape).bool()
+    if not bool((got == want).all()):
+        raise AssertionError(f"2.7's settled flags differ from their plain version's at "
+                             f"{int((got != want).sum())} blocks")
+    return float(got.float().mean().item()), int(got.sum().item()), got.numel()
+
+
 def check_state(model, state):
     """Finite and physical over the interior; on a grid with walls or land,
     h = ℵ = 0 on land cells and u, v zero on peripheral nodes."""
@@ -839,6 +1006,13 @@ def max_ulp(ref, x):
     return int((a - b).abs().max().item())
 
 
+def same_bits(ref, x):
+    """Whether two float32 tensors hold the same bits (so −0 and +0, which
+    max_ulp puts 0 apart, count as different)."""
+    import torch
+    return torch.equal(ref.contiguous().view(torch.int32), x.contiguous().view(torch.int32))
+
+
 def bounds_ms(nbytes, flops):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
 
@@ -889,7 +1063,12 @@ def main(argv=None):
     parser.add_argument("--profile", metavar="FILE",
                         help="write torch.profiler tables of one flagship step and "
                              "one bounded step to FILE")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="a checkout of commit 825cb6e (its CUDA sources are checked): "
+                             "hold kernels 2.1 and 2.7 against its builds of them and time "
+                             "them in turns (phases 2, 17, 24, 28)")
     args = parser.parse_args(argv)
+    parent_csrc = None if args.parent is None else earlier_csrc(args.parent)
 
     import torch
     if not torch.cuda.is_available():
@@ -926,19 +1105,29 @@ def main(argv=None):
     model = flagship(cst, N, nsub, P_star=27.5)
     state = flagship_state(cst, model, velocity_seed=0)
     dt = 120.0
-    upd = fused_evp.fused_split_explicit_momentum_step(model, state, dt, state.u, state.v)
+    names = ("u", "v", "sig11", "sig22", "sig12", "alpha")
     params, consts, carry, _ = fused_evp.evp_inputs(model, state, dt, state.u, state.v)
+    counter.reset()
+    out = fused_evp.evp_substeps(params, consts, [q.clone() for q in carry], nsub)
+    launches_21 = counter.launches
     ref = fused_evp.evp_substeps_reference(params, consts, carry, nsub)
     torch.cuda.synchronize()
-    I = model.grid.interior
-    print(f"[2] EVP kernel vs plain version, {N}² soft ice, {nsub} substeps:")
+    t21_chunk = fused_evp.chunk_substeps()
+    print(f"[2] EVP kernel (2.1) vs plain version, {N}² soft ice, {nsub} substeps:")
     worst_rel = worst_abs = 0.0
-    for name, r, bar in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), ref,
-                            (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
-        rel, abs_err = rel_diff(r, I(upd[name]))
+    for name, r, o, bar in zip(names, ref, out, (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name} from 2.1 is not finite")
+        rel, abs_err = rel_diff(r, o)
         check(name, rel, bar)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
-
+    t21_ulp = max(max_ulp(r, o) for r, o in zip(ref, out))
+    print(f"    bitwise over the whole interior: {t21_ulp == 0} (largest distance {t21_ulp} "
+          f"ulp); {launches_21} launches a call, {t21_chunk} substeps a launch; "
+          f"{fused_evp.describe()}")
+    if t21_ulp or launches_21 != -(-nsub // t21_chunk):
+        raise AssertionError(f"2.1 is {t21_ulp} ulp from its plain version with {launches_21} "
+                             f"launches a call; it must be bitwise with {-(-nsub // t21_chunk)}")
     work = [q.clone() for q in carry]
     kernel_ms = cuda_ms(lambda: fused_evp.evp_substeps(params, consts, work, nsub), 20)
     plain_ms = cuda_ms(lambda: fused_evp.evp_substeps_reference(params, consts, carry, nsub), 3)
@@ -951,6 +1140,24 @@ def main(argv=None):
           f"{max(bytes_ms, ops_ms):.4f} ms ({evp_flops / 1e9:.2f} GFLOP, "
           f"{evp_bytes / 1e6:.1f} MB) on {card}")
     evp_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    turns = {"2.1": lambda: fused_evp.evp_substeps(params, consts, work, nsub)}
+    variants = {}
+    if parent_csrc:
+        variants["earlier 2.1"] = earlier_evp(parent_csrc, contract=True)
+        variants["earlier 2.1, -fmad=false"] = earlier_evp(parent_csrc)
+    for label, fn in variants.items():
+        o = fn(params, consts, [q.clone() for q in carry], nsub)
+        torch.cuda.synchronize()
+        print(f"    {label}: {max(max_ulp(r, x) for r, x in zip(ref, o))} ulp from the plain "
+              f"version at most")
+        turns[label] = (lambda fn=fn, w=[q.clone() for q in carry]:
+                        fn(params, consts, w, nsub))
+    if variants:
+        times = in_turns(turns, 20)
+        print("    in turns, ms per call (CUDA events, 20 calls, forwards then backwards): "
+              + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in times.items())
+              + f", on {card}")
+    del out, ref, work, turns, variants
 
     # --- 3. the main path ---------------------------------------------------------
     flag_model = model = flagship(cst, N, nsub)
@@ -964,11 +1171,11 @@ def main(argv=None):
     main_calls, main_launches = counter.calls, counter.launches
     check_state(model, state)
     flag_state = state
-    if (main_calls != 3 * steps or main_launches != 3 * steps * 3 * nsub
+    if (main_calls != 3 * steps or main_launches != 3 * steps * launches_21
             or tiled_evp_counter.calls):
         raise AssertionError(f"EVP wrapper: {main_calls} calls, {main_launches} launches, "
                              f"tiled {tiled_evp_counter.calls} calls; expected "
-                             f"{3 * steps}, {9 * steps * nsub} and 0")
+                             f"{3 * steps}, {3 * steps * launches_21} and 0")
     print(f"[3] main path {N}² flagship: {step_ms:.2f} ms/step (CUDA events; host "
           f"{host_ms:.2f} ms/step), {points / step_ms * 1e3:.4e} points/s, "
           f"EVP {main_calls} calls / {main_launches} launches in {steps} steps, on {card}")
@@ -987,7 +1194,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         calls = (counter.calls, tiled_evp_counter.calls)
         launches = (counter.launches, tiled_evp_counter.launches)
-        expected_launches = (expected[0] * 3 * nsub, expected[1] * -(-nsub // t22_chunk))
+        expected_launches = (expected[0] * -(-nsub // t21_chunk),
+                             expected[1] * -(-nsub // t22_chunk))
         if calls != expected or launches != expected_launches:
             raise AssertionError(f"{n}² step: {calls[0]} calls of 2.1 and {calls[1]} of 2.2 "
                                  f"({launches} launches), expected {expected[0]} and "
@@ -1538,9 +1746,16 @@ def main(argv=None):
           f"{model.grid.Ny} widened to {wgrid.nxp}×{wgrid.nyp} (plan K, TX, TY, Wx, Wy = "
           f"{plan}), soft ice, {tsub} substeps, on {card}:")
     tc_counter.reset()
+    settled = torch.empty(-(-wgrid.nxp // ftc.BLOCK[0]) * -(-wgrid.nyp // ftc.BLOCK[1]),
+                          dtype=torch.int32, device="cuda")
     out = ftc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry], tsub,
-                                             wgrid, plan, flags)
+                                             wgrid, plan, flags, settled=settled)
     tc_launches_per_call = tc_counter.launches
+    tc_settled = settled_record(settled, ftc.tiled_settled_blocks_reference(
+        params, planes, wgrid, plan, flags))
+    if tc_launches_per_call != tc_launches(tsub, plan[0], True):
+        raise AssertionError(f"2.7 made {tc_launches_per_call} launches a call, expected "
+                             f"{tc_launches(tsub, plan[0], True)}")
     chunked = [ftc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry],
                                                   tsub, wgrid, plan, flags, chunk=c)
                for c in (4, 2)]
@@ -1560,11 +1775,28 @@ def main(argv=None):
         rel, abs_err = rel_diff(WI(r), WI(o))
         check(name, rel, bar)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
-    same_plain = all(torch.equal(WI(r), WI(o)) for r, o in zip(ref, out))
+    tc_ulp = max(max_ulp(WI(r), WI(o)) for r, o in zip(ref, out))
     same_chunks = all(torch.equal(WI(x), WI(o)) for c in chunked for x, o in zip(c, out))
     same_whole = all(torch.equal(WI(w), WI(o)) for w, o in zip(whole, out))
-    print(f"    bitwise: plain version {same_plain}, chunks of 12, 4 and 2 {same_chunks}, "
-          f"whole-array kernel on the same coefficients {same_whole}")
+    print(f"    bitwise: plain version {tc_ulp == 0} (largest distance {tc_ulp} ulp over the "
+          f"interiors; the parent design was bitwise), chunks of 12, 4 and 2 {same_chunks}, "
+          f"whole-array kernel on the same coefficients {same_whole}; settled blocks "
+          f"{tc_settled[0]:.4f} ({tc_settled[1]} of {tc_settled[2]}), the kernel's flags equal "
+          f"their plain version's")
+    if tc_ulp or not all(same_bits(WI(r), WI(o)) for r, o in zip(ref, out)):
+        raise AssertionError(f"2.7 is not its plain version's bits over the interiors ({tc_ulp} "
+                             f"ulp); it must be bitwise, signed zeros included")
+    earlier_tc = None
+    if parent_csrc:
+        earlier_tc = earlier_tiled_curvilinear(parent_csrc)
+        old27 = earlier_tc(params, planes, [q.clone() for q in carry], tsub, wgrid, plan, flags)
+        torch.cuda.synchronize()
+        old_ulp = max(max_ulp(WI(x), WI(o)) for x, o in zip(old27, out))
+        print(f"    against the earlier tree's 2.7: {old_ulp} ulp over the interiors, whole "
+              f"arrays the same bits {all(same_bits(x, o) for x, o in zip(old27, out))}")
+        if old_ulp or not all(same_bits(WI(x), WI(o)) for x, o in zip(old27, out)):
+            raise AssertionError(f"2.7 is not the earlier tree's bits ({old_ulp} ulp)")
+        del old27
     # The fold halo evolves exactly only where the arithmetic is exactly
     # mirror-antisymmetric; the reference's own contract is bitwise equality
     # at one chunk length (`pallas_evp_tiled_curvilinear.py:89-93`), which
@@ -1590,26 +1822,26 @@ def main(argv=None):
     bytes_ms, ops_ms = bounds_ms(
         ((TC_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + ftc.N_PARAMS) * 4,
         (CURV_FLOPS_PER_POINT_SUBSTEP * tsub + TC_FLOPS_PER_POINT_CALL) * points)
-    route_turns, route_times = [], {}
-    for name in ("pinned", "whole-array", "pinned", "whole-array"):
-        if name == "pinned":
-            turn_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps(
-                params, planes, work, tsub, wgrid, plan, flags), 20)
-        else:
-            turn_ms = cuda_ms(lambda: fused_evp_curvilinear.curvilinear_evp_substeps(
-                p18, c_consts, work_whole, tsub, wgrid, c_planes), 20)
-        route_turns.append(f"{name} {turn_ms:.4f}")
-        route_times.setdefault(name, []).append(turn_ms)
+    turns = {"pinned": lambda: ftc.tiled_curvilinear_evp_substeps(
+                 params, planes, work, tsub, wgrid, plan, flags),
+             "whole-array": lambda: fused_evp_curvilinear.curvilinear_evp_substeps(
+                 p18, c_consts, work_whole, tsub, wgrid, c_planes)}
+    if earlier_tc is not None:
+        work_old = [q.clone() for q in carry]
+        turns["earlier pinned"] = lambda: earlier_tc(params, planes, work_old, tsub, wgrid,
+                                                     plan, flags)
+    route_times = in_turns(turns, 20)
     print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
-          f"{max(bytes_ms, ops_ms):.4f} ms; in turns with the whole-array kernel, ms per "
-          f"call (20 calls): {', '.join(route_turns)}; the whole-array kernel (2.6) over the "
-          f"pinned (2.7): at most "
+          f"{max(bytes_ms, ops_ms):.4f} ms; in turns, ms per call (20 calls, forwards then "
+          f"backwards): "
+          + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in route_times.items())
+          + f"; the whole-array kernel (2.6) over the pinned (2.7): at most "
           f"{max(route_times['whole-array']) / min(route_times['pinned']):.4f}, with "
           f"{fused_evp_curvilinear.settled_share(c_consts, wgrid):.4f} of its blocks settled")
     tc_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
     tc_shape = (f"{wgrid.nxp}x{wgrid.nyp} widened (1152x960 tripolar basin, land, fold, "
                 f"drag), {tsub} substeps")
-    del out, chunked, ref, ref4, whole, work, work_whole, c_consts
+    del out, chunked, ref, ref4, whole, work, work_whole, c_consts, turns, earlier_tc
 
     # 2.8: the ice strength on the widened h, ℵ
     prm = ftc.ice_strength_params(model)
@@ -1924,18 +2156,23 @@ def main(argv=None):
     plan = ftc._fixed_plan(lgrid, tsub, fixed)
     geo = ftc._geometry(lgrid)
     tc_counter.reset()
+    settled = torch.empty(-(-lgrid.nxp // ftc.BLOCK[0]) * -(-lgrid.nyp // ftc.BLOCK[1]),
+                          dtype=torch.int32, device="cuda")
     out = ftc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry], tsub,
-                                             lgrid, plan, flags)
+                                             lgrid, plan, flags, settled=settled)
     mesh_launches_per_call = tc_counter.launches
+    tcm_settled = settled_record(settled, ftc.tiled_settled_blocks_reference(
+        params, planes, lgrid, plan, flags))
     ref = ftc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, tsub, lgrid,
                                                        plan, flags)
     torch.cuda.synchronize()
     print(f"[24] kernels 2.7 and 2.9 on shard {shard} of a {mesh_shape} mesh of the basin "
           f"{g.Nx}×{g.Ny} ({lgrid.nxp}×{lgrid.nyp} padded, halos {Hm}; wrap {geo.wrap}, wall "
           f"gates {geo.gates}, fold refilled {geo.refill}), soft ice, {tsub} substeps, on {card}:")
-    if mesh_launches_per_call != 1 + 3 * tsub:
+    if mesh_launches_per_call != tc_launches(tsub, plan[0], False):
         raise AssertionError(f"2.7 on the shard launched {mesh_launches_per_call} times, "
-                             f"expected {1 + 3 * tsub} (no refill of the fold split across x)")
+                             f"expected {tc_launches(tsub, plan[0], False)} (no refill of the "
+                             f"fold split across x)")
     worst_rel = worst_abs = 0.0
     for name, r, o, bar in zip(names, ref, out, (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
         if not torch.isfinite(LI(o)).all():
@@ -1943,14 +2180,18 @@ def main(argv=None):
         rel, abs_err = rel_diff(LI(r), LI(o))
         check(name, rel, bar)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
-    if not all(torch.equal(LI(r), LI(o)) for r, o in zip(ref, out)):
-        raise AssertionError("2.7 on the shard is not bitwise its plain version")
+    if not all(same_bits(LI(r), LI(o)) for r, o in zip(ref, out)):
+        raise AssertionError("2.7 on the shard is not its plain version's bits")
     print(f"  2.7: interiors bitwise equal to the plain version; {mesh_launches_per_call} "
-          f"launches a call (no refill)")
+          f"launches a call (no refill); settled blocks {tcm_settled[0]:.4f} ({tcm_settled[1]} "
+          f"of {tcm_settled[2]}), the kernel's flags equal their plain version's")
     points = lgrid.nxp * lgrid.nyp
     work = [q.clone() for q in carry]
     kernel_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps(
         params, planes, work, tsub, lgrid, plan, flags), 20)
+    if parent_csrc:
+        earlier_against(earlier_tiled_curvilinear(parent_csrc), out, params, planes, carry,
+                        tsub, lgrid, plan, flags, card)
     plain_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps_reference(
         params, planes, carry, tsub, lgrid, plan, flags), 2)
     bytes_ms, ops_ms = bounds_ms(
@@ -2014,7 +2255,7 @@ def main(argv=None):
     dist_launches = {}
     for (label, mesh, drag), res in zip(runs, results):
         x_split = mesh[0] > 1
-        per_call = 1 + 3 * tsub + (0 if x_split else -(-tsub // K))
+        per_call = tc_launches(tsub, K, not x_split)
         for r in res["records"]:
             calls, launches = r["calls"], r["launches"]
             if any(calls[k] for k in ("2.1", "2.2", "2.3", "2.4", "2.5", "2.6")):
@@ -2027,7 +2268,7 @@ def main(argv=None):
                                      f"{steps * per_call}")
             print(f"    {label}, rank {r['rank']} shard {tuple(r['index'])}: ms/step "
                   f"{', '.join(f'{t:.1f}' for t in r['ms_per_step'])}; 2.7 launches a step "
-                  f"{launches['2.7'] // steps} (refills {launches['2.7'] // steps - 1 - 3 * tsub})"
+                  f"{launches['2.7'] // steps} (refills {launches['2.7'] // steps - 2 - 3 * tsub})"
                   f"; {r['bytes_per_step'] / 1e6:.3f} MB sent a step "
                   f"({'via host' if r['stage'] else 'device to device'}), "
                   f"on {r['device']} ({r['device_name']})")
@@ -2081,10 +2322,11 @@ def main(argv=None):
     Hw = 2 * nsub + 3                     # the wide halo of the distributed step
     names = ("u", "v", "sig11", "sig22", "sig12", "alpha")
 
-    def meshed_check(label, kernel, plain, interior, record=None):
-        """Bitwise kernel against plain version over ``interior``; their
-        largest differences (a record), and the largest ulp distance over
-        ``interior`` and (a record) over ``record``."""
+    def meshed_check(label, kernel, plain, interior, record=None, signed_zeros=False):
+        """Bitwise kernel against plain version over ``interior`` (with
+        ``signed_zeros``, the same bits); their largest differences (a
+        record), and the largest ulp distance over ``interior`` and (a
+        record) over ``record``."""
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         worst = (0.0, 0.0)
@@ -2097,9 +2339,10 @@ def main(argv=None):
         print(f"  {label}: {ulps} ulp from the plain version"
               + ("" if record is None else ", a record over the split directions' padded "
                  f"extent: {max(max_ulp(record(r), record(o)) for r, o in zip(ref, out))} ulp"))
-        if ulps:
-            raise AssertionError(f"{label}: not bitwise its plain version (largest relative "
-                                 f"difference {worst[1]:.3e})")
+        if ulps or (signed_zeros and not all(same_bits(interior(r), interior(o))
+                                             for r, o in zip(ref, out))):
+            raise AssertionError(f"{label}: not bitwise its plain version ({ulps} ulp, largest "
+                                 f"relative difference {worst[1]:.3e})")
         return worst
 
     print(f"[27] kernels 2.3, 2.4 and 2.5 meshed on shard {shard} of a {mesh_shape} mesh of "
@@ -2221,17 +2464,24 @@ def main(argv=None):
         plan = ftc._unpinned_plan(lgrid, tsub)
         geo = ftc._geometry(lgrid)
         tc_counter.reset()
+        settled = torch.empty(-(-lgrid.nxp // ftc.BLOCK[0]) * -(-lgrid.nyp // ftc.BLOCK[1]),
+                              dtype=torch.int32, device="cuda")
+        kept = {}
         worst = meshed_check(
             f"2.7 unpinned on {mesh_c}",
-            lambda: ftc.tiled_curvilinear_evp_substeps(params, lp, [q.clone() for q in lc],
-                                                       tsub, lgrid, plan, flags),
+            lambda: kept.setdefault("out", ftc.tiled_curvilinear_evp_substeps(
+                params, lp, [q.clone() for q in lc], tsub, lgrid, plan, flags,
+                settled=settled)),
             lambda: ftc.tiled_curvilinear_evp_substeps_reference(params, lp, lc, tsub, lgrid,
-                                                                 plan, flags), LI)
+                                                                 plan, flags), LI,
+            signed_zeros=True)
         per_call = tc_counter.launches
-        expect = 1 + 3 * tsub + (-(-tsub // plan[0]) if geo.refill else 0)
+        expect = tc_launches(tsub, plan[0], geo.refill)
         if per_call != expect:
             raise AssertionError(f"2.7 unpinned on {mesh_c}: {per_call} launches a call, "
                                  f"expected {expect}")
+        share = settled_record(settled, ftc.tiled_settled_blocks_reference(
+            params, lp, lgrid, plan, flags))
         points = lgrid.nxp * lgrid.nyp
         work = [q.clone() for q in lc]
         kernel_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps(
@@ -2243,15 +2493,33 @@ def main(argv=None):
             (CURV_FLOPS_PER_POINT_SUBSTEP * tsub + TC_FLOPS_PER_POINT_CALL) * points)
         print(f"  {mesh_c} shard {shard_c}, {lgrid.nxp}×{lgrid.nyp} padded, plan {plan}, wrap "
               f"{geo.wrap}, wall gates {geo.gates}, fold refilled {geo.refill}: interiors "
-              f"bitwise equal to the plain version; {per_call} launches a call; kernel "
-              f"{kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
-              f"{max(bytes_ms, ops_ms):.4f} ms")
+              f"bitwise equal to the plain version; {per_call} launches a call; settled "
+              f"blocks {share[0]:.4f} ({share[1]} of {share[2]}), the kernel's flags equal "
+              f"their plain version's; kernel {kernel_ms:.4f} ms/call, plain "
+              f"{plain_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms")
+        if parent_csrc:
+            earlier_against(earlier_tiled_curvilinear(parent_csrc), kept["out"], params, lp,
+                            lc, tsub, lgrid, plan, flags, card)
         if mesh_c == (2, 2):
             tcu_timing = (*worst, kernel_ms, plain_ms, bytes_ms, ops_ms)
             tcu_shape = (f"{lgrid.nxp}x{lgrid.nyp} shard {shard_c} of a 2x2 mesh of the "
                          f"1152x960 basin, halos {Hm}, {tsub} substeps, unpinned plan {plan}")
-        del lp, lc, work
-    del model, state, params, planes, carry
+        del lp, lc, work, kept
+    # path C's shards: the flags depend on h, ℵ and the land only, as at path C's first step
+    shares = []
+    for mesh_c in ((1, 4), (2, 2)):
+        nx, ny = g.Nx // mesh_c[0], g.Ny // mesh_c[1]
+        Hx = Hm if mesh_c[0] > 1 else 5
+        axes = ("x" if mesh_c[0] > 1 else None, "y")
+        for shard_c in ((ix, iy) for ix in range(mesh_c[0]) for iy in range(mesh_c[1])):
+            lgrid = _local_grid(with_halo(g, (Hx, Hm)), nx, ny, *shard_c, axes, mesh_c,
+                                ProcessMesh(mesh_c, shard_c, g.device, transport=False))
+            lp = tuple(shard_of(q, shard_c, nx, ny, Hm, Hx) for q in planes)
+            flags_c = ftc.tiled_settled_blocks_reference(params, lp, lgrid,
+                                                         ftc._unpinned_plan(lgrid, tsub), flags)
+            shares.append(f"{mesh_c} {shard_c} {float(flags_c.float().mean()):.4f}")
+    print(f"  settled blocks on path C's shards (phase 30): {'; '.join(shares)}")
+    del model, state, params, planes, carry, lp
 
     # --- 29-30. paths A, B and C through the distributed step on four gloo ranks ----------------
     steps = 3
@@ -2351,8 +2619,9 @@ def main(argv=None):
         for drag in (False, True):
             label = f"C {mesh}, {'drag' if drag else 'no drag'}"
             res = results[label]
-            refill = 0 if mesh[0] > 1 else 1        # one chunk of 24: one refill where x is whole
-            launches_c = report(label, res, {"2.7": steps}, {"2.7": 1 + 3 * tsub + refill})
+            # one chunk of 24: one refill where x is whole
+            launches_c = report(label, res, {"2.7": steps},
+                                {"2.7": tc_launches(tsub, tsub, mesh[0] == 1)})
             if label == "C (2, 2), drag":
                 tcu_launches = launches_c["2.7"]
             ref27, ref26 = serial_c[drag]

@@ -29,23 +29,13 @@ SOURCES = {"evp": "evp.cu", "evp_padded": "evp_padded.cu",
            "ice_strength_fixed": "ice_strength_fixed.cu", "pointwise_fixed": "pointwise_fixed.cu",
            "evp_tiled": "evp_tiled.cu"}
 
-# no --use_fast_math: it would change the divides and square roots
+# No --use_fast_math: it would change the divides and square roots.  No
+# source contracts a multiply-add (-fmad=false): each operation rounds on
+# its own, as in the kernels' plain PyTorch versions, whatever the compiler
+# would fuse at a given call site, so every kernel can equal its plain
+# version bitwise.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# The tiled kernels, periodic and decomposition-invariant (and the padded
-# and curvilinear kernels, whose device code the tiled ones share), contract
-# no multiply-add: each operation rounds on its own, as in their plain
-# PyTorch versions, whatever the compiler would fuse at a given call site.
-EXACT_FLAGS = ("-fmad=false",)
-SOURCE_FLAGS = {name: EXACT_FLAGS for name in (
-    "evp_padded", "evp_curvilinear", "evp_prep", "evp_tiled_padded", "advection_fixed",
-    "thermo_fixed", "evp_tiled_curvilinear", "ice_strength_fixed", "pointwise_fixed",
-    "evp_tiled")}
-
-
-def flags(name: str) -> tuple:
-    """nvcc's flags for source ``name``."""
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-fmad=false")
 
 _libraries: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}   # nvcc output per source (ptxas registers, spills)
@@ -64,7 +54,7 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(flags(name)).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
         digest.update(path.name.encode() + path.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
@@ -80,7 +70,7 @@ def build(names=None) -> dict[str, Path]:
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
@@ -102,3 +92,4 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libraries:
         _libraries[name] = ctypes.CDLL(str(build([name])[name]))
     return _libraries[name]
+

@@ -7,11 +7,13 @@
 // the TPU kernels' `stresses` computes with circular rolls
 // (pallas_evp.py:230-276, pallas_evp_padded.py:268-306; the two are the
 // same algebra).  `evp_stress` runs it at every point of an nx×ny array
-// with neighbours found by index wrap: evp.cu on interior-only periodic
-// arrays, evp_padded.cu on whole padded arrays, where the wrap over the
-// padded extent matches `pltpu.roll` on the halo ring.  evp_tiled_padded.cu
-// and evp_tiled.cu run `stress_point`, `u_update_point` and
-// `v_update_point` on tiles in shared memory.
+// with neighbours found by index wrap: evp_padded.cu on whole padded
+// arrays (its per-phase plan, for halos too wide for its tiles), where the
+// wrap over the padded extent matches `pltpu.roll` on the halo ring.  The
+// tile engines (evp_periodic_tile.cuh for evp.cu and evp_tiled.cu,
+// evp_padded_tile.cuh for evp_padded.cu and evp_tiled_padded.cu) run
+// `stress_point`, `u_update_point` and `v_update_point` on tiles in shared
+// memory.
 
 #pragma once
 

@@ -88,27 +88,6 @@ constexpr int FIRST_SKIPPED = 4;   // the first substep a settled block skips
 // the forms of the prep launch after csi_curv's metric forms
 enum CurvForm { F_VE_FC = N_FORMS, F_UE_CF, F_TAUD_U, F_TAUD_V, N_CURV_FORMS };
 
-// bits of the flag byte
-enum FlagBit { B_ACT_U = 1, B_ACT_V = 2, B_MSK_CC = 4, B_MSK_FF = 8 };
-
-// The updates' reader of the forms made once per call (RawForms' values:
-// the flags are 0 or 1, the averages and products the same operations).
-struct CallForms {
-  const unsigned char* __restrict__ bits;
-  const float* __restrict__ ve_fc_;
-  const float* __restrict__ ue_cf_;
-  const float* __restrict__ taud_u;
-  const float* __restrict__ taud_v;
-  __device__ __forceinline__ float msk_cc(int k) const { return (bits[k] & B_MSK_CC) ? 1.0f : 0.0f; }
-  __device__ __forceinline__ float msk_ff(int k) const { return (bits[k] & B_MSK_FF) ? 1.0f : 0.0f; }
-  __device__ __forceinline__ float act_u(int k) const { return (bits[k] & B_ACT_U) ? 1.0f : 0.0f; }
-  __device__ __forceinline__ float act_v(int k) const { return (bits[k] & B_ACT_V) ? 1.0f : 0.0f; }
-  __device__ __forceinline__ float ve_fc(int ks, int, int, int) const { return ve_fc_[ks]; }
-  __device__ __forceinline__ float ue_cf(int ks, int, int, int) const { return ue_cf_[ks]; }
-  __device__ __forceinline__ float tau_drag_u(int k, float) const { return taud_u[k]; }
-  __device__ __forceinline__ float tau_drag_v(int k, float) const { return taud_v[k]; }
-};
-
 __device__ __forceinline__ bool settled_block(const int* __restrict__ settled, int skip) {
   return skip && settled[blockIdx.y * gridDim.x + blockIdx.x];
 }

@@ -2,11 +2,13 @@
 // (kernel 2.7): the per-point σ relaxation, metric stress divergences and
 // semi-implicit u and v updates of the curvilinear αEVP substep
 // (pallas_evp_curvilinear.py:323-422, which pallas_evp_tiled_curvilinear.py:
-// 843-941 repeats), and the halo fills with the Zipper fold.  The callers
-// find the neighbours: 2.6 by index wrap over the padded extent, 2.7 by
-// wrap into the interior along a periodic direction and clamp at the
-// padded edge along a bounded one.  Both sources are built with
-// -fmad=false, so this code rounds alike in both.
+// 843-941 repeats), and the sources of 2.6's halo fills with the Zipper
+// fold.  The callers find the neighbours: 2.6 by index wrap over the padded
+// extent, 2.7 by wrap into the interior along a periodic direction and
+// clamp at the padded edge along a bounded one.  Both read the 0/1 masks,
+// the ocean velocity's transverse averages and τ·drag through `CallForms`,
+// formed by their prep launches.  Both sources are built with -fmad=false,
+// so this code rounds alike in both.
 
 #pragma once
 
@@ -50,9 +52,9 @@ struct Consts {
 
 // How an update reads the loop constants that are 0/1 flags, the transverse
 // averages of the ocean velocity and the top stress times the drag.
-// `RawForms` reads and forms them from the caller's arrays at every point,
-// as the plain version's operations do (2.7); evp_curvilinear.cu (2.6)
-// passes a reader of the same values formed once per call.
+// `RawForms` reads and forms them from the caller's arrays, as the plain
+// version's operations do: the prep launches of 2.6 and 2.7 form them so,
+// once per call, and the updates read them through `CallForms` below.
 struct RawForms {
   const Consts* c;
   __device__ __forceinline__ float msk_cc(int k) const { return c->msk_cc[k]; }
@@ -73,6 +75,29 @@ struct RawForms {
   __device__ __forceinline__ float tau_drag_v(int k, float drag) const {
     return c->tau_v[k] * drag;
   }
+};
+
+// bits of the flag byte of a point (2.6 and 2.7 set the first four, 2.7
+// also the fifth)
+enum FlagBit { B_ACT_U = 1, B_ACT_V = 2, B_MSK_CC = 4, B_MSK_FF = 8, B_DEAD = 16 };
+
+// The updates' reader of the forms a prep launch makes once per call
+// (RawForms' values: the flags are 0 or 1, the averages and products the
+// same operations), at the update's own point.
+struct CallForms {
+  const unsigned char* __restrict__ bits;
+  const float* __restrict__ ve_fc_;
+  const float* __restrict__ ue_cf_;
+  const float* __restrict__ taud_u;
+  const float* __restrict__ taud_v;
+  __device__ __forceinline__ float msk_cc(int k) const { return (bits[k] & B_MSK_CC) ? 1.0f : 0.0f; }
+  __device__ __forceinline__ float msk_ff(int k) const { return (bits[k] & B_MSK_FF) ? 1.0f : 0.0f; }
+  __device__ __forceinline__ float act_u(int k) const { return (bits[k] & B_ACT_U) ? 1.0f : 0.0f; }
+  __device__ __forceinline__ float act_v(int k) const { return (bits[k] & B_ACT_V) ? 1.0f : 0.0f; }
+  __device__ __forceinline__ float ve_fc(int ks, int, int, int) const { return ve_fc_[ks]; }
+  __device__ __forceinline__ float ue_cf(int ks, int, int, int) const { return ue_cf_[ks]; }
+  __device__ __forceinline__ float tau_drag_u(int k, float) const { return taud_u[k]; }
+  __device__ __forceinline__ float tau_drag_v(int k, float) const { return taud_v[k]; }
 };
 
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -134,26 +159,6 @@ __device__ __forceinline__ int v_source(const Layout& L, int i, int j, int& si,
   si = fill_source(i, L.Hx, L.Nx, L.per_x, false);
   sj = fill_source(j, L.Hy, L.Ny, L.per_y, true);
   return (si < 0 || sj < 0) ? V_ZERO : V_COPY;
-}
-
-// The serial halo fill (fields.fill_halos_*) of `in` at padded (i, j) for a
-// field at (xface, yface), with the fold sign `sign` (−1 for u and v, +1
-// for σ): the x fill, the y fill, then the Zipper fold of the north halo
-// with the y-face seam row projected onto its symmetry.
-__device__ __forceinline__ float fill_value(const Layout& L, const float* in, int i, int j,
-                                            bool xface, bool yface, float sign) {
-  const int ny = L.nyp;
-  const int seam = L.Hy + L.Ny;
-  if (L.fold && j >= seam) {
-    const int m = fold_column(L, i, xface);
-    if (!yface) return sign * in[m * ny + 2 * seam - 1 - j];
-    if (j > seam) return sign * in[m * ny + 2 * seam - j];
-    const int si = fill_source(i, L.Hx, L.Nx, L.per_x, xface);
-    return 0.5f * (in[si * ny + seam] + sign * in[m * ny + seam]);
-  }
-  const int si = fill_source(i, L.Hx, L.Nx, L.per_x, xface);
-  const int sj = fill_source(j, L.Hy, L.Ny, L.per_y, yface);
-  return (si < 0 || sj < 0) ? 0.0f : in[si * ny + sj];
 }
 
 // ϵ̇D, ϵ̇T at the cc point k, with k_e = (i+1, j), k_n = (i, j+1)
@@ -313,13 +318,6 @@ __device__ __forceinline__ float u_at(const float* prm, const Metrics& m, const 
   return (uk * idtau + G) / (idtau + rC * speed * drag) * F.act_u(ks);
 }
 
-__device__ __forceinline__ float u_at(const float* prm, const Metrics& m, const Consts& c,
-                                      int has_drag, const float* u, const float* v,
-                                      const float* s11, const float* s22,
-                                      const float* s12, const float* al,
-                                      int ks, int kw, int kn, int kwn) {
-  return u_at(prm, m, c, RawForms{&c}, has_drag, u, v, s11, s22, s12, al, ks, kw, kn, kwn);
-}
 
 // the semi-implicit v update at ks (pallas_evp_curvilinear.py:375-422), with
 // kso = (i, j-1), ke = (i+1, j), kes = (i+1, j-1)
@@ -363,14 +361,6 @@ __device__ __forceinline__ float v_at(const float* prm, const Metrics& m, const 
   G = invm > 0.0f ? G : 0.0f;
   const float idtau = 0.5f * (al[ks] + al[kso]) * inv_dt;
   return (vk * idtau + G) / (idtau + rC * speed * drag) * F.act_v(ks);
-}
-
-__device__ __forceinline__ float v_at(const float* prm, const Metrics& m, const Consts& c,
-                                      int has_drag, const float* u, const float* v,
-                                      const float* s11, const float* s22,
-                                      const float* s12, const float* al,
-                                      int ks, int kso, int ke, int kes) {
-  return v_at(prm, m, c, RawForms{&c}, has_drag, u, v, s11, s22, s12, al, ks, kso, ke, kes);
 }
 
 }  // namespace csi_curv

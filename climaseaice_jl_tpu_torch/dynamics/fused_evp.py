@@ -6,12 +6,17 @@ Counterpart of `climaseaice_jl_tpu/dynamics/pallas_evp.py`.  Two kernels
 compute the loop on interior-only, doubly periodic, uniform-metric float32
 arrays with circular shifts, so the arrays need no halos at all:
 ``csrc/evp.cu`` replaces the TPU kernel ``_evp_kernel`` (2.1, twelve
-constants prepared by the launcher) and runs grids of up to
-``_MAX_POINTS_RICH`` points; ``csrc/evp_tiled.cu``
+constants prepared by the launcher, :func:`evp_coefficients`) and runs
+grids of up to ``_MAX_POINTS_RICH`` points; ``csrc/evp_tiled.cu``
 (:mod:`.fused_evp_tiled`) replaces ``_tiled_kernel`` (2.2, coefficients
 derived from m, ℵ and P in its own forms) and runs larger ones, as the JAX
-dispatcher does (`pallas_evp.py:440-466`).  Uniform-metric forms (exact on
-uniform grids):
+dispatcher does (`pallas_evp.py:440-466`).  Both run one tile engine
+(``csrc/evp_periodic_tile.cuh``): one launch per chunk of K substeps on
+tiles held in shared memory with an overlap of 2K, α never loaded, the
+carried fields ping-ponging with scratch arrays; they differ in how a
+point gets its coefficients (2.1 reads its twelve arrays at the point, 2.2
+derives them).  Both build with -fmad=false and equal their plain versions
+bitwise.  Uniform-metric forms (exact on uniform grids):
 
     ϵ̇₁₁ = δxᶜu/Δx          ϵ̇₂₂ = δyᶜv/Δy       ϵ̇₁₂ = (δyᶠu/Δy + δxᶠv/Δx)/2
     ∂ⱼσ₁ⱼ = δxᶠσ₁₁/Δx + δyᶜσ₁₂/Δy
@@ -48,9 +53,8 @@ _P_DT, _P_DX, _P_DY, _P_F, _P_TAUU, _P_TAUV, _P_RC, _P_UE, _P_VE, \
 N_PARAMS = 18
 N_CONSTS = 12   # P, Pff, gcc, gff, drag_u, invm_u, act_u, un, drag_v, invm_v, act_v, vn
 N_CARRY = 6     # u, v, σ₁₁, σ₂₂, σ₁₂, α
-LAUNCHES_PER_SUBSTEP = 3
-_MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y; the kernel puts x there
-_BLOCK_X_ROWS = 8     # evp.cu's BY
+_MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y; the kernels put x there
+_MIN_TILE_ROWS = 8    # the periodic kernels' tiles hold at least 8 rows (x)
 
 # Where the JAX package's function changes (`pallas_evp.py:66-73`): up to
 # _MAX_POINTS_RICH points it runs 2.1, above it 2.2, which derives its
@@ -155,10 +159,12 @@ def fused_available(model):
 
 # --- the plain version ----------------------------------------------------------
 
-def evp_substeps_reference(params, consts, carry, nsub):
-    """Plain PyTorch version of the kernel: ``nsub`` substeps on interior
-    arrays with circular shifts, in the TPU kernel's operation order
-    (`pallas_evp.py:139-345`).  Returns the new (u, v, σ₁₁, σ₂₂, σ₁₂, α)."""
+def evp_substep_phases(params, consts):
+    """The three phases of the plain version's substep, in the TPU kernel's
+    operation order (`pallas_evp.py:213-315`), on interior arrays with
+    circular shifts: ``stresses(u, v, σ₁₁, σ₂₂, σ₁₂) → (σ₁₁, σ₂₂, σ₁₂, α)``,
+    ``u_update(u, v, σ₁₁, σ₁₂, α) → u`` and ``v_update(u, v, σ₂₂, σ₁₂, α) →
+    v``."""
     p = params
     dt = p[_P_DT]
     inv_dx = 1.0 / p[_P_DX]
@@ -293,6 +299,15 @@ def evp_substeps_reference(params, consts, carry, nsub):
         vD = (v * idtau + Gv) / (idtau + tau_i)
         return vD * act_v
 
+    return stresses, u_update, v_update
+
+
+def evp_substeps_reference(params, consts, carry, nsub):
+    """Plain PyTorch version of the kernel: ``nsub`` substeps on interior
+    arrays with circular shifts, in the TPU kernel's operation order
+    (`pallas_evp.py:139-345`; :func:`evp_substep_phases`).  Returns the new
+    (u, v, σ₁₁, σ₂₂, σ₁₂, α)."""
+    stresses, u_update, v_update = evp_substep_phases(params, consts)
     u, v, s11, s22, s12, alpha = carry
     for substep in range(1, nsub + 1):
         s11, s22, s12, alpha = stresses(u, v, s11, s22, s12)
@@ -307,13 +322,44 @@ def evp_substeps_reference(params, consts, carry, nsub):
 
 # --- the kernel's wrapper -------------------------------------------------------
 
-def _evp_entry():
-    fn = _build.load("evp").csi_evp_substeps
+def _evp_lib():
+    lib = _build.load("evp")
+    fn = lib.csi_evp_substeps
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * (1 + N_CONSTS + N_CARRY)
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * (1 + N_CONSTS + 2 * N_CARRY)
+                       + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        lib.csi_evp_chunk_substeps.argtypes = []
+        lib.csi_evp_chunk_substeps.restype = ctypes.c_int
+    return lib
+
+
+def chunk_substeps():
+    """The substeps one launch of the built kernel runs."""
+    return _evp_lib().csi_evp_chunk_substeps()
+
+
+def describe_kernel(lib, entry, name):
+    """A built tile kernel on the current card, from its C entry ``entry``
+    (the tile engines' describe functions): registers and spill bytes a
+    thread, static and dynamic shared bytes a block, resident blocks an SM
+    and threads a block."""
+    out = (ctypes.c_int * 6)()
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    err = fn(out)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel attributes: CUDA error {err} "
+                           f"({cuda_error_string(name, err)})")
+    keys = ("registers", "spill_bytes", "static_shared_bytes", "dynamic_shared_bytes",
+            "blocks_per_sm", "threads_per_block")
+    return dict(zip(keys, out))
+
+
+def describe():
+    """The built kernel on the current card (:func:`describe_kernel`)."""
+    return describe_kernel(_evp_lib(), "csi_evp_describe", "evp")
 
 
 def cuda_error_string(library, code):
@@ -341,7 +387,7 @@ def check_kernel_args(params, arrays):
             raise ValueError(f"EVP arrays differ in shape: {shape} vs {tuple(q.shape)}")
         if not q.is_contiguous():
             raise ValueError("EVP arrays must be contiguous")
-    if -(-shape[0] // _BLOCK_X_ROWS) > _MAX_GRID_Y:
+    if -(-shape[0] // _MIN_TILE_ROWS) > _MAX_GRID_Y:
         raise ValueError(f"Nx = {shape[0]} exceeds the kernel's launch grid")
     return shape
 
@@ -351,8 +397,9 @@ def evp_substeps(params, consts, carry, nsub):
 
     ``params``: float32[18] (layout above); ``consts``: the 12 constant
     arrays; ``carry``: (u, v, σ₁₁, σ₂₂, σ₁₂, α).  CUDA tensors go to the
-    CUDA kernel, which updates the carry tensors in place and returns them;
-    CPU tensors go to :func:`evp_substeps_reference`."""
+    CUDA kernel (one launch per chunk of :func:`chunk_substeps` substeps),
+    which writes the results into the carry tensors and returns them; CPU
+    tensors go to :func:`evp_substeps_reference`."""
     consts, carry = tuple(consts), tuple(carry)
     if len(consts) != N_CONSTS or len(carry) != N_CARRY:
         raise ValueError(f"expected {N_CONSTS} constants and {N_CARRY} carries")
@@ -364,16 +411,19 @@ def evp_substeps(params, consts, carry, nsub):
     if device.type != "cuda":
         raise ValueError(f"no EVP kernel for device {device}")
     nx, ny = check_kernel_args(params, consts + carry)
-    fn = _evp_entry()
+    scratch = tuple(torch.empty_like(q) for q in carry)
+    launches = ctypes.c_int(0)
+    lib = _evp_lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(params.data_ptr(), *(q.data_ptr() for q in consts + carry),
-                 nx, ny, int(nsub), stream)
+        err = lib.csi_evp_substeps(params.data_ptr(),
+                                   *(q.data_ptr() for q in consts + carry + scratch),
+                                   nx, ny, int(nsub), ctypes.byref(launches), stream)
     if err != 0:
         raise RuntimeError(f"EVP kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp', err)})")
     evp_counter.calls += 1
-    evp_counter.launches += LAUNCHES_PER_SUBSTEP * int(nsub)
+    evp_counter.launches += launches.value
     return carry
 
 

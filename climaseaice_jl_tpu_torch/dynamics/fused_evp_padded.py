@@ -50,8 +50,8 @@ from .rheologies import ElastoViscoPlasticRheology
 from .stresses import SemiImplicitStress, StressFunction, _value
 from .fused_evp import (KernelCounter, _scalar, _P_DT, _P_DX, _P_DY, _P_F, _P_RC,
                         _P_EINV2, _P_AMIN, _P_AMAX, _P_DMIN, _P_REPL,
-                        check_kernel_args, cuda_error_string, evp_coefficients,
-                        evp_params)
+                        check_kernel_args, cuda_error_string, describe_kernel,
+                        evp_coefficients, evp_params)
 
 N_CONSTS = 14       # P, Pff, gcc, gff, drag_u, invm_u, act_u, un,
                     # drag_v, invm_v, act_v, vn, msk_cc, msk_ff
@@ -342,26 +342,9 @@ def chunk_substeps():
     return _padded_lib().csi_evp_padded_chunk_substeps()
 
 
-def describe_kernel(lib, entry, name):
-    """A built tile kernel on the current card, from its C entry ``entry``
-    (``csrc/evp_padded_tile.cuh``'s describe_tile_chunks): registers and
-    spill bytes a thread, static and dynamic shared bytes a block, resident
-    blocks an SM and threads a block."""
-    out = (ctypes.c_int * 6)()
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    err = fn(out)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel attributes: CUDA error {err} "
-                           f"({cuda_error_string(name, err)})")
-    keys = ("registers", "spill_bytes", "static_shared_bytes", "dynamic_shared_bytes",
-            "blocks_per_sm", "threads_per_block")
-    return dict(zip(keys, out))
-
-
 def describe():
-    """The built kernel's tiled plan on the current card (:func:`describe_kernel`)."""
+    """The built kernel's tiled plan on the current card
+    (:func:`.fused_evp.describe_kernel`)."""
     return describe_kernel(_padded_lib(), "csi_evp_padded_describe", "evp_padded")
 
 

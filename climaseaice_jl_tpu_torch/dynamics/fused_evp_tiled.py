@@ -41,7 +41,8 @@ import torch
 from .. import _build
 from .fused_evp import (KernelCounter, N_CARRY, _P_CALPHA, _P_CONCMIN,
                         _P_DT, _P_DX, _P_DY, _P_MASSMIN, carry_inputs, check_kernel_args,
-                        cuda_error_string, evp_substeps_reference, periodic_params)
+                        cuda_error_string, describe_kernel, evp_substeps_reference,
+                        periodic_params)
 from .rheologies import ice_strength
 
 N_INPUTS = 5     # m, ℵ, P, uⁿ, vⁿ
@@ -108,12 +109,10 @@ def _tiled_lib():
     fn = lib.csi_evp_tiled_substeps
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * (1 + N_INPUTS + 2 * N_CARRY)
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.csi_evp_tiled_chunk_substeps.argtypes = []
         lib.csi_evp_tiled_chunk_substeps.restype = ctypes.c_int
-        lib.csi_evp_tiled_describe.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.csi_evp_tiled_describe.restype = ctypes.c_int
     return lib
 
 
@@ -123,18 +122,8 @@ def chunk_substeps():
 
 
 def describe():
-    """The built kernel on the current card: registers and spill bytes a
-    thread, static and dynamic shared bytes a block, resident blocks an SM
-    and threads a block (the CUDA runtime's attributes and occupancy
-    calculator)."""
-    out = (ctypes.c_int * 6)()
-    err = _tiled_lib().csi_evp_tiled_describe(out)
-    if err != 0:
-        raise RuntimeError(f"tiled EVP kernel attributes: CUDA error {err} "
-                           f"({cuda_error_string('evp_tiled', err)})")
-    keys = ("registers", "spill_bytes", "static_shared_bytes", "dynamic_shared_bytes",
-            "blocks_per_sm", "threads_per_block")
-    return dict(zip(keys, out))
+    """The built kernel on the current card (:func:`.fused_evp.describe_kernel`)."""
+    return describe_kernel(_tiled_lib(), "csi_evp_tiled_describe", "evp_tiled")
 
 
 def tiled_evp_substeps(params, m, a, P, un, vn, carry, nsub):
@@ -160,18 +149,18 @@ def tiled_evp_substeps(params, m, a, P, un, vn, carry, nsub):
     nx, ny = check_kernel_args(params, inputs + carry)
     nsub = int(nsub)
     scratch = tuple(torch.empty_like(q) for q in carry)
+    launches = ctypes.c_int(0)
     lib = _tiled_lib()
-    K = lib.csi_evp_tiled_chunk_substeps()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.csi_evp_tiled_substeps(params.data_ptr(),
                                          *(q.data_ptr() for q in inputs + carry + scratch),
-                                         nx, ny, nsub, stream)
+                                         nx, ny, nsub, ctypes.byref(launches), stream)
     if err != 0:
         raise RuntimeError(f"tiled EVP kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp_tiled', err)})")
     tiled_evp_counter.calls += 1
-    tiled_evp_counter.launches += -(-nsub // K)
+    tiled_evp_counter.launches += launches.value
     return carry
 
 

@@ -24,10 +24,16 @@ the interior along a periodic direction and clamp along a bounded one,
 circular shifts within a tile, the per-tile coefficient derivation and the
 gated wall fills, all tiles of a chunk as one batch.  The CUDA kernel
 (``csrc/evp_tiled_curvilinear.cu``) computes the same function on the whole
-widened arrays in device memory: one launch derives the coefficients, three
-launches run each substep, and one refills the fold halos before each
-chunk.  A point's value depends only on its domain of dependence, so the
-interiors agree whatever the tiles.  The ice-strength kernel
+widened arrays in device memory: one launch derives the coefficients (the
+0/1 masks as bits of a byte, the ocean velocity's transverse averages and
+τ·drag formed once), one flags the settled blocks, three launches run each
+substep, and one refills the fold halos before each chunk, on every block.
+From substep ``FIRST_SKIPPED`` on a settled block does no work: every value
+it writes is fixed by then (:func:`tiled_settled_blocks_reference`, the
+flags' plain version).  A point's value depends only on its domain of
+dependence, so the interiors agree whatever the tiles; built with
+-fmad=false in the plain version's operation order, the kernel equals the
+plain version bitwise there.  The ice-strength kernel
 (``csrc/ice_strength_fixed.cu``) is one thread per point.
 
 On a shard's grid (:mod:`..parallel.stepper`, the 'wide' halo policy, halos
@@ -86,7 +92,8 @@ N_PARAMS = _N_BASE + 4
 N_CARRY = 6
 N_SCRATCH = 5     # csrc/evp_tiled_curvilinear.cu: u, v and σ's other buffers
 N_WORK = 8 + 18   # its metric forms and derived planes
-LAUNCHES_PER_SUBSTEP = 3
+BLOCK = (8, 32)   # its blocks: rows along x, columns along y
+FIRST_SKIPPED = 4   # the first substep a settled block skips
 
 tiled_curvilinear_evp_counter = KernelCounter()
 ice_strength_counter = KernelCounter()
@@ -735,12 +742,116 @@ def curvilinear_consts(params, planes, grid, plan, flags):
     return params[:_N_BASE].contiguous(), tuple(consts), f_planes
 
 
+# --- the settled blocks ------------------------------------------------------------------
+
+def _axis(ext, H, N, wrap):
+    """Along one direction, the kernel's index rules as numpy functions of
+    padded indices: a point's image (wrapped into the interior where the
+    direction wraps) and its neighbour d away (from the image by wrap, or
+    clamped at the padded edge)."""
+    def image(i):
+        return H + (i - H) % N if wrap else i
+
+    def near(i, d):
+        return H + (image(i) + d - H) % N if wrap else np.clip(i + d, 0, ext - 1)
+
+    return image, near
+
+
+def _local_source(i, H, N, wrap, bounded, g_lo, g_hi, face):
+    """The source of padded index ``i`` in the local fill between chunks
+    (the kernel's ``local_source``; −1 where it writes zero)."""
+    if H == 0 or not (wrap or bounded):
+        return i
+    if wrap:
+        return np.where(i < H, i + N, np.where(i >= H + N, i - N, i))
+    if face:
+        return np.where((g_lo & (i < H)) | (g_hi & (i > H + N)), -1, i)
+    return np.where(g_lo & (i < H), H, np.where(g_hi & (i >= H + N), H + N - 1, i))
+
+
+def _dead_points(params, planes, grid, plan, flags):
+    """The points where the loop leaves σ, α and an update computed there at
+    fixed values: gcc ≤ 0, gff ≤ 0, act_u = act_v = 0, 1/m ≤ 0 at (f,c) and
+    (c,f), from the plain version's coefficients at every padded point.  The
+    plan's tiles are given an overlap of at least 4 points each way, so that
+    a point at the padded edge reads its clamped neighbours, as the kernel
+    does, and not a tile's circular shift (the unpinned plan has none along
+    a bounded y)."""
+    K, TX, TY, Wx, Wy = plan
+    tiles = _Tiles(grid, (K, TX, TY, max(Wx, 4), max(Wy, 4)), params.device)
+    k = _coefficients(params, [tiles.gather(q) for q in planes], tiles, flags)
+    k = {n: tiles.scatter(k[n]) for n in ("gcc", "gff", "act_u", "act_v", "invm_u", "invm_v")}
+    return ((k["gcc"] <= 0) & (k["gff"] <= 0) & (k["act_u"] == 0) & (k["act_v"] == 0)
+            & (k["invm_u"] <= 0) & (k["invm_v"] <= 0))
+
+
+def tiled_settled_blocks_reference(params, planes, grid, plan, flags):
+    """Plain version of the kernel's flag launch: for each block of its
+    launch grid (``BLOCK`` points; ceil(nxp/8) × ceil(nyp/32)), True where,
+    for each of its points, every point within one of it, within one of the
+    source its u and its v update are computed at (the gated wall fills'
+    clamp sources), and, where the fold is refilled between chunks, within
+    one of its σ's refill source is dead (:func:`_dead_points`), by the
+    kernel's indexing (wrap into the interior where a direction wraps,
+    clamp at the padded edge otherwise); and, where the fold is refilled,
+    where the block holds no fold row (the refill's negated mirror would
+    turn a dead source's +0 into −0 there).  From substep ``FIRST_SKIPPED``
+    on the kernel does no work in such a block: every value it writes there
+    is fixed after substep 2, and the refill, on every block, copies into
+    it what it holds (see csrc/evp_tiled_curvilinear.cu)."""
+    dead = _dead_points(params, planes, grid, plan, flags).cpu().numpy()
+    geo = _geometry(grid)
+    Hx, Nx, Hy, Ny = grid.Hx, grid.Nx, grid.Hy, grid.Ny
+    img_x, near_x = _axis(grid.nxp, Hx, Nx, geo.wrap[0])
+    img_y, near_y = _axis(grid.nyp, Hy, Ny, geo.wrap[1])
+    i, j = np.meshgrid(np.arange(grid.nxp), np.arange(grid.nyp), indexing="ij")
+
+    def around(si, sj):   # every point within one of (si, sj) dead
+        ok = np.ones(si.shape, bool)
+        for a in (-1, 0, 1):
+            for b in (-1, 0, 1):
+                ok &= dead[near_x(si, a), near_y(sj, b)]
+        return ok
+
+    bnd_x, bnd_y = geo.bounded
+    gw, ge, gs, gn = (bool(g) for g in geo.gates)
+    fold = grid.north_fold
+    ok = around(i, j)
+    # u: zero beyond a bounded x wall face, else computed at (i, clamped j)
+    u_zero = bnd_x & ((gw & (i < Hx)) | (ge & (i > Hx + Nx)))
+    uj = j
+    if bnd_y:
+        uj = np.where(gs & (j < Hy), Hy, np.where((not fold) & gn & (j >= Hy + Ny),
+                                                  Hy + Ny - 1, j))
+    ok &= u_zero | around(i, uj)
+    # v: zero beyond a bounded y wall face, else computed at (clamped i, j)
+    v_zero = bnd_y & ((gs & (j < Hy)) | ((not fold) & gn & (j > Hy + Ny)))
+    vi = i
+    if bnd_x:
+        vi = np.where(gw & (i < Hx), Hx, np.where(ge & (i >= Hx + Nx), Hx + Nx - 1, i))
+    ok &= v_zero | around(vi, j)
+    if geo.refill:
+        si = _local_source(i, Hx, Nx, geo.wrap[0], bnd_x, gw, ge, False)
+        sj = _local_source(j, Hy, Ny, geo.wrap[1], bnd_y, gs, gn, False)
+        ok &= around(si, sj)
+        if fold and gn:
+            ok &= j < Hy + Ny
+    bx, by = BLOCK
+    nbx, nby = -(-grid.nxp // bx), -(-grid.nyp // by)
+    padded = np.ones((nbx * bx, nby * by), bool)
+    padded[:grid.nxp, :grid.nyp] = ok
+    flags_ = padded.reshape(nbx, bx, nby, by).all(axis=3).all(axis=1)
+    return torch.as_tensor(flags_, device=params.device)
+
+
 # --- the kernel's wrapper --------------------------------------------------------------
 
 def _tiled_entry():
     fn = _build.load("evp_tiled_curvilinear").csi_evp_tiled_curvilinear_substeps
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 20 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 20
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -756,17 +867,22 @@ def _check(params, arrays, shape):
             raise ValueError(f"EVP arrays must be contiguous float32 {shape} tensors")
 
 
-def tiled_curvilinear_evp_substeps(params, planes, carry, nsub, grid, plan, flags, chunk=None):
+def tiled_curvilinear_evp_substeps(params, planes, carry, nsub, grid, plan, flags, chunk=None,
+                                   settled=None):
     """Run ``nsub`` αEVP substeps of the tiled curvilinear route on arrays
     of ``grid``'s (widened) shape.  ``params``, ``planes``, ``carry`` and
-    ``flags`` as :func:`tiled_curvilinear_inputs` makes them; ``plan`` the
-    pinned or the unpinned plan; ``chunk`` the substeps between fold
-    refills (default the plan's K).  On a shard's grid the directions split across ranks do
-    not wrap, the wall fills apply on the shards at the global edges, and a
-    fold split across x is never refilled (:func:`_geometry`).  CUDA tensors
-    go to the CUDA kernel, which writes the results into the carry tensors
-    and returns them; CPU tensors go to
-    :func:`tiled_curvilinear_evp_substeps_reference`."""
+    ``flags`` as :func:`tiled_curvilinear_inputs` makes them (the solid
+    plane holding only 0 and 1); ``plan`` the pinned or the unpinned plan;
+    ``chunk`` the substeps between fold refills (default the plan's K).  On
+    a shard's grid the directions split across ranks do not wrap, the wall
+    fills apply on the shards at the global edges, and a fold split across
+    x is never refilled (:func:`_geometry`).  CUDA tensors go to the CUDA
+    kernel (2 + refills + 3·nsub launches), which writes the results into
+    the carry tensors and returns them; CPU tensors go to
+    :func:`tiled_curvilinear_evp_substeps_reference`.  ``settled``: an int32
+    CUDA tensor of ceil(nxp/8)·ceil(nyp/32) elements into which the kernel
+    writes its settled flags (:func:`tiled_settled_blocks_reference`
+    flattened), or None."""
     planes, carry = tuple(planes), tuple(carry)
     if len(planes) not in (N_PLANES, N_PLANES + 1) or len(carry) != N_CARRY:
         raise ValueError(f"expected {N_PLANES} planes (one more with f(φ)) and "
@@ -783,26 +899,35 @@ def tiled_curvilinear_evp_substeps(params, planes, carry, nsub, grid, plan, flag
     chunk = plan[0] if chunk is None else int(chunk)
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    blocks = -(-grid.nxp // BLOCK[0]) * -(-grid.nyp // BLOCK[1])
+    if settled is None:
+        settled = torch.empty(blocks, dtype=torch.int32, device=device)
+    elif (settled.dtype != torch.int32 or settled.device != device
+          or settled.numel() != blocks or not settled.is_contiguous()):
+        raise ValueError(f"settled must be a contiguous int32 tensor of {blocks} elements "
+                         f"on {device}")
     immersed, has_drag = flags
     geo = _geometry(grid)
     ptrs = (ctypes.c_void_p * (N_PLANES + 1))(*[q.data_ptr() for q in planes],
                                               *([None] if len(planes) == N_PLANES else []))
     scratch = torch.empty((N_SCRATCH,) + grid.shape, dtype=torch.float32, device=device)
     work = torch.empty((N_WORK,) + grid.shape, dtype=torch.float32, device=device)
+    bits = torch.empty(grid.shape, dtype=torch.uint8, device=device)
+    launches = ctypes.c_int(0)
     fn = _tiled_entry()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(params.data_ptr(), ctypes.addressof(ptrs), *[q.data_ptr() for q in carry],
-                 scratch.data_ptr(), work.data_ptr(), grid.nxp, grid.nyp, grid.Hx, grid.Nx,
-                 grid.Hy, grid.Ny, *(int(w) for w in geo.wrap), *(int(b) for b in geo.bounded),
+                 scratch.data_ptr(), work.data_ptr(), bits.data_ptr(), settled.data_ptr(),
+                 grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy, grid.Ny,
+                 *(int(w) for w in geo.wrap), *(int(b) for b in geo.bounded),
                  int(grid.north_fold), *geo.gates, int(geo.refill), int(immersed),
-                 int(has_drag), int(nsub), chunk, stream)
+                 int(has_drag), int(nsub), chunk, ctypes.byref(launches), stream)
     if err != 0:
         raise RuntimeError(f"tiled curvilinear EVP kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp_tiled_curvilinear', err)})")
-    refills = -(-int(nsub) // chunk) if geo.refill else 0
     tiled_curvilinear_evp_counter.calls += 1
-    tiled_curvilinear_evp_counter.launches += 1 + refills + LAUNCHES_PER_SUBSTEP * int(nsub)
+    tiled_curvilinear_evp_counter.launches += launches.value
     return carry
 
 

@@ -45,8 +45,9 @@ import torch
 from .. import _build
 from ..grids import PERIODIC
 from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff, _meshed
-from .fused_evp import KernelCounter, check_kernel_args, cuda_error_string, pick_chunk
-from .fused_evp_padded import (N_CONSTS, N_DRAG, N_STRESS, N_CARRY, describe_kernel,
+from .fused_evp import (KernelCounter, check_kernel_args, cuda_error_string, describe_kernel,
+                        pick_chunk)
+from .fused_evp_padded import (N_CONSTS, N_DRAG, N_STRESS, N_CARRY,
                                direction_kinds, padded_evp_inputs, padded_fused_available,
                                padded_loop_functions, run_substeps)
 
@@ -235,8 +236,7 @@ def _tiled_entry():
 
 
 def describe():
-    """The built kernel on the current card (:func:`.fused_evp_padded.
-    describe_kernel`)."""
+    """The built kernel on the current card (:func:`.fused_evp.describe_kernel`)."""
     return describe_kernel(_build.load("evp_tiled_padded"), "csi_evp_tiled_padded_describe",
                            "evp_tiled_padded")
 

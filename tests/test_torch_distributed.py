@@ -922,7 +922,8 @@ def cuda_device():
 def test_cuda_meshed_kernels_match_plain(cuda_device):
     """On the card, 2.7 and 2.9 on shard (1, 1) of a (2, 2) mesh of the
     48×96 basin (halos 19, 8 substeps, seeded velocities) equal their plain
-    versions bitwise (2.7 over the interiors, with 1 + 3·8 launches a call;
+    versions bitwise (2.7 over the interiors, with 2 + 3·8 launches a call:
+    the prep, the settled flags and three a substep;
     2.9 over the padded arrays)."""
     H = 2 * NSUB + 3
     m, s = db.build(48, 96, substeps=NSUB, fixed_tiles=FIXED, halo=H, device=cuda_device)
@@ -945,7 +946,7 @@ def test_cuda_meshed_kernels_match_plain(cuda_device):
     ttc.tiled_curvilinear_evp_counter.reset()
     out = ttc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry], NSUB,
                                              lg, plan, flags)
-    assert ttc.tiled_curvilinear_evp_counter.launches == 1 + 3 * NSUB
+    assert ttc.tiled_curvilinear_evp_counter.launches == 2 + 3 * NSUB
     ref = ttc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, NSUB, lg, plan,
                                                        flags)
     for o, r in zip(out, ref):
@@ -963,7 +964,7 @@ def test_cuda_wide_halo_kernels_match_plain(cuda_device):
     seeded velocities: 2.3 meshed (path A's case) and 2.5 meshed (path B's)
     equal their plain versions bitwise over the interiors, 2.4 meshed over
     the padded arrays; 2.7's unpinned plan (the tripolar basin without
-    ``fixed_tiles``) over the interiors, with 1 + 3·NSUB launches a call
+    ``fixed_tiles``) over the interiors, with 2 + 3·NSUB launches a call
     (the fold split across x is not refilled)."""
     H, shard = 2 * NSUB + 3, (1, 1)
     rng = np.random.default_rng(4)
@@ -1012,7 +1013,7 @@ def test_cuda_wide_halo_kernels_match_plain(cuda_device):
     ttc.tiled_curvilinear_evp_counter.reset()
     out = ttc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry], NSUB,
                                              lg, plan, flags)
-    assert ttc.tiled_curvilinear_evp_counter.launches == 1 + 3 * NSUB
+    assert ttc.tiled_curvilinear_evp_counter.launches == 2 + 3 * NSUB
     ref = ttc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, NSUB, lg, plan,
                                                        flags)
     for o, r in zip(out, ref):

@@ -331,6 +331,187 @@ def test_tiled_evp_equals_whole_array_route_on_same_input(basin):
         assert _rel(_interior(grid, a), _interior(grid, b)) <= 1e-6, name
 
 
+# --- 2.7's settled blocks ------------------------------------------------------------------
+
+def _bits(q):
+    return q.contiguous().view(torch.int32)
+
+
+def _settled_case(case, device="cpu", nsub=9):
+    """(params, planes, carry, grid, plan, flags) of 2.7 on the 32×64 basin in
+    soft ice with seeded velocities: ``serial`` widened to the plan's 2K+5
+    y-halo rows (the fold refilled between chunks), ``no-drag`` the same
+    without the immersed drag, ``dead-band`` the serial case with no ice in
+    interior rows 0-52, which settles launch-block row 1 (y 32-63) whole
+    where the seeded velocities are not zero (the first substep leaves −0
+    where u or v was negative, the second +0), ``shard`` the pinned plan on
+    shard (1, 1) of a (2, 2) mesh with halos 2·nsub+3 (x and y split, the
+    fold split across x and never refilled)."""
+    from climaseaice_jl_tpu_torch.parallel.stepper import ProcessMesh, _local_grid
+    if case != "shard":
+        m, s = _card_basin(device)
+        if case == "no-drag":
+            m = dataclasses.replace(m, dynamics=dataclasses.replace(m.dynamics,
+                                                                    immersed_drag=None))
+        plan = ttc._fixed_plan(m.grid, nsub, FIXED, widen_fold=True)
+        params, planes, carry, grid, flags = ttc.tiled_curvilinear_inputs(
+            m, s, DT, s.u, s.v, Hw=2 * plan[0] + 5)
+        if case == "dead-band":
+            planes = list(planes)
+            planes[ttc.C_H] = planes[ttc.C_H].clone()
+            planes[ttc.C_H][:, grid.Hy:grid.Hy + 53] = 0
+            planes = tuple(planes)
+        return params, planes, carry, grid, plan, flags
+    H = 2 * nsub + 3
+    m, s = _card_basin(device, halo=H)
+    g = m.grid
+    params, planes, carry, _, flags = ttc.tiled_curvilinear_inputs(m, s, DT, s.u, s.v)
+    mesh, (ix, iy) = (2, 2), (1, 1)
+    nx, ny = g.Nx // 2, g.Ny // 2
+    grid = _local_grid(g, nx, ny, ix, iy, ("x", "y"), mesh,
+                       ProcessMesh(mesh, (ix, iy), g.device, transport=False))
+
+    def window(q):
+        return q[ix * nx:ix * nx + nx + 2 * H, iy * ny:iy * ny + ny + 2 * H].contiguous()
+
+    return (params, tuple(window(q) for q in planes), tuple(window(q) for q in carry), grid,
+            ttc._fixed_plan(grid, nsub, FIXED), flags)
+
+
+def _frozen(flags, grid):
+    bx, by = ttc.BLOCK
+    return flags.repeat_interleave(bx, 0).repeat_interleave(by, 1)[:grid.nxp, :grid.nyp]
+
+
+def _sweeps(params, planes, carry, nsub, grid, plan, flags, chunk, frozen=None):
+    """The plain version one substep at a time, as the kernel runs them: the
+    fold refilled before each chunk of ``chunk`` substeps where it is
+    refilled, every substep gathered onto the plan's tiles and scattered
+    back.  With ``frozen`` (padded points), the kernel's skip: from substep
+    FIRST_SKIPPED on those points keep what they held after the substep
+    before it, and each refill must leave them as they are, signed zeros
+    included.  The kernel ping-pongs u and v between two buffers, so a
+    skipped point's neighbours read, on alternate substeps, what it held
+    after substep FIRST_SKIPPED − 2 and after FIRST_SKIPPED − 1: the two
+    must be the same bits, and so must what each skipped substep would have
+    written there, which is asserted."""
+    tiles = ttc._Tiles(grid, plan, params.device)
+    c = [tiles.gather(q) for q in planes]
+    k = ttc._coefficients(params, c, tiles, flags)
+    one, fill_fc, fill_cf = ttc._substep_functions(params, c, k, tiles, flags)
+    state, kept, before = tuple(carry), None, tuple(carry)
+    for s in range(1, nsub + 1):
+        if tiles.geo.refill and (s - 1) % chunk == 0:
+            refilled = ttc._refill(state, grid)
+            if kept is not None:
+                for name, a, b in zip(DYNAMICS, state, refilled):
+                    assert torch.equal(_bits(a)[frozen], _bits(b)[frozen]), (s, name)
+            state = refilled
+        u, v, s11, s22, s12, alpha = (tiles.gather(q) for q in state)
+        state = tuple(tiles.scatter(q) for q in one((fill_fc(u), fill_cf(v), s11, s22, s12,
+                                                     alpha), s % 2 == 0))
+        if frozen is None:
+            continue
+        if s == ttc.FIRST_SKIPPED - 2:
+            before = state
+        elif s >= ttc.FIRST_SKIPPED - 1:
+            for name, a, b in zip(DYNAMICS, before if kept is None else kept, state):
+                assert torch.equal(_bits(a)[frozen], _bits(b)[frozen]), (s, name)
+            if kept is None:
+                kept = state
+            state = tuple(torch.where(frozen, h, q) for h, q in zip(kept, state))
+    return state
+
+
+def test_tiled_settled_flags_are_conservative():
+    """The plain version of 2.7's flag launch on the widened 32×64 basin:
+    some blocks settled and some not; one icy point in a settled block, or
+    next to it, unsettles it.  With every point dead every block settles but
+    those that hold fold rows: from a dead state the refill writes −0 into
+    the fold rows (the negated mirror of +0), which the skipped updates
+    would not turn back.  A block of halo columns stays unsettled while the
+    interior image its points compute at, at the far x edge, is active."""
+    params, planes, carry, grid, plan, flags = _settled_case("serial")
+    settled = ttc.tiled_settled_blocks_reference(params, planes, grid, plan, flags)
+    bx, by = ttc.BLOCK
+    assert settled.shape == (-(-grid.nxp // bx), -(-grid.nyp // by))
+    assert settled.any() and not settled.all()
+    # a settled block whose rows and the rows next to it lie in the interior
+    # (a halo column's coefficients are its interior image's)
+    bi, bj = next((int(a), int(b)) for a, b in settled.nonzero()
+                  if grid.Hx < a * bx and (a + 1) * bx < grid.Hx + grid.Nx)
+    for di, dj in ((3, 5), (-1, 7), (bx, by)):   # inside, and one point outside
+        icy = list(planes)
+        for c in (ttc.C_H, ttc.C_A):
+            icy[c] = icy[c].clone()
+            icy[c][(bi * bx + di) % grid.nxp, (bj * by + dj) % grid.nyp] = 1.0
+        assert not ttc.tiled_settled_blocks_reference(params, icy, grid, plan, flags)[bi, bj]
+    # every point dead: every block but those holding fold rows settled
+    dead = list(planes)
+    dead[ttc.C_H] = torch.zeros_like(planes[ttc.C_H])
+    seam = grid.Hy + grid.Ny
+    settled = ttc.tiled_settled_blocks_reference(params, dead, grid, plan, flags)
+    holds_fold = (torch.arange(settled.shape[1]) + 1) * by > seam
+    assert bool(settled[:, ~holds_fold].all()) and not settled[:, holds_fold].any()
+    state = ttc.tiled_curvilinear_evp_substeps_reference(params, dead, carry, 3, grid, plan,
+                                                         flags)
+    refilled = ttc._refill(state, grid)
+    for name, a, b in zip(DYNAMICS[:2], state, refilled):
+        moved = (_bits(a) != _bits(b)).nonzero()
+        assert len(moved) and bool((moved[:, 1] >= seam).all()), name
+        assert bool((a[_bits(a) != _bits(b)] == 0).all()), name
+    # the halo column Hx − 2 computes at its image Nx + Hx − 2
+    live = list(dead)
+    j = grid.Hy + 10
+    for c in (ttc.C_H, ttc.C_A):
+        live[c] = live[c].clone()
+        live[c][grid.Nx + grid.Hx - 2, j] = 1.0
+    settled = ttc.tiled_settled_blocks_reference(params, live, grid, plan, flags)
+    assert (grid.Nx + grid.Hx - 2) // bx > 1
+    assert not settled[0, j // by] and settled[1, j // by]
+
+
+def test_tiled_settled_flags_do_not_depend_on_the_plan():
+    """The flags are the kernel's, which runs whole arrays: the pinned plan
+    and the unpinned one (no y overlap along the bounded y, where a tile's
+    circular shift would read the far edge) give the same flags."""
+    params, planes, carry, grid, plan, flags = _settled_case("serial")
+    unpinned = ttc._unpinned_plan(grid, 9)
+    assert unpinned[4] == 0
+    assert torch.equal(ttc.tiled_settled_blocks_reference(params, planes, grid, plan, flags),
+                       ttc.tiled_settled_blocks_reference(params, planes, grid, unpinned, flags))
+
+
+@pytest.mark.parametrize("case", ["serial", "no-drag", "dead-band", "shard"])
+def test_tiled_settled_blocks_frozen_equal_plain_version(case):
+    """2.7's skip emulated with the plain version (:func:`_sweeps`): the
+    points of settled blocks frozen from substep FIRST_SKIPPED on give the
+    whole padded arrays of the unfrozen run bit for bit, signed zeros
+    included, over 9 substeps in chunks of 4 on the widened serial basin
+    (two refills after the skip starts, each leaving the frozen points as
+    they are), with and without the immersed drag, with a dead band whose
+    velocities settle over two substeps (so both of the kernel's u and v
+    buffers must be past them when the skip starts), and over 8 substeps
+    on a shard whose split fold is never refilled; and the unfrozen run
+    gives the plain version's interiors."""
+    source = (REPO / "climaseaice_jl_tpu_torch/csrc/evp_tiled_curvilinear.cu").read_text()
+    assert f"constexpr int FIRST_SKIPPED = {ttc.FIRST_SKIPPED};" in source
+    nsub = 8 if case == "shard" else 9
+    params, planes, carry, grid, plan, flags = _settled_case(case, nsub=nsub)
+    assert flags[1] is (case != "no-drag")
+    chunk = plan[0] if case == "shard" else 4
+    frozen = _frozen(ttc.tiled_settled_blocks_reference(params, planes, grid, plan, flags),
+                     grid)
+    assert frozen.any() and not frozen.all()
+    free = _sweeps(params, planes, carry, nsub, grid, plan, flags, chunk)
+    held = _sweeps(params, planes, carry, nsub, grid, plan, flags, chunk, frozen)
+    ref = ttc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, nsub, grid, plan,
+                                                       flags, chunk=chunk)
+    for name, f, h, r in zip(DYNAMICS, free, held, ref):
+        assert torch.equal(_bits(f), _bits(h)), (case, name)
+        assert torch.equal(grid.interior(f), grid.interior(r)), (case, name)
+
+
 # --- 2.10: the pointwise winds --------------------------------------------------------------
 
 _UNARY = {fp.OP_NEG: torch.neg, fp.OP_RECIP: torch.reciprocal, fp.OP_SIN: torch.sin,
@@ -608,9 +789,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _card_basin(device, seed=0):
-    m = _soft(db.build(*SIZE, fixed_tiles=FIXED, device=device)[0])
-    s = db.build(*SIZE, fixed_tiles=FIXED, device=device)[1]
+def _card_basin(device, seed=0, halo=5):
+    m = _soft(db.build(*SIZE, fixed_tiles=FIXED, halo=halo, device=device)[0])
+    s = db.build(*SIZE, fixed_tiles=FIXED, halo=halo, device=device)[1]
     g = m.grid
     rng = np.random.default_rng(seed)
     u, v = (torch.as_tensor(0.05 * rng.standard_normal(g.interior_shape), dtype=torch.float32,
@@ -637,6 +818,36 @@ def test_cuda_tiled_evp_matches_plain(cuda_device):
         assert _rel(_interior(grid, r), _interior(grid, os[0])) <= BARS[name], name
         for o in os[1:]:
             assert torch.equal(grid.interior(os[0]), grid.interior(o)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["serial", "no-drag", "dead-band", "shard"])
+def test_cuda_tiled_settled_blocks_match_plain(cuda_device, case):
+    """The pinned curvilinear kernel on the inputs of
+    test_tiled_settled_blocks_frozen_equal_plain_version moved to the card,
+    24 substeps (on the shard 8), the serial basin in chunks of 12 and 4:
+    its settled flags equal their plain version's, some set; its interiors
+    are the plain version's bits, signed zeros included; 2 + refills +
+    3·nsub launches."""
+    nsub = 8 if case == "shard" else 24
+    params, planes, carry, grid, plan, flags = _settled_case(case, cuda_device, nsub=nsub)
+    want = ttc.tiled_settled_blocks_reference(params, planes, grid, plan, flags)
+    assert want.any()
+    for chunk in ((plan[0],) if case == "shard" else (12, 4)):
+        ref = ttc.tiled_curvilinear_evp_substeps_reference(params, planes, carry, nsub, grid,
+                                                           plan, flags, chunk=chunk)
+        settled = torch.empty(want.numel(), dtype=torch.int32, device=cuda_device)
+        ttc.tiled_curvilinear_evp_counter.reset()
+        out = ttc.tiled_curvilinear_evp_substeps(params, planes, [q.clone() for q in carry],
+                                                 nsub, grid, plan, flags, chunk=chunk,
+                                                 settled=settled)
+        torch.cuda.synchronize()
+        refills = -(-nsub // chunk) if ttc._geometry(grid).refill else 0
+        assert ttc.tiled_curvilinear_evp_counter.launches == 2 + refills + 3 * nsub
+        assert torch.equal(settled.reshape(want.shape).bool(), want), (case, chunk)
+        for name, r, o in zip(DYNAMICS, ref, out):
+            assert torch.equal(_bits(grid.interior(r)), _bits(grid.interior(o))), (case, chunk,
+                                                                                   name)
 
 
 @pytest.mark.cuda

@@ -5,23 +5,24 @@
                                        # one flagship (512² and 2048²), one
                                        # bounded, one tripolar basin and one
                                        # fixed-tile step to file F
-    python3 chip_smoke.py --parent D   # also hold 2.1 and 2.7 against a
-                                       # checkout D of commit 825cb6e, in turns
+    python3 chip_smoke.py --parent D   # also hold 2.9 and 2.11 against a
+                                       # checkout D of commit d8b908f, in turns
                                        # (any other tree is refused)
 
 Drives the port (``climaseaice_jl_tpu_torch``) through the entry points a
 user calls and holds its CUDA kernels against their plain PyTorch versions.
 Phases, each of which raises (exit code 1) when it fails:
 
-1. build the CUDA kernels from ``climaseaice_jl_tpu_torch/csrc``;
+1. build the CUDA kernels from ``climaseaice_jl_tpu_torch/csrc`` and the
+   column-kernel units generated for the script's three flux
+   configurations (bare ice under number fluxes, snow under series and
+   emission, the basin's solar FluxFunction), one ``nvcc`` each, all at once;
 2. the EVP kernel (2.1) vs its plain version on the card: the flagship at
    512² in soft ice (P★ = 27.5), 120 substeps; bitwise over the whole
    interior (0 ulp, a gate), so within the bars u/v ≤ 1e-4, σ/α ≤ 4e-3
    relative to the field's largest value; one launch a chunk of K
    substeps; its registers, spill, shared memory and blocks per SM; times
-   per call of both and the bound; with ``--parent DIR``, the earlier
-   tree's 2.1 (built with and without multiply-add contraction), timed in
-   turns with it;
+   per call of both and the bound;
 3. the main path: the flagship step of ``bench.py:build(512, 120)`` (float32,
    αEVP with 120 substeps, WENO-7, bare-ice slab thermodynamics, RK3), one
    warm-up step and five timed steps; the state must stay finite with
@@ -87,16 +88,24 @@ Phases, each of which raises (exit code 1) when it fails:
     bitwise against itself with chunks of 1 and K substeps and against the
     padded kernel on the same input; one launch a chunk; its registers,
     spill, shared memory and blocks per SM; timed in turns with the padded
-    kernel); the WENO-7 advection (≤ 1e-6, and on the
-    1162×970 basin grid with array metrics); the column thermodynamics of
-    bare ice and of snow on ice under the basin's series and emission
-    (≤ 1e-5);
+    kernel); the WENO-7 advection through the tile kernel, the plain
+    version's raw bits over the padded arrays, so within 1e-6, also with
+    UpwindBiased(5) in x and Centered(2) in y through the runtime-scheme
+    kernel, and on the 1162×970 basin grid with array metrics, timed; the
+    column thermodynamics of bare ice and of snow on ice under the basin's
+    series and emission, the plain version's raw bits in every output, so
+    within 1e-5, with the wrapper's host time per call; the registers and
+    stack frame of the tile kernels and the two column units (a gate: no
+    stack frame, no spill); with ``--parent DIR`` each against the earlier
+    tree's build (its raw bits, a gate) and its wrapper, timed in turns;
 14. the fixed-tile slice's main path at the default P★: one warm-up step,
     five timed ``cst.step`` calls and two iterations of ``Simulation.run``;
     finite and physical, land empty, u and v zero on peripheral nodes; per
     step 3 tiled EVP, 3 coefficient, 6 advection and 3 thermodynamics calls
     and no padded, periodic or curvilinear EVP call; in turns with phase
-    7's slice; one profiled step's device-busy share;
+    7's slice; one profiled step's device-busy share; then two steps of the
+    slice with UpwindBiased(5) in x and Centered(2) in y, 12 launches of
+    2.9's runtime-scheme kernel;
 15. halo 5 against halo 19 on the card: the fixed-tile slice for five RK3
     steps, bitwise-equal interiors of u, v, h, ℵ, σ₁₁, σ₂₂, σ₁₂ and α;
 16. the fixed-tile route on the card and on the CPU, 128² bounded + island
@@ -112,11 +121,12 @@ Phases, each of which raises (exit code 1) when it fails:
     refills + 3·24 launches; with chunks of 4 and 2 substeps, and against
     the whole-array curvilinear kernel fed the same coefficients, bitwise
     or within 1e-5, timed in turns with it, with that kernel's share of
-    settled blocks; with ``--parent DIR`` the earlier tree's 2.7's bits,
-    timed in turns with it); the ice strength on the
+    settled blocks); the ice strength on the
     widened h, ℵ (within 2 ulp); both
     wind components (within 2 ulp); the snow column physics with the solar
-    FluxFunction (within 1e-5);
+    FluxFunction (the plain version's raw bits, so within 1e-5; its unit's
+    registers and stack frame, a gate as in phase 13; with ``--parent`` as
+    in phase 13);
 18. the slice's main path: that basin at the default P★, dt 600 s, one
     warm-up step, five timed ``cst.step`` calls and two iterations of
     ``Simulation.run``; every field finite, halos included, h, hs ≥ 0,
@@ -151,9 +161,9 @@ Phases, each of which raises (exit code 1) when it fails:
     the split directions, the walls gated on the shard's position, no
     refill of the fold split across x; each bitwise against its plain
     version (2.7 over the interiors, signed zeros included, with its settled
-    flags and share as in phase 17, 2.9 over the padded arrays), timed per
-    call with its plain
-    version and its bound (2.7 with ``--parent`` as in phase 17);
+    flags and share as in phase 17, 2.9 over the padded arrays, signed zeros
+    included), timed per call with its plain
+    version and its bound (2.9 with ``--parent`` as in phase 13);
 25. the distributed step (``parallel.make_distributed_step``) on four gloo
     ranks sharing the card, after asking gloo whether its send and receive
     take CUDA tensors: the basin of phase 18 at the default P★, dt 600 s, 3
@@ -189,8 +199,7 @@ Phases, each of which raises (exit code 1) when it fails:
     a (2, 2) shard of the 1152×960 basin without fixed_tiles (halos 51),
     soft ice, seeded velocities, 24 substeps: the plain version's bits over
     the interiors, signed zeros included, its settled flags and share as in
-    phase 17, timed, with its bound and launches (with ``--parent`` as in
-    phase 17); and the settled share of each shard of path C (phase 30);
+    phase 17, timed, with its bound and launches; and the settled share of each shard of path C (phase 30);
 29. the wide-halo distributed step on four gloo ranks sharing the card,
     3 RK3 steps: path A (``bench.py:build(512, 120)`` under
     ``halo_exchange="wide"``, soft ice and the default P★) bitwise equal to
@@ -289,7 +298,7 @@ PREP_PARAMS = 7
 # the divergence written
 ADV_FLOPS_PER_POINT = 1023
 ADV_BYTES_PER_POINT = 18
-# csrc/thermo_fixed.cu, bare ice with constant fluxes and 20 secant
+# csrc/thermo_column.cuh, bare ice with constant fluxes and 20 secant
 # iterations, per padded point: the secant 210 (2 starting iterates, 22
 # balance evaluations of 4, 20 updates of 6), the cap at Tₘ 3, conduction 3,
 # the two latent energies 8, the volume tendency 5, the volume and
@@ -313,7 +322,7 @@ STRENGTH_ARRAYS = 3
 # value once (the recorder shares repeated subexpressions), a clamp 2,
 # selects not counted; longitude and latitude read, the stress written
 POINTWISE_ARRAYS = 3
-# csrc/thermo_fixed.cu, snow on ice, 20 secant iterations, the basin's top
+# csrc/thermo_column.cuh, snow on ice, 20 secant iterations, the basin's top
 # flux (the solar program, three series and emission, summed: F operations),
 # per padded point: the secant 2 + 22·(F + 6) + 20·6, its cap 3, the
 # interface temperature 6, conduction 5, the top flux once more F, the
@@ -378,7 +387,8 @@ def flagship_state(cst, model, velocity_seed=None, h0=None):
 
 
 def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, bottom=None,
-            fixed_tiles=None, halo=5, snow=False, topology=("bounded", "bounded"), wide=False):
+            fixed_tiles=None, halo=5, snow=False, topology=("bounded", "bounded"), wide=False,
+            advection=None):
     """The configuration of validation/perf_sweep.py:build(N, bounded=True),
     in the port: a 512 km bounded box with a circular island of radius
     60 km and ImmersedDrag(1e-3); ``top`` and ``bottom`` replace its stresses.
@@ -387,7 +397,7 @@ def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, botto
     that policy without it; ``snow`` puts snow on the ice with the basin's
     snowfall and its heat fluxes without the FluxFunction (the Semtner
     longwave, sensible and latent series and radiative emission);
-    ``topology`` replaces the walls."""
+    ``topology`` replaces the walls, ``advection`` its WENO(7)."""
     import numpy as np
     grid = cst.RectilinearGrid(size=(N, N), x=(0, 512 * KM), y=(0, 512 * KM),
                                halo=halo, dtype="float32", topology=topology, device=device)
@@ -415,7 +425,7 @@ def bounded(cst, N, substeps=120, P_star=27500.0, device="cuda", top=None, botto
                       snow_thermodynamics=cst.snow_slab_thermodynamics())
     return cst.sea_ice_model(grid, dynamics=dynamics,
                              ice_thermodynamics=cst.sea_ice_slab_thermodynamics(),
-                             advection=cst.WENO(order=7),
+                             advection=advection or cst.WENO(order=7),
                              timestepper="SplitRungeKutta3", **thermo)
 
 
@@ -773,107 +783,76 @@ def cuda_ms(fn, repeats):
     return start.elapsed_time(end) / repeats
 
 
-# sha256 of commit 825cb6e's climaseaice_jl_tpu_torch/csrc, as earlier_csrc
-# hashes a directory: the C entries below are called with that commit's
-# argument lists, which ctypes cannot check
-EARLIER_CSRC_SHA256 = "0ae8f29eaaf3b8f130e58ee95efaab9803e5c0aacb93f4d6441acfb0f602e670"
+# sha256 of commit d8b908f's climaseaice_jl_tpu_torch/csrc and its two wrappers
+# of kernels 2.9 and 2.11, as earlier_modules hashes them: that commit's
+# wrappers are run here on this tree's other modules, and its C entries are
+# called with its argument lists, which ctypes cannot check
+EARLIER_SHA256 = "f3d9fa7ae79ad365085582a7d76399abdd0b36dbf4ce1d176a4b512661988362"
+EARLIER_WRAPPERS = {"advection_fixed": "dynamics/fixed_tile_advection.py",
+                    "thermo_fixed": "thermodynamics/fixed_tile_thermo.py"}
 
 
-def earlier_csrc(tree):
-    """The CUDA sources of ``tree``, a checkout of commit 825cb6e; raises
-    if they are not that commit's (the hash of each file's name and bytes,
-    in name order)."""
+def earlier_modules(tree):
+    """Kernels 2.9 and 2.11 as ``tree``, a checkout of commit d8b908f, has
+    them: its wrapper modules loaded beside this tree's (their relative
+    imports resolve to this tree's unchanged modules) and calling its CUDA
+    sources, built with this tree's flags into ``_build/earlier``.  Returns
+    {"advection_fixed": module, "thermo_fixed": module}; raises if the tree's
+    sources or wrappers are not that commit's."""
+    import ctypes
     import hashlib
-    csrc = os.path.join(tree, "climaseaice_jl_tpu_torch", "csrc")
+    import importlib.util
+    from climaseaice_jl_tpu_torch import _build
+    pkg = os.path.join(tree, "climaseaice_jl_tpu_torch")
+    csrc = os.path.join(pkg, "csrc")
+    files = [os.path.join("csrc", n) for n in sorted(os.listdir(csrc))]
+    files += list(EARLIER_WRAPPERS.values())
     digest = hashlib.sha256()
-    for name in sorted(os.listdir(csrc)):
-        path = os.path.join(csrc, name)
-        if os.path.isfile(path):
-            with open(path, "rb") as f:
-                digest.update(name.encode() + b"\0" + f.read())
-    if digest.hexdigest() != EARLIER_CSRC_SHA256:
-        raise ValueError(f"{csrc} holds other sources than commit 825cb6e's: its C entries "
+    for rel in files:
+        with open(os.path.join(pkg, rel), "rb") as f:
+            digest.update(os.path.join("climaseaice_jl_tpu_torch", rel).encode() + b"\0"
+                          + f.read())
+    if digest.hexdigest() != EARLIER_SHA256:
+        raise ValueError(f"{tree} holds other sources than commit d8b908f's: its C entries "
                          f"would be called with the wrong arguments")
-    return csrc
-
-
-def earlier_library(name, csrc, nvcc_flags):
-    """Source ``name`` of the earlier tree's sources in directory ``csrc``
-    (see earlier_csrc), built with ``nvcc_flags`` into ``_build/earlier``
-    and loaded."""
-    import ctypes
-    import hashlib
-    import subprocess
-    from climaseaice_jl_tpu_torch import _build
-    tag = hashlib.sha256(" ".join((name,) + tuple(nvcc_flags)).encode()).hexdigest()[:16]
-    out = _build.BUILD_DIR / "earlier" / f"lib{name}_{tag}.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([_build._nvcc(), *nvcc_flags, "-o", str(out),
-                               os.path.join(csrc, _build.SOURCES[name])],
-                              capture_output=True, text=True)
+    out_dir = _build.BUILD_DIR / "earlier"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in EARLIER_WRAPPERS:
+        out = out_dir / f"lib{name}_{EARLIER_SHA256[:16]}.so"
+        if not out.exists():
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp),
+                   os.path.join(csrc, f"{name}.cu")]
+            jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True), tmp, out)
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"CUDA build of the earlier {name} failed:\n"
-                               f"{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(out))
-
-
-def earlier_evp(csrc, contract=False):
-    """Kernel 2.1 built from an earlier tree's sources in directory ``csrc``,
-    whose C entry is that of commit 825cb6e (three launches a substep, the
-    results left in the carry tensors), with the multiply-add contraction
-    that tree built it with (``contract``) or with -fmad=false: a function
-    of (params, consts, carry, nsub)."""
-    import ctypes
-    import torch
-    from climaseaice_jl_tpu_torch import _build
-    flags = tuple(f for f in _build.NVCC_FLAGS if not (contract and f == "-fmad=false"))
-    fn = earlier_library("evp", csrc, flags).csi_evp_substeps
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(params, consts, carry, nsub):
-        nx, ny = carry[0].shape
-        err = fn(params.data_ptr(), *(q.data_ptr() for q in tuple(consts) + tuple(carry)),
-                 nx, ny, nsub, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"the earlier 2.1 failed: CUDA error {err}")
-        return carry
-    return run
-
-
-def earlier_tiled_curvilinear(csrc):
-    """Kernel 2.7 built from an earlier tree's sources in directory
-    ``csrc``, whose C entry is that of commit 825cb6e (every block through
-    every substep, one prep launch): a function with the arguments of
-    ``tiled_curvilinear_evp_substeps`` (without ``settled``)."""
-    import ctypes
-    import torch
-    from climaseaice_jl_tpu_torch import _build
-    from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ftc
-    fn = earlier_library("evp_tiled_curvilinear", csrc,
-                         _build.NVCC_FLAGS).csi_evp_tiled_curvilinear_substeps
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(params, planes, carry, nsub, grid, plan, flags, chunk=None):
-        geo = ftc._geometry(grid)
-        ptrs = (ctypes.c_void_p * (ftc.N_PLANES + 1))(
-            *[q.data_ptr() for q in planes], *([None] if len(planes) == ftc.N_PLANES else []))
-        scratch = torch.empty((ftc.N_SCRATCH,) + grid.shape, dtype=torch.float32,
-                              device=params.device)
-        work = torch.empty((ftc.N_WORK,) + grid.shape, dtype=torch.float32,
-                           device=params.device)
-        err = fn(params.data_ptr(), ctypes.addressof(ptrs), *[q.data_ptr() for q in carry],
-                 scratch.data_ptr(), work.data_ptr(), grid.nxp, grid.nyp, grid.Hx, grid.Nx,
-                 grid.Hy, grid.Ny, *(int(w) for w in geo.wrap), *(int(b) for b in geo.bounded),
-                 int(grid.north_fold), *geo.gates, int(geo.refill), int(flags[0]),
-                 int(flags[1]), int(nsub), plan[0] if chunk is None else int(chunk),
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"the earlier 2.7 failed: CUDA error {err}")
-        return carry
-    return run
+            raise RuntimeError(f"CUDA build of the earlier {name} failed:\n{log}")
+        os.replace(tmp, out)
+    modules = {}
+    for name, rel in EARLIER_WRAPPERS.items():
+        sub, stem = rel[:-3].split("/")
+        spec = importlib.util.spec_from_file_location(
+            f"climaseaice_jl_tpu_torch.{sub}._earlier_{stem}", os.path.join(pkg, rel))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}_{EARLIER_SHA256[:16]}.so"))
+        if name == "advection_fixed":
+            fn = lib.csi_fixed_tile_div
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                           + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            mod._div_entry = lambda fn=fn: fn
+        else:
+            fn = lib.csi_thermo_fixed
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            mod._thermo_entry = lambda fn=fn: fn
+        fn.restype = ctypes.c_int
+        modules[name] = mod
+    return modules
 
 
 def in_turns(fns, repeats):
@@ -885,26 +864,105 @@ def in_turns(fns, repeats):
     return times
 
 
-def earlier_against(earlier, out, params, planes, carry, tsub, grid, plan, flags, card):
-    """The earlier tree's 2.7 (``earlier``, from earlier_tiled_curvilinear)
-    on the same input as the output ``out`` of this tree's: the same bits
-    over the interiors, and both timed in turns."""
+def host_us(fn, calls=50):
+    """Microseconds of host time per call of ``fn`` (the calls enqueued
+    back to back after a warm-up, timed before the device is waited for)."""
     import torch
-    from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ftc
-    old = earlier(params, planes, [q.clone() for q in carry], tsub, grid, plan, flags)
+    fn()
     torch.cuda.synchronize()
-    ulp = max(max_ulp(grid.interior(x), grid.interior(o)) for x, o in zip(old, out))
-    if ulp or not all(same_bits(grid.interior(x), grid.interior(o)) for x, o in zip(old, out)):
-        raise AssertionError(f"2.7 is not the earlier tree's bits ({ulp} ulp)")
-    w_new, w_old = [q.clone() for q in carry], [q.clone() for q in carry]
-    times = in_turns({"2.7": lambda: ftc.tiled_curvilinear_evp_substeps(
-                          params, planes, w_new, tsub, grid, plan, flags),
-                      "earlier 2.7": lambda: earlier(params, planes, w_old, tsub, grid, plan,
-                                                     flags)}, 20)
-    print("    against the earlier tree's 2.7: 0 ulp over the interiors; in turns, ms per call "
-          "(20 calls, forwards then backwards): "
-          + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in times.items())
-          + f", on {card}")
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def bits_record(ref, outs):
+    """(largest ulp distance, the same raw bits) of each output against its
+    reference, over ``(ref, out)`` pairs."""
+    outs = list(outs)
+    return (max(max_ulp(r, o) for r, o in zip(ref, outs)),
+            all(same_bits(r, o) for r, o in zip(ref, outs)))
+
+
+def against_earlier(label, new, old, ref, plain_gate, card, timed=None):
+    """Kernel ``label``'s outputs ``new`` against the earlier tree's ``old``
+    and both against the plain version's ``ref`` (lists of tensors): the
+    earlier tree's bits are a gate, the plain version's where
+    ``plain_gate``; ``timed`` (label → function) are timed in turns."""
+    ulp_plain, same_plain = bits_record(ref, new)
+    old_plain, old_same = bits_record(ref, old)
+    ulp_old, same_old = bits_record(old, new)
+    print(f"    {label}: {ulp_plain} ulp from the plain version (raw bits {same_plain}); the "
+          f"earlier tree's {old_plain} ulp (raw bits {old_same}); against the earlier tree "
+          f"{ulp_old} ulp, raw bits {same_old}")
+    if not same_old:
+        raise AssertionError(f"{label} is not the earlier tree's bits ({ulp_old} ulp)")
+    if plain_gate and not same_plain:
+        raise AssertionError(f"{label} is not its plain version's bits ({ulp_plain} ulp)")
+    if timed:
+        times = in_turns(timed, 20)
+        print("      in turns, ms per call (20 calls, forwards then backwards): "
+              + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in times.items())
+              + f", on {card}")
+
+
+def ptxas_kernels(log):
+    """(kernel, registers, stack frame bytes, spill bytes) of each kernel in
+    an ``nvcc -Xptxas -v`` log."""
+    import re
+    found, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            found.append([name, None, int(m.group(1)), int(m.group(2)) + int(m.group(3))])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and found and found[-1][0] == name and found[-1][1] is None:
+            found[-1][1] = int(m.group(1))
+    return found
+
+
+def print_ptxas(name, kernels=None, gate=None):
+    """Registers and stack frame of the kernels of build ``name`` whose
+    mangled names hold one of ``kernels``; with ``gate``, raise unless those
+    have a 0-byte stack frame and no spill."""
+    from climaseaice_jl_tpu_torch import _build
+    log = _build.build_logs.get(name)
+    if log is None:
+        print(f"    {name}: not built in this run (no ptxas report)")
+        return
+    for kernel, regs, stack, spill in ptxas_kernels(log):
+        if kernels and not any(k in kernel for k in kernels):
+            continue
+        print(f"    {name} {kernel}: {regs} registers, {stack} bytes stack frame, {spill} "
+              f"bytes spilled")
+        if gate and (stack or spill):
+            raise AssertionError(f"{kernel} has a {stack}-byte stack frame and {spill} bytes "
+                                 "of spills")
+
+
+def thermo_units(cst):
+    """The generated column-kernel units (name → text) of the configurations
+    this script runs with fixed tiles: bare ice under number fluxes (the
+    slices and path B), snow under the Semtner series and emission, and the
+    basin with the solar FluxFunction, each planned on a small grid."""
+    from climaseaice_jl_tpu_torch import distributed_basin
+    from climaseaice_jl_tpu_torch.thermodynamics import fixed_tile_thermo
+    bare = bounded(cst, 128, 8, fixed_tiles=(8, 128))
+    snow = bounded(cst, 128, 8, fixed_tiles=(8, 128), snow=True)
+    cases = [(bare, cst.initial_state(bare, h=1.0, a=1.0)),
+             (snow, cst.initial_state(snow, h=1.0, a=1.0, hs=0.1)),
+             distributed_basin.build(32, 128, fixed_tiles=(8, 128))]
+    units = {}
+    for model, state in cases:
+        plan = fixed_tile_thermo.plan(model, state.clock)
+        units[plan.name] = plan.text
+    return units
 
 
 def tc_launches(tsub, K, refill):
@@ -1064,11 +1122,10 @@ def main(argv=None):
                         help="write torch.profiler tables of one flagship step and "
                              "one bounded step to FILE")
     parser.add_argument("--parent", metavar="DIR",
-                        help="a checkout of commit 825cb6e (its CUDA sources are checked): "
-                             "hold kernels 2.1 and 2.7 against its builds of them and time "
-                             "them in turns (phases 2, 17, 24, 28)")
+                        help="a checkout of commit d8b908f (its CUDA sources and wrappers "
+                             "are checked): hold kernels 2.9 and 2.11 against its builds of "
+                             "them and time them in turns (phases 13, 17, 24)")
     args = parser.parse_args(argv)
-    parent_csrc = None if args.parent is None else earlier_csrc(args.parent)
 
     import torch
     if not torch.cuda.is_available():
@@ -1093,12 +1150,15 @@ def main(argv=None):
 
     # --- 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build()
-    print(f"[1] built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    units = thermo_units(cst)
+    _build.build(generated=units)
+    print(f"[1] built {sorted(_build.SOURCES)} and the column-kernel units {sorted(units)} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+    earlier = None if args.parent is None else earlier_modules(args.parent)
 
     # --- 2. kernel vs plain version on the card ----------------------------------
     N, nsub = 512, 120
@@ -1140,24 +1200,7 @@ def main(argv=None):
           f"{max(bytes_ms, ops_ms):.4f} ms ({evp_flops / 1e9:.2f} GFLOP, "
           f"{evp_bytes / 1e6:.1f} MB) on {card}")
     evp_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
-    turns = {"2.1": lambda: fused_evp.evp_substeps(params, consts, work, nsub)}
-    variants = {}
-    if parent_csrc:
-        variants["earlier 2.1"] = earlier_evp(parent_csrc, contract=True)
-        variants["earlier 2.1, -fmad=false"] = earlier_evp(parent_csrc)
-    for label, fn in variants.items():
-        o = fn(params, consts, [q.clone() for q in carry], nsub)
-        torch.cuda.synchronize()
-        print(f"    {label}: {max(max_ulp(r, x) for r, x in zip(ref, o))} ulp from the plain "
-              f"version at most")
-        turns[label] = (lambda fn=fn, w=[q.clone() for q in carry]:
-                        fn(params, consts, w, nsub))
-    if variants:
-        times = in_turns(turns, 20)
-        print("    in turns, ms per call (CUDA events, 20 calls, forwards then backwards): "
-              + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in times.items())
-              + f", on {card}")
-    del out, ref, work, turns, variants
+    del out, ref, work
 
     # --- 3. the main path ---------------------------------------------------------
     flag_model = model = flagship(cst, N, nsub)
@@ -1474,6 +1517,7 @@ def main(argv=None):
     prep_counter = fused_evp_padded.evp_prep_counter
     tiled_counter = fused_evp_tiled_padded.tiled_padded_evp_counter
     adv_counter = fixed_tile_advection.fixed_tile_advection_counter
+    adv_runtime_counter = fixed_tile_advection.fixed_tile_advection_runtime_counter
     thermo_counter = fixed_tile_thermo.fixed_tile_thermo_counter
     fixed = (8, 128)
     dt = 120.0
@@ -1572,18 +1616,31 @@ def main(argv=None):
     tiled_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
     del out, half, whole, ref, work, work_padded, carry, consts
 
-    # 2.9: the fixed-tile advection, uniform metrics on the slice
+    # 2.9: the fixed-tile advection, uniform metrics on the slice (the tile kernel)
     div = fixed_tile_advection.make_fixed_tile_div(model, state.u, state.v)
     schemes = fixed_tile_advection._schemes(model.advection)
     masks = (model.masks.per_fc.contiguous(), model.masks.per_cf.contiguous())
     uniform = (1.0 / grid.scalar(grid.dx_cc), 1.0 / grid.scalar(grid.dy_cc))
-    out = div(state.h)
-    ref = fixed_tile_advection.fixed_tile_div_reference(grid, schemes, state.u, state.v,
-                                                        state.h, masks, uniform)
+    u_c, v_c, h_c = state.u.contiguous(), state.v.contiguous(), state.h.contiguous()
+    out = div(h_c)
+    ref = fixed_tile_advection.fixed_tile_div_reference(grid, schemes, u_c, v_c, h_c, masks,
+                                                        uniform)
     torch.cuda.synchronize()
     adv_rel, adv_abs = rel_diff(ref, out)
     check("div(Uh)", adv_rel, 1e-6)
-    u_c, v_c, h_c = state.u.contiguous(), state.v.contiguous(), state.h.contiguous()
+    ulps, same = bits_record([ref], [out])
+    print(f"  advection, WENO-7 ({fixed_tile_advection.kernel_for(*schemes)}): {ulps} ulp from "
+          f"the plain version over the padded arrays, raw bits {same}")
+    if not same:
+        raise AssertionError(f"2.9 is {ulps} ulp from its plain version")
+    print_ptxas("advection_fixed", ["8tile_divI"], gate=True)
+    if earlier:
+        old_adv = earlier["advection_fixed"]
+        against_earlier("2.9 at 522²", [out], [old_adv.fixed_tile_div(
+            grid, schemes, u_c, v_c, h_c, masks, uniform)], [ref], True, card, {
+            "2.9": lambda: div(h_c),
+            "earlier 2.9": lambda: old_adv.fixed_tile_div(grid, schemes, u_c, v_c, h_c, masks,
+                                                          uniform)})
     kernel_ms = cuda_ms(lambda: div(h_c), 50)
     plain_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div_reference(
         grid, schemes, u_c, v_c, h_c, masks, uniform), 10)
@@ -1591,7 +1648,35 @@ def main(argv=None):
     print(f"    advection kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms")
     adv_timing = (adv_abs, adv_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
-    # array metrics on the basin's grid (not on this slice's path)
+    # a FluxFormAdvection of two schemes: the runtime-scheme kernel
+    mixed = (cst.UpwindBiased(order=5), cst.Centered(order=2))
+    out = fixed_tile_advection.fixed_tile_div(grid, mixed, u_c, v_c, h_c, masks, uniform)
+    ref = fixed_tile_advection.fixed_tile_div_reference(grid, mixed, u_c, v_c, h_c, masks,
+                                                        uniform)
+    torch.cuda.synchronize()
+    mixed_rel, mixed_abs = rel_diff(ref, out)
+    ulps, same = bits_record([ref], [out])
+    print(f"  advection, UpwindBiased(5) in x and Centered(2) in y "
+          f"({fixed_tile_advection.kernel_for(*mixed)}): {ulps} ulp from the plain version "
+          f"over the padded arrays, raw bits {same}")
+    if not same:
+        raise AssertionError(f"2.9's runtime-scheme kernel is {ulps} ulp from its plain version")
+    if earlier:
+        against_earlier("2.9, two schemes", [out], [earlier["advection_fixed"].fixed_tile_div(
+            grid, mixed, u_c, v_c, h_c, masks, uniform)], [ref], True, card)
+    kernel_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div(
+        grid, mixed, u_c, v_c, h_c, masks, uniform), 50)
+    plain_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div_reference(
+        grid, mixed, u_c, v_c, h_c, masks, uniform), 10)
+    # counted as ADV_FLOPS_PER_POINT: at the x face two UpwindBiased(5) sides of 10
+    # (5 products, 4 sums, the quotient), at the y face Centered(2)'s one value of 2,
+    # the upwind average 2 and the flux product 1 at each face, the divergence 5
+    mixed_flops = (20 + 3) + (2 + 3) + 5
+    bytes_ms, ops_ms = bounds_ms(ADV_BYTES_PER_POINT * points, mixed_flops * points)
+    print(f"    runtime-scheme kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms")
+    mixed_timing = (mixed_abs, mixed_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    # array metrics on the basin's grid (its advection's shape; not on this slice's path)
     basin = basin_model(1152, 960, substeps=nsub)
     bg = basin.grid
     bstate = basin_state(basin)
@@ -1609,6 +1694,28 @@ def main(argv=None):
                                                         metrics)
     torch.cuda.synchronize()
     check("basin", rel_diff(ref, out)[0], 1e-6)
+    ulps, same = bits_record([ref], [out])
+    print(f"  advection at {bg.nxp}×{bg.nyp} with array metrics: {ulps} ulp from the plain "
+          f"version, raw bits {same}")
+    if not same:
+        raise AssertionError(f"2.9 with array metrics is {ulps} ulp from its plain version")
+    if earlier:
+        old_adv = earlier["advection_fixed"]
+        against_earlier(f"2.9 at {bg.nxp}×{bg.nyp}", [out], [old_adv.fixed_tile_div(
+            bg, schemes, bu, bv, bh, bmasks, metrics)], [ref], True, card, {
+            "2.9": lambda: fixed_tile_advection.fixed_tile_div(bg, schemes, bu, bv, bh, bmasks,
+                                                               metrics),
+            "earlier 2.9": lambda: old_adv.fixed_tile_div(bg, schemes, bu, bv, bh, bmasks,
+                                                          metrics)})
+    basin_adv_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div(
+        bg, schemes, bu, bv, bh, bmasks, metrics), 50)
+    bpoints = bg.nxp * bg.nyp
+    # the three metric arrays read; a second product at each face, and the
+    # divergence (δx + δy)/Az one operation fewer than δx·(1/Δx) + δy·(1/Δy)
+    bytes_ms, ops_ms = bounds_ms((ADV_BYTES_PER_POINT + 12) * bpoints,
+                                 (ADV_FLOPS_PER_POINT + 1) * bpoints)
+    print(f"    advection kernel {basin_adv_ms:.4f} ms/call, bound {max(bytes_ms, ops_ms):.4f} "
+          f"ms")
     del basin, bstate, bu, bv, bh, metrics, out, ref
 
     # 2.11: the column thermodynamics, bare ice on the slice and snow on ice
@@ -1623,12 +1730,29 @@ def main(argv=None):
         rel, abs_err = rel_diff(ref[name].broadcast_to(grid.shape), q)
         check(name, rel, 1e-5)
         thermo_rel, thermo_abs = max(thermo_rel, rel), max(thermo_abs, abs_err)
-    kernel_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column(model, state, dt_t), 50)
+    refs = [ref[n].broadcast_to(grid.shape) for n in out]
+    ulps, same = bits_record(refs, out.values())
+    bare_unit = fixed_tile_thermo.plan(model, state.clock).name
+    print(f"  column, bare ice (unit {bare_unit}): {ulps} ulp from the plain version in every "
+          f"output, raw bits {same}")
+    if not same:
+        raise AssertionError(f"2.11 (bare ice) is {ulps} ulp from its plain version")
+    print_ptxas(bare_unit, gate=True)
+    thermo_fn = lambda: fixed_tile_thermo.thermo_column(model, state, dt_t)   # noqa: E731
+    if earlier:
+        old_th = earlier["thermo_fixed"]
+        old_fn = lambda: old_th.thermo_column(model, state, dt_t)   # noqa: E731
+        against_earlier("2.11, bare ice", list(out.values()), list(old_fn().values()), refs,
+                        True, card, {"2.11": thermo_fn, "earlier 2.11": old_fn})
+        print(f"      host µs per call: 2.11 {host_us(thermo_fn):.1f}, earlier 2.11 "
+              f"{host_us(old_fn):.1f}")
+    kernel_ms = cuda_ms(thermo_fn, 50)
     plain_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column_reference(model, state, dt_t),
                        5)
     bytes_ms, ops_ms = bounds_ms(THERMO_ARRAYS * points * 4, THERMO_FLOPS_PER_POINT * points)
-    print(f"    thermodynamics kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, "
-          f"bound {max(bytes_ms, ops_ms):.4f} ms")
+    print(f"    thermodynamics kernel {kernel_ms:.4f} ms/call ({host_us(thermo_fn):.1f} µs of "
+          f"host time a call), plain {plain_ms:.3f} ms/call, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms")
     thermo_timing = (thermo_abs, thermo_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
     layered = bounded(cst, N, nsub, fixed_tiles=fixed, snow=True)
     lstate = cst.initial_state(layered, h=lambda x, y: 1.0 + 0.25 * torch.sin(x / (40 * KM)),
@@ -1636,14 +1760,26 @@ def main(argv=None):
     out = fixed_tile_thermo.thermo_column(layered, lstate, dt_t)
     ref = fixed_tile_thermo.thermo_column_reference(layered, lstate, dt_t)
     torch.cuda.synchronize()
-    print("  snow on ice, Semtner series + emission, snowfall 3.2e-6:")
+    snow_unit = fixed_tile_thermo.plan(layered, lstate.clock).name
+    print(f"  snow on ice, Semtner series + emission, snowfall 3.2e-6 (unit {snow_unit}):")
     for name, q in out.items():
         if not torch.isfinite(q).all():
             raise AssertionError(f"{name} (snow) from the thermodynamics kernel is not finite")
         check(name, rel_diff(ref[name].broadcast_to(grid.shape), q)[0], 1e-5)
-    layered_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column(layered, lstate, dt_t), 50)
+    refs = [ref[n].broadcast_to(grid.shape) for n in out]
+    ulps, same = bits_record(refs, out.values())
+    print(f"    {ulps} ulp from the plain version in every output, raw bits {same}")
+    if not same:
+        raise AssertionError(f"2.11 (snow) is {ulps} ulp from its plain version")
+    print_ptxas(snow_unit, gate=True)
+    layered_fn = lambda: fixed_tile_thermo.thermo_column(layered, lstate, dt_t)   # noqa: E731
+    if earlier:
+        old_fn = lambda: old_th.thermo_column(layered, lstate, dt_t)   # noqa: E731
+        against_earlier("2.11, snow", list(out.values()), list(old_fn().values()), refs, True,
+                        card, {"2.11": layered_fn, "earlier 2.11": old_fn})
+    layered_ms = cuda_ms(layered_fn, 50)
     print(f"    snow kernel {layered_ms:.4f} ms/call")
-    del layered, lstate, out, ref
+    del layered, lstate, out, ref, refs
 
     # --- 14. the fixed-tile slice's main path -------------------------------------------
     model = bounded(cst, N, nsub, fixed_tiles=fixed)
@@ -1651,8 +1787,9 @@ def main(argv=None):
     state = cst.step(model, state, dt)                  # warm-up
     torch.cuda.synchronize()
     counters = dict(tiled=tiled_counter, prep=prep_counter, adv=adv_counter,
-                    thermo=thermo_counter, padded=padded_counter, periodic=counter,
-                    periodic_tiled=tiled_evp_counter, curvilinear=curv_counter)
+                    adv_runtime=adv_runtime_counter, thermo=thermo_counter,
+                    padded=padded_counter, periodic=counter, periodic_tiled=tiled_evp_counter,
+                    curvilinear=curv_counter)
     for c in counters.values():
         c.reset()
     state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
@@ -1662,7 +1799,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     n_steps = steps + 2
     calls = {k: c.calls for k, c in counters.items()}
-    expected = dict(tiled=3 * n_steps, prep=3 * n_steps, adv=6 * n_steps,
+    expected = dict(tiled=3 * n_steps, prep=3 * n_steps, adv=6 * n_steps, adv_runtime=0,
                     thermo=3 * n_steps, padded=0, periodic=0, periodic_tiled=0,
                     curvilinear=0)
     if calls != expected or tiled_counter.launches != 3 * n_steps * tiled_launches_per_call:
@@ -1690,7 +1827,24 @@ def main(argv=None):
                         f"device time\n{table}\n")
         with open(args.profile, "w") as f:
             f.write("\n".join(profiles))
-    del model, state, sim, bounded_model, bounded_state
+    # the same slice with a FluxFormAdvection of two schemes: the runtime-scheme kernel
+    adv_mixed = cst.FluxFormAdvection(x=cst.UpwindBiased(order=5), y=cst.Centered(order=2))
+    mixed_model = bounded(cst, N, nsub, fixed_tiles=fixed, advection=adv_mixed)
+    mixed_state = flagship_state(cst, mixed_model)
+    for c in (adv_counter, adv_runtime_counter):
+        c.reset()
+    for _ in range(2):
+        mixed_state = cst.step(mixed_model, mixed_state, dt)
+    torch.cuda.synchronize()
+    check_state(mixed_model, mixed_state)
+    mixed_launches = adv_runtime_counter.launches
+    if mixed_launches != 12 or adv_counter.launches != 12:
+        raise AssertionError(f"two steps with two advection schemes launched 2.9 "
+                             f"{adv_counter.launches} times, its runtime-scheme kernel "
+                             f"{mixed_launches}; expected 12 and 12")
+    print(f"    with UpwindBiased(5) in x and Centered(2) in y: 2 steps, {mixed_launches} "
+          f"launches of the runtime-scheme kernel, finite and physical")
+    del model, state, sim, bounded_model, bounded_state, mixed_model, mixed_state
 
     # --- 15. halo 5 against halo 19 on the card -------------------------------------------
     names = ("u", "v", "h", "a", "sig11", "sig22", "sig12", "alpha")
@@ -1786,17 +1940,6 @@ def main(argv=None):
     if tc_ulp or not all(same_bits(WI(r), WI(o)) for r, o in zip(ref, out)):
         raise AssertionError(f"2.7 is not its plain version's bits over the interiors ({tc_ulp} "
                              f"ulp); it must be bitwise, signed zeros included")
-    earlier_tc = None
-    if parent_csrc:
-        earlier_tc = earlier_tiled_curvilinear(parent_csrc)
-        old27 = earlier_tc(params, planes, [q.clone() for q in carry], tsub, wgrid, plan, flags)
-        torch.cuda.synchronize()
-        old_ulp = max(max_ulp(WI(x), WI(o)) for x, o in zip(old27, out))
-        print(f"    against the earlier tree's 2.7: {old_ulp} ulp over the interiors, whole "
-              f"arrays the same bits {all(same_bits(x, o) for x, o in zip(old27, out))}")
-        if old_ulp or not all(same_bits(WI(x), WI(o)) for x, o in zip(old27, out)):
-            raise AssertionError(f"2.7 is not the earlier tree's bits ({old_ulp} ulp)")
-        del old27
     # The fold halo evolves exactly only where the arithmetic is exactly
     # mirror-antisymmetric; the reference's own contract is bitwise equality
     # at one chunk length (`pallas_evp_tiled_curvilinear.py:89-93`), which
@@ -1826,10 +1969,6 @@ def main(argv=None):
                  params, planes, work, tsub, wgrid, plan, flags),
              "whole-array": lambda: fused_evp_curvilinear.curvilinear_evp_substeps(
                  p18, c_consts, work_whole, tsub, wgrid, c_planes)}
-    if earlier_tc is not None:
-        work_old = [q.clone() for q in carry]
-        turns["earlier pinned"] = lambda: earlier_tc(params, planes, work_old, tsub, wgrid,
-                                                     plan, flags)
     route_times = in_turns(turns, 20)
     print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms; in turns, ms per call (20 calls, forwards then "
@@ -1841,7 +1980,7 @@ def main(argv=None):
     tc_timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
     tc_shape = (f"{wgrid.nxp}x{wgrid.nyp} widened (1152x960 tripolar basin, land, fold, "
                 f"drag), {tsub} substeps")
-    del out, chunked, ref, ref4, whole, work, work_whole, c_consts, turns, earlier_tc
+    del out, chunked, ref, ref4, whole, work, work_whole, c_consts, turns
 
     # 2.8: the ice strength on the widened h, ℵ
     prm = ftc.ice_strength_params(model)
@@ -1904,18 +2043,36 @@ def main(argv=None):
         rel, abs_err = rel_diff(ref[name].broadcast_to(g.shape), q)
         check(name, rel, 1e-5)
         flux_rel, flux_abs = max(flux_rel, rel), max(flux_abs, abs_err)
+    refs = [ref[n].broadcast_to(g.shape) for n in out]
+    ulps, same = bits_record(refs, out.values())
+    basin_unit = fixed_tile_thermo.plan(model, state.clock).name
+    print(f"    unit {basin_unit}: {ulps} ulp from the plain version in every output, raw bits "
+          f"{same}")
+    if not same:
+        raise AssertionError(f"2.11 (solar FluxFunction) is {ulps} ulp from its plain version")
+    print_ptxas(basin_unit, gate=True)
+    flux_fn = lambda: fixed_tile_thermo.thermo_column(model, state, dt_t)   # noqa: E731
+    if earlier:
+        old_th = earlier["thermo_fixed"]
+        old_fn = lambda: old_th.thermo_column(model, state, dt_t)   # noqa: E731
+        against_earlier("2.11, solar FluxFunction", list(out.values()),
+                        list(old_fn().values()), refs, True, card,
+                        {"2.11": flux_fn, "earlier 2.11": old_fn})
+        print(f"      host µs per call: 2.11 {host_us(flux_fn):.1f}, earlier 2.11 "
+              f"{host_us(old_fn):.1f}")
     solar = fixed_tile_thermo.flux_recording(model.top_heat_flux[0], g,
                                              fixed_tile_thermo._present(model))
     F = program_flops(solar.ops) + 5 + 3       # the sums and emission
-    kernel_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column(model, state, dt_t), 50)
+    kernel_ms = cuda_ms(flux_fn, 50)
     plain_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column_reference(model, state, dt_t),
                        5)
     bytes_ms, ops_ms = bounds_ms(LAYERED_THERMO_ARRAYS * gpoints * 4,
                                  layered_thermo_flops(F) * gpoints)
-    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
-          f"{max(bytes_ms, ops_ms):.4f} ms ({layered_thermo_flops(F)} operations a point)")
+    print(f"    kernel {kernel_ms:.4f} ms/call ({host_us(flux_fn):.1f} µs of host time a call), "
+          f"plain {plain_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms "
+          f"({layered_thermo_flops(F)} operations a point)")
     flux_timing = (flux_abs, flux_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
-    del model, state, out, ref
+    del model, state, out, ref, refs
 
     # --- 18. the tripolar fixed-tile basin: the slice's main path ----------------------------
     model, state = distributed_basin.build(1152, 960, fixed_tiles=fixed)
@@ -2189,9 +2346,6 @@ def main(argv=None):
     work = [q.clone() for q in carry]
     kernel_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps(
         params, planes, work, tsub, lgrid, plan, flags), 20)
-    if parent_csrc:
-        earlier_against(earlier_tiled_curvilinear(parent_csrc), out, params, planes, carry,
-                        tsub, lgrid, plan, flags, card)
     plain_ms = cuda_ms(lambda: ftc.tiled_curvilinear_evp_substeps_reference(
         params, planes, carry, tsub, lgrid, plan, flags), 2)
     bytes_ms, ops_ms = bounds_ms(
@@ -2212,15 +2366,23 @@ def main(argv=None):
     out = fixed_tile_advection.fixed_tile_div(lgrid, schemes, u, v, h, masks, metrics)
     ref = fixed_tile_advection.fixed_tile_div_reference(lgrid, schemes, u, v, h, masks, metrics)
     torch.cuda.synchronize()
-    if not torch.equal(out, ref):
+    if not same_bits(ref, out):
         raise AssertionError(f"2.9 on the shard is {max_ulp(ref, out)} ulp from its plain "
-                             "version over the padded arrays")
+                             "version over the padded arrays, or differs in a signed zero")
+    if earlier:
+        old_adv = earlier["advection_fixed"]
+        against_earlier("2.9 on the shard", [out], [old_adv.fixed_tile_div(
+            lgrid, schemes, u, v, h, masks, metrics)], [ref], True, card, {
+            "2.9": lambda: fixed_tile_advection.fixed_tile_div(lgrid, schemes, u, v, h, masks,
+                                                               metrics),
+            "earlier 2.9": lambda: old_adv.fixed_tile_div(lgrid, schemes, u, v, h, masks,
+                                                          metrics)})
     kernel_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div(lgrid, schemes, u, v, h,
                                                                      masks, metrics), 50)
     plain_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div_reference(
         lgrid, schemes, u, v, h, masks, metrics), 5)
     bytes_ms, ops_ms = bounds_ms(ADV_BYTES_PER_POINT * points, ADV_FLOPS_PER_POINT * points)
-    print(f"  2.9 (WENO-7, x split: no wrap): bitwise equal to the plain version over the "
+    print(f"  2.9 (WENO-7, x split: no wrap): the plain version's raw bits over the "
           f"padded arrays; kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms")
     advm_timing = (0.0, 0.0, kernel_ms, plain_ms, bytes_ms, ops_ms)
@@ -2466,12 +2628,11 @@ def main(argv=None):
         tc_counter.reset()
         settled = torch.empty(-(-lgrid.nxp // ftc.BLOCK[0]) * -(-lgrid.nyp // ftc.BLOCK[1]),
                               dtype=torch.int32, device="cuda")
-        kept = {}
         worst = meshed_check(
             f"2.7 unpinned on {mesh_c}",
-            lambda: kept.setdefault("out", ftc.tiled_curvilinear_evp_substeps(
+            lambda: ftc.tiled_curvilinear_evp_substeps(
                 params, lp, [q.clone() for q in lc], tsub, lgrid, plan, flags,
-                settled=settled)),
+                settled=settled),
             lambda: ftc.tiled_curvilinear_evp_substeps_reference(params, lp, lc, tsub, lgrid,
                                                                  plan, flags), LI,
             signed_zeros=True)
@@ -2497,14 +2658,11 @@ def main(argv=None):
               f"blocks {share[0]:.4f} ({share[1]} of {share[2]}), the kernel's flags equal "
               f"their plain version's; kernel {kernel_ms:.4f} ms/call, plain "
               f"{plain_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms")
-        if parent_csrc:
-            earlier_against(earlier_tiled_curvilinear(parent_csrc), kept["out"], params, lp,
-                            lc, tsub, lgrid, plan, flags, card)
         if mesh_c == (2, 2):
             tcu_timing = (*worst, kernel_ms, plain_ms, bytes_ms, ops_ms)
             tcu_shape = (f"{lgrid.nxp}x{lgrid.nyp} shard {shard_c} of a 2x2 mesh of the "
                          f"1152x960 basin, halos {Hm}, {tsub} substeps, unpinned plan {plan}")
-        del lp, lc, work, kept
+        del lp, lc, work
     # path C's shards: the flags depend on h, ℵ and the land only, as at path C's first step
     shares = []
     for mesh_c in ((1, 4), (2, 2)):
@@ -2666,14 +2824,23 @@ def main(argv=None):
                      "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_padded.py:262",
                      "_tiled_padded_kernel", fixed_launches["tiled"], *tiled_timing,
                      f"{shape}, {nsub} substeps"),
-        kernel_entry("fixed_tile_div", "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
-                     "climaseaice_jl_tpu/dynamics/pallas_advection.py:142", "_adv_kernel",
-                     fixed_launches["adv"], *adv_timing, f"{shape}, WENO-7"),
-        dict(kernel_entry("thermo_column", "climaseaice_jl_tpu_torch/csrc/thermo_fixed.cu",
+        dict(kernel_entry("fixed_tile_div", "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
+                          "climaseaice_jl_tpu/dynamics/pallas_advection.py:142", "_adv_kernel",
+                          fixed_launches["adv"], *adv_timing, f"{shape}, WENO-7"),
+             entry="csi_fixed_tile_div_tiles"),
+        dict(kernel_entry("fixed_tile_div_runtime_scheme",
+                          "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
+                          "climaseaice_jl_tpu/dynamics/pallas_advection.py:142", "_adv_kernel",
+                          mixed_launches, *mixed_timing,
+                          f"{shape}, UpwindBiased(5) in x, Centered(2) in y"),
+             entry="csi_fixed_tile_div"),
+        dict(kernel_entry("thermo_column", "climaseaice_jl_tpu_torch/csrc/thermo_column.cuh",
                           "climaseaice_jl_tpu/dynamics/pallas_pointwise.py:69",
                           "fixed_tile_pointwise_multi", fixed_launches["thermo"],
                           *thermo_timing, f"{shape}, bare ice"),
-             carries="climaseaice_jl_tpu/thermodynamics/pallas_thermo.py:169"),
+             carries="climaseaice_jl_tpu/thermodynamics/pallas_thermo.py:169",
+             unit=f"climaseaice_jl_tpu_torch/_build/{bare_unit}.cu",
+             generated_by="climaseaice_jl_tpu_torch/dynamics/fixed_tile_codegen.py"),
         kernel_entry("tiled_curvilinear_evp_substeps",
                      "climaseaice_jl_tpu_torch/csrc/evp_tiled_curvilinear.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662",
@@ -2688,12 +2855,14 @@ def main(argv=None):
                      "fixed_tile_pointwise", basin_launches["wind"], *wind_timing,
                      "1162x970 padded (1152x960 tripolar basin), the x wind"),
         dict(kernel_entry("thermo_column_flux_function",
-                          "climaseaice_jl_tpu_torch/csrc/thermo_fixed.cu",
+                          "climaseaice_jl_tpu_torch/csrc/thermo_column.cuh",
                           "climaseaice_jl_tpu/dynamics/pallas_pointwise.py:69",
                           "fixed_tile_pointwise_multi", basin_launches["thermo"], *flux_timing,
                           "1162x970 padded (1152x960 tripolar basin), snow, solar "
                           "FluxFunction"),
-             carries="climaseaice_jl_tpu/thermodynamics/pallas_thermo.py:169"),
+             carries="climaseaice_jl_tpu/thermodynamics/pallas_thermo.py:169",
+             unit=f"climaseaice_jl_tpu_torch/_build/{basin_unit}.cu",
+             generated_by="climaseaice_jl_tpu_torch/dynamics/fixed_tile_codegen.py"),
         kernel_entry("tiled_evp_substeps", "climaseaice_jl_tpu_torch/csrc/evp_tiled.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_tiled.py:193", "_tiled_kernel",
                      t22_main_launches, *t22_timing, f"{N2}x{N2}, {nsub} substeps"),
@@ -2701,9 +2870,11 @@ def main(argv=None):
                      "climaseaice_jl_tpu_torch/csrc/evp_tiled_curvilinear.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662",
                      "_tiled_curv_kernel", dist_launches["2.7"], *tcm_timing, tcm_shape),
-        kernel_entry("fixed_tile_div_meshed", "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
-                     "climaseaice_jl_tpu/dynamics/pallas_advection.py:142", "_adv_kernel",
-                     dist_launches["2.9"], *advm_timing, f"{tcm_shape}, WENO-7"),
+        dict(kernel_entry("fixed_tile_div_meshed",
+                          "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
+                          "climaseaice_jl_tpu/dynamics/pallas_advection.py:142", "_adv_kernel",
+                          dist_launches["2.9"], *advm_timing, f"{tcm_shape}, WENO-7"),
+             entry="csi_fixed_tile_div_tiles"),
         kernel_entry("padded_evp_substeps_meshed", "climaseaice_jl_tpu_torch/csrc/evp_padded.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:167", "_padded_kernel",
                      pm_launches, *pm_timing, pm_shape),

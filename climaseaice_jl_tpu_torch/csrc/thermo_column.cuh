@@ -1,4 +1,5 @@
-// Fixed-tile slab and snow column thermodynamics for NVIDIA Hopper (sm_90a).
+// Fixed-tile slab and snow column thermodynamics for NVIDIA Hopper (sm_90a):
+// the column kernel, templated on its three flux functors.
 //
 // Replaces `climaseaice_jl_tpu/dynamics/pallas_pointwise.py::
 // fixed_tile_pointwise_multi` as `thermodynamics/pallas_thermo.py:169`
@@ -10,23 +11,31 @@
 // snowfall, flooding, and the diagnostics mf_ice, mf_snow, mf_snowfall,
 // Qtop and Qbot.
 //
-// The external heat fluxes come as small postfix programs
-// (pointwise_program.cuh, built by fixed_tile_thermo.py): constants, arrays,
-// 0-d device values (a FieldTimeSeries resolved at the clock's time, read
-// through its pointer), radiative emission c·(T + T_r)⁴, the recorded
-// operations of FluxFunction callables (the surface temperature is the
-// program's argument T, so a temperature-dependent flux is re-evaluated at
-// every secant iterate), and sums in the order heat_bcs.getflux adds them.
+// The external heat fluxes are compiled into the kernel: a configuration's
+// flux programs (constants, arrays, 0-d device values such as a
+// FieldTimeSeries resolved at the clock's time, radiative emission
+// c·(T + T_r)⁴, the recorded operations of FluxFunction callables, and sums
+// in the order heat_bcs.getflux adds them) become one generated unit
+// (dynamics/fixed_tile_codegen.py) that defines three functors, Top, Bottom
+// and Snow, and instantiates this header with them.  A functor's
+// prologue(A, pt) computes once per point the values that do not depend on
+// the surface temperature; flux(A, T) computes the rest, at every secant
+// iterate.  Every operation of the program is kept, with the semantics of
+// pointwise_program.cuh's interpreter, so each value has the interpreter's
+// bits.  Constants, pointers and 0-d values travel in the launch arguments.
 //
 // What bounds it on an H100: for the bare-ice slice with 20 secant
 // iterations the column needs 254 float32 operations per point (counted
 // as the plain version computes them: chip_smoke.py's
 // THERMO_FLOPS_PER_POINT) against 4 arrays read and 8 written, 48 bytes:
 // at 522² 0.0039 ms of bytes and 0.0011 ms of operations.  The call is bound
-// by bytes.
+// by bytes.  With the tripolar basin's solar FluxFunction, three series and
+// emission in the top flux, 756 operations and 17 arrays a point: at
+// 1162×970 0.0229 ms of bytes.
 //
 // Design: one thread per padded point, one launch per call; the arguments
-// (flags, programs, constants, pointers) travel by value in one struct.
+// (flags, constants, pointers) travel by value in one struct.  No array is
+// indexed at run time, so nothing lives in local memory.
 //
 // Arithmetic: the plain version's operation order.  Where the plain
 // version divides a tensor by a Python number, PyTorch's CUDA division
@@ -38,13 +47,13 @@
 // (`_build.py`): no multiply-add is contracted, so a point's bits do not
 // depend on the launch, the array shape or the halo width.
 
+#pragma once
+
 #include "pointwise_program.cuh"
 
-namespace {
+namespace csi_thermo {
 
-using namespace csi_prog;
-
-constexpr int MAX_OPS = 48, MAX_K = 64, MAX_PTRS = 32;
+constexpr int MAX_K = 64, MAX_PTRS = 32;
 constexpr int BLOCK = 256;
 
 // constants (fixed_tile_thermo._K_NAMES), then the programs' own
@@ -55,20 +64,26 @@ enum P { P_H, P_A, P_HS, P_S, P_TU, P_TUS, P_DT, P_TB };
 
 struct Args {
   int layered, n, prescribed, iterations, dt_number, hc_pos, tb_array;
-  Prog<MAX_OPS> top, bottom, snow;
   float k[MAX_K];
   const float* p[MAX_PTRS];
 };
 
-__device__ __forceinline__ float flux(const Prog<MAX_OPS>& g, const Args& A, int pt, float T) {
-  return run(g, A.k, A.p, pt, T);
+// torch.clamp with number bounds (either may be absent): NaN passes through
+__device__ __forceinline__ float clamp(float v, bool has_lo, float lo, bool has_hi, float hi) {
+  if (v == v) {
+    if (has_lo) v = fmaxf(v, lo);
+    if (has_hi) v = fminf(v, hi);
+  }
+  return v;
 }
 
 // x / c for a Python number c, as PyTorch's CUDA division computes it
 __device__ __forceinline__ float rdiv(float x, float c) { return x * (1.0f / c); }
 
+template <class Top>
 struct Column {
   const Args& A;
+  const Top& top;
   int pt;
   float dt, Tb;
 
@@ -89,8 +104,8 @@ struct Column {
   template <typename Conduction>
   __device__ float secant(float T0, Conduction cond) const {
     float T1 = T0 + 1.0f, T2 = T0 + 0.0f;
-    float F1 = flux(A.top, A, pt, T1) - cond(T1);
-    float F2 = flux(A.top, A, pt, T2) - cond(T2);
+    float F1 = top.flux(A, T1) - cond(T1);
+    float F2 = top.flux(A, T2) - cond(T2);
     for (int it = 0; it < A.iterations; ++it) {
       const float dF = F2 - F1;
       const float step = fabsf(dF) > 0.0f ? F2 * (T2 - T1) / dF : 0.0f;
@@ -98,7 +113,7 @@ struct Column {
       T1 = T2;
       F1 = F2;
       T2 = T3;
-      F2 = flux(A.top, A, pt, T3) - cond(T3);
+      F2 = top.flux(A, T3) - cond(T3);
     }
     return T2;
   }
@@ -122,12 +137,19 @@ struct Column {
   }
 };
 
+template <class Top, class Bottom, class Snow>
 __global__ void __launch_bounds__(BLOCK) thermo_column(const __grid_constant__ Args A,
                                                        float* __restrict__ out) {
   const int pt = blockIdx.x * BLOCK + threadIdx.x;
   if (pt >= A.n) return;
+  Top top;
+  Bottom bottom;
+  Snow snow;
+  top.prologue(A, pt);
+  bottom.prologue(A, pt);
+  snow.prologue(A, pt);
   const float dt = A.p[P_DT][0];
-  const Column col{A, pt, dt, A.p[P_TB][A.tb_array ? pt : 0]};
+  const Column<Top> col{A, top, pt, dt, A.p[P_TB][A.tb_array ? pt : 0]};
   const float Tb = col.Tb;
   const float hn = A.p[P_H][pt], an = A.p[P_A][pt], S = A.p[P_S][pt];
   const bool consolidated = hn >= A.k[K_HC];
@@ -143,8 +165,8 @@ __global__ void __launch_bounds__(BLOCK) thermo_column(const __grid_constant__ A
       const float Ts = col.secant(A.p[P_TU][pt], [&](float T) { return col.conduct(T, hn); });
       Tu = consolidated ? fminf(Ts, Tm) : Tb;
     }
-    const float Qui = flux(A.top, A, pt, Tu);
-    const float Qbi = flux(A.bottom, A, pt, Tu);
+    const float Qui = top.flux(A, Tu);
+    const float Qbi = bottom.flux(A, Tu);
     const float Qii = consolidated ? col.conduct(Tu, hn) : 0.0f;
     const float Eu = rho_i * col.latent(Tu);
     const float Eb = rho_i * col.latent(Tb);
@@ -153,6 +175,7 @@ __global__ void __launch_bounds__(BLOCK) thermo_column(const __grid_constant__ A
     col.volume(dVdt, hn, an, h1, a1);
     const float outs[8] = {h1, a1, Tu, col.by_dt(rho_i * (h1 * a1 - hn * an)), 0.0f, 0.0f,
                            Qui + 0.0f, Qbi + 0.0f};
+#pragma unroll
     for (int q = 0; q < 8; ++q) out[q * plane + pt] = outs[q];
     return;
   }
@@ -175,7 +198,7 @@ __global__ void __launch_bounds__(BLOCK) thermo_column(const __grid_constant__ A
   const float Tsi = R > 0.0f ? Tb + (Tus - Tb) * (Ri / R) : Tb;
 
   const float Qis = consolidated ? col.conduct2(Tus, hn, hsn) : 0.0f;
-  const float Qui = flux(A.top, A, pt, Tus);
+  const float Qui = top.flux(A, Tus);
   const float Qui_per_ice = an > 0.0f ? Qui / an : 0.0f;
   const float dQ = Qui_per_ice - Qis;
   const float melt_energy = fmaxf(-dQ, 0.0f);
@@ -184,7 +207,7 @@ __global__ void __launch_bounds__(BLOCK) thermo_column(const __grid_constant__ A
   const float Gs_minus = rdiv(Qs, A.k[K_RHOSL]);
 
   // closed-form self-consistent ℵⁿ⁺¹
-  const float Qbi = flux(A.bottom, A, pt, Tus);
+  const float Qbi = bottom.flux(A, Tus);
   const float alpha = rdiv(Qui - Qbi, A.k[K_RHOIL]);
   const float beta = rdiv(Qs, A.k[K_RHOIL]);
   const float Cm = hn > 0.0f ? an * (1.0f / (2.0f * hn)) : 0.0f;
@@ -207,7 +230,7 @@ __global__ void __launch_bounds__(BLOCK) thermo_column(const __grid_constant__ A
   // snow volume kept under the concentration change, snowfall, flooding
   const float rho_s = A.k[K_RHOS];
   const float hs_rebased = a1 > 0.0f ? hsn * an * (1.0f / a1) : 0.0f;
-  const float rate = flux(A.snow, A, pt, 0.0f);
+  const float rate = snow.flux(A, 0.0f);
   const float Gs_plus = a1 > 0.0f ? rdiv(rate, rho_s) : 0.0f;
   float hs_p = fmaxf(hs_rebased + dt * (Gs_plus - Gs_minus), 0.0f);
   const float hf = hi1 * A.k[K_FLOOD] - rdiv(hs_p * rho_s, A.k[K_RHOW]);
@@ -221,23 +244,21 @@ __global__ void __launch_bounds__(BLOCK) thermo_column(const __grid_constant__ A
                           col.by_dt(rho_i * (hi1 * a1 - Vin)) + 0.0f,
                           col.by_dt(rho_s * (hs_p * a1 - Vsn)) - Ps_abs + 0.0f,
                           Ps_abs + 0.0f, Qui + 0.0f, Qbi + 0.0f};
+#pragma unroll
   for (int q = 0; q < 10; ++q) out[q * plane + pt] = outs[q];
 }
 
-}  // namespace
-
 // The column step over n = ints[1] padded points into `out` (8 planes for
-// bare ice, 10 with snow, each n long) on `stream`.  `ints`: layered,
-// n, prescribed top temperature, secant iterations, dt is a number, hc > 0,
-// Tb is an array, then the top, bottom and snowfall programs (count, then
-// (op, a, b) triples); `consts` and `ptrs` are host arrays of the
-// constants and device pointers.  Returns 0, a CUDA error, or −1 for
-// arguments it cannot take.
-extern "C" int csi_thermo_fixed(const int* ints, int n_ints, const float* consts, int n_k,
-                                const void* const* ptrs, int n_p, float* out,
-                                void* stream) {
+// bare ice, 10 with snow, each n long) on `stream`.  `ints`: layered, n,
+// prescribed top temperature, secant iterations, dt is a number, hc > 0, Tb
+// is an array; `consts` and `ptrs` are host arrays of the constants and
+// device pointers.  Returns 0, a CUDA error, or −1 for arguments it cannot
+// take.
+template <class Top, class Bottom, class Snow>
+int launch(const int* ints, int n_ints, const float* consts, int n_k, const void* const* ptrs,
+           int n_p, float* out, void* stream) {
   Args A{};
-  if (n_ints < 7 || n_k > MAX_K || n_p > MAX_PTRS) return -1;
+  if (n_ints != 7 || n_k > MAX_K || n_p > MAX_PTRS) return -1;
   A.layered = ints[0];
   A.n = ints[1];
   A.prescribed = ints[2];
@@ -245,18 +266,11 @@ extern "C" int csi_thermo_fixed(const int* ints, int n_ints, const float* consts
   A.dt_number = ints[4];
   A.hc_pos = ints[5];
   A.tb_array = ints[6];
-  int at = 7;
-  if (csi_prog::read_prog(ints, n_ints, at, A.top) ||
-      csi_prog::read_prog(ints, n_ints, at, A.bottom) ||
-      csi_prog::read_prog(ints, n_ints, at, A.snow))
-    return -1;
   for (int q = 0; q < n_k; ++q) A.k[q] = consts[q];
   for (int q = 0; q < n_p; ++q) A.p[q] = static_cast<const float*>(ptrs[q]);
-  thermo_column<<<(A.n + BLOCK - 1) / BLOCK, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, out);
+  thermo_column<Top, Bottom, Snow>
+      <<<(A.n + BLOCK - 1) / BLOCK, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(A, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* csi_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+}  // namespace csi_thermo

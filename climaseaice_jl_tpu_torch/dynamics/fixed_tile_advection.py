@@ -8,13 +8,18 @@ kernel (``_adv_kernel``) runs the flux-form reconstruction of
 with wrap into the interior along a periodic direction and clamp at the
 padded edge along a bounded one; every output reads its stencil within the
 overlap, so a point's neighbour at offset k is the gathered image of its
-padded index + k.  Both versions here read those images directly: the
-kernel (``csrc/advection_fixed.cu``, one launch per tracer, one thread per
-padded point) and the plain version, which gathers the images into arrays
-extended by 8 points on each side and runs the general path's
-reconstructions on them.  On one rank's shard of the distributed step a
-direction split across ranks does not wrap (`pallas_advection.py:217-218`):
-its halos hold the neighbouring ranks' values, and the images clamp.
+padded index + k.  Both versions here take those images: the kernel
+(``csrc/advection_fixed.cu``, one launch per tracer) and the plain version,
+which gathers the images into arrays extended by 8 points on each side and
+runs the general path's reconstructions on them.  The kernel has two
+entries, chosen by :func:`kernel_for`: the tile kernel, compiled for each
+scheme of :data:`TILE_SCHEMES` used in both directions, which loads a tile of
+c widened by the stencil radius into shared memory and computes each face
+once; and the runtime-scheme kernel, one thread per padded point, for a
+FluxFormAdvection whose x and y schemes differ.  On one rank's shard of the
+distributed step a direction split across ranks does not wrap
+(`pallas_advection.py:217-218`): its halos hold the neighbouring ranks'
+values, and the images clamp.
 
 Schemes: WENO 5/7/9, UpwindBiased 1/3/5/7, Centered 2/4, and
 FluxFormAdvection with separate x and y schemes.  Fluxes through peripheral
@@ -47,8 +52,14 @@ from .fused_evp import KernelCounter, cuda_error_string
 _WX = 8    # overlap of the TPU kernel's x tiles (≥ the widest stencil radius 5)
 _EXT = 8   # points by which the plain version extends its image arrays
 _KINDS = {Centered: 0, UpwindBiased: 1, WENO: 2}
+# the schemes the tile kernel is compiled for, each in both directions
+# (csrc/advection_fixed.cu's CSI_TILE_SCHEMES)
+TILE_SCHEMES = ((WENO, 5), (WENO, 7), (WENO, 9), (UpwindBiased, 1), (UpwindBiased, 3),
+                (UpwindBiased, 5), (UpwindBiased, 7), (Centered, 2), (Centered, 4))
+TILE_ENTRY, RUNTIME_ENTRY = "csi_fixed_tile_div_tiles", "csi_fixed_tile_div"
 
-fixed_tile_advection_counter = KernelCounter()
+fixed_tile_advection_counter = KernelCounter()        # both entries
+fixed_tile_advection_runtime_counter = KernelCounter()  # the runtime-scheme entry's
 
 
 def _schemes(adv):
@@ -149,30 +160,48 @@ def fixed_tile_div_reference(grid, schemes, u, v, c, masks, metrics):
 
 # --- the kernel's wrapper -------------------------------------------------------
 
+def kernel_for(sx, sy):
+    """The C entry that computes ∇·(U c) with x scheme ``sx`` and y scheme
+    ``sy``: the tile kernel where both are the same scheme of
+    :data:`TILE_SCHEMES`, else the runtime-scheme kernel."""
+    for s in (sx, sy):
+        _check_scheme(s)
+    same = (type(sx), sx.order) == (type(sy), sy.order)
+    return TILE_ENTRY if same and (type(sx), sx.order) in TILE_SCHEMES else RUNTIME_ENTRY
+
+
 _tables: dict = {}
 
 
 def _scheme_table(scheme, device):
-    """(kind, order, float32 table) of a scheme for the kernel: WENO's
-    ε, C[r][r], G[r] and B[r][r][r], each rounded to float32 as the plain
-    version's Python floats are where they meet a float32 tensor."""
+    """(kind, order, float32 table on ``device``, the same table as a host
+    array) of a scheme for the kernel: WENO's ε, C[r][r], G[r] and
+    B[r][r][r], each rounded to float32 as the plain version's Python
+    floats are where they meet a float32 tensor.  The tile kernel adds every
+    smoothness term, so a table with a zero B coefficient (a term the plain
+    version skips) is refused."""
     _check_scheme(scheme)
     key = (type(scheme), scheme.order, getattr(scheme, "epsilon", None), str(device))
     if key not in _tables:
         values = [0.0]
         if isinstance(scheme, WENO):
             C, G, B = _weno_tables_cached((scheme.order + 1) // 2)
+            if any(x == 0.0 for Bk in B for row in Bk for x in row):
+                raise ValueError(f"WENO({scheme.order}) has a zero smoothness coefficient")
             values = ([scheme.epsilon] + [x for row in C for x in row] + list(G)
                       + [x for Bk in B for row in Bk for x in row])
-        _tables[key] = (_KINDS[type(scheme)], scheme.order,
-                        torch.tensor(values, dtype=torch.float32, device=device))
+        table = torch.tensor(values, dtype=torch.float32)
+        _tables[key] = (_KINDS[type(scheme)], scheme.order, table.to(device),
+                        (ctypes.c_float * len(values))(*table.tolist()))
     return _tables[key]
 
 
-def _div_entry():
-    fn = _build.load("advection_fixed").csi_fixed_tile_div
+def _div_entry(name):
+    fn = getattr(_build.load("advection_fixed"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        tables = ([ctypes.c_void_p, ctypes.c_int] * 2 if name == TILE_ENTRY
+                  else [ctypes.c_void_p] * 2)
+        fn.argtypes = ([ctypes.c_void_p] * 10 + tables + [ctypes.c_int] * 4 + [ctypes.c_void_p]
                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -181,7 +210,8 @@ def _div_entry():
 def fixed_tile_div(grid, schemes, u, v, c, masks, metrics):
     """∇·(U c) of tracer ``c`` on ``grid``'s padded shape (arguments as
     :func:`fixed_tile_div_reference` takes them).  CUDA tensors go to the
-    kernel, one launch; CPU tensors to the plain version."""
+    kernel that :func:`kernel_for` names, one launch; CPU tensors to the
+    plain version."""
     device = c.device
     if device.type == "cpu":
         return fixed_tile_div_reference(grid, schemes, u, v, c, masks, metrics)
@@ -194,28 +224,37 @@ def fixed_tile_div(grid, schemes, u, v, c, masks, metrics):
                 or not q.is_contiguous()):
             raise ValueError(f"advection arrays must be contiguous float32 {grid.shape} "
                              f"tensors on {device}")
+    if not arr and any(m.device != device or m.dtype != torch.float32 or m.dim() != 0
+                       for m in metrics):
+        raise ValueError(f"1/Δx and 1/Δy must be 0-d float32 tensors on {device}")
     for m in masks:
         if m.device != device or m.dtype != torch.bool or tuple(m.shape) != grid.shape \
                 or not m.is_contiguous():
             raise ValueError(f"advection masks must be contiguous bool {grid.shape} tensors")
-    (kx, ox, tx), (ky, oy, ty) = (_scheme_table(s, device) for s in schemes)
-    prm = torch.zeros(2, dtype=torch.float32, device=device) if arr \
-        else torch.stack(list(metrics)).contiguous()
+    entry = kernel_for(*schemes)
+    (kx, ox, tx, hx), (ky, oy, ty, hy) = (_scheme_table(s, device) for s in schemes)
     out = torch.empty(grid.shape, dtype=torch.float32, device=device)
     ptrs = [u.data_ptr(), v.data_ptr(), c.data_ptr(), masks[0].data_ptr(),
             masks[1].data_ptr()]
-    ptrs += [m.data_ptr() for m in metrics] if arr else [None] * 3
-    ptrs += [prm.data_ptr(), tx.data_ptr(), ty.data_ptr()]
-    fn = _div_entry()
+    ptrs += ([m.data_ptr() for m in metrics] + [None] * 2 if arr
+             else [None] * 3 + [m.data_ptr() for m in metrics])
+    if entry == TILE_ENTRY:
+        tables = [ctypes.addressof(hx), len(hx), ctypes.addressof(hy), len(hy)]
+    else:
+        tables = [tx.data_ptr(), ty.data_ptr()]
+    fn = _div_entry(entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, kx, ox, ky, oy, out.data_ptr(), grid.nxp, grid.nyp, grid.Hx, grid.Nx,
-                 grid.Hy, grid.Ny, int(_wraps(grid, 0)), int(_wraps(grid, 1)), stream)
+        err = fn(*ptrs, *tables, kx, ox, ky, oy, out.data_ptr(), grid.nxp, grid.nyp, grid.Hx,
+                 grid.Nx, grid.Hy, grid.Ny, int(_wraps(grid, 0)), int(_wraps(grid, 1)), stream)
     if err != 0:
         raise RuntimeError(f"fixed-tile advection kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('advection_fixed', err)})")
     fixed_tile_advection_counter.calls += 1
     fixed_tile_advection_counter.launches += 1
+    if entry == RUNTIME_ENTRY:
+        fixed_tile_advection_runtime_counter.calls += 1
+        fixed_tile_advection_runtime_counter.launches += 1
     return out
 
 

@@ -3,8 +3,9 @@ decomposition-invariant mode as one CUDA kernel.
 
 Counterpart of `climaseaice_jl_tpu/thermodynamics/pallas_thermo.py`
 together with `dynamics/pallas_pointwise.py:fixed_tile_pointwise_multi`,
-which re-trace the whole column step on pinned tiles.  Here
-``csrc/thermo_fixed.cu`` computes at every padded point, in one launch per
+which re-trace the whole column step on pinned tiles.  Here one CUDA
+kernel (``csrc/thermo_column.cuh``, instantiated by a unit generated for the
+model's flux programs) computes at every padded point, in one launch per
 call, what :func:`.slab.bare_ice_thermodynamic_step` or
 :func:`.slab.layered_thermodynamic_step` computes: the surface temperature
 from the fixed-iteration secant (with its freeze where the flux difference
@@ -30,6 +31,15 @@ joins the flux programs and is evaluated at every secant iterate, as
 emission is.  A callable outside the op set raises NotImplementedError on
 either device.
 
+The programs are compiled, not interpreted: :mod:`..dynamics.fixed_tile_codegen`
+writes them as straight-line code, the values that do not depend on the
+surface temperature computed once per point, into a unit that ``_build``
+compiles and names by a hash of its text.  Everything a call does not
+change is made at the model's first call on the card and kept with the model
+(:class:`_Plan`): the programs, the unit and its C entry, the constants, the
+float32 grid planes and Tb.  A call then passes the state's pointers, dt,
+and the clock's time and series values at it.
+
 The configuration's numbers enter as the plain version forms them: a
 product of two Python numbers (ρs·ℒ₀, ρi·ℒ₀, ε·σ, 1 − ρi/ρw, the latent
 heat's slope) in double precision, rounded to float32 where it meets a
@@ -45,9 +55,10 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..dynamics.fused_evp import KernelCounter, cuda_error_string
+from ..dynamics.fused_evp import KernelCounter
+from ..dynamics.fixed_tile_codegen import unit_source
 from ..dynamics.fixed_tile_pointwise import (OP_CONST, OP_ARRAY, OP_SCALAR, OP_EMISSION, OP_ADD,
-                                             OP_TEMP, MAX_REGS, PLACEHOLDER_SHAPE, record)
+                                             OP_TEMP, PLACEHOLDER_SHAPE, record)
 from .heat_bcs import (FluxFunction, RadiativeEmission, PrescribedTemperature,
                        MeltingConstrainedFluxBalance, IceWaterThermalEquilibrium,
                        bottom_temperature, _as_grid_value)
@@ -58,12 +69,12 @@ BARE_OUTPUTS = ("h", "a", "Tu", "mf_ice", "mf_snow", "mf_snowfall", "Qtop", "Qbo
 LAYERED_OUTPUTS = ("h", "a", "hs", "Tu", "Tus", "mf_ice", "mf_snow", "mf_snowfall",
                    "Qtop", "Qbot")
 
-# the kernel's constants, in csrc/thermo_fixed.cu's order (enum K)
+# the kernel's constants, in csrc/thermo_column.cuh's order (enum K)
 _K_NAMES = ("hc", "rho_i", "neg_k_ice", "T0", "slope", "L0", "kL", "Tref", "k_snow",
             "k_ice", "rho_s", "rho_s_L0", "rho_i_L0", "flood", "rho_w")
 # pointer slots before the flux programs' own (enum P)
 _P_NAMES = ("h", "a", "hs", "S", "Tu", "Tus", "dt", "Tb")
-_MAX_OPS, _MAX_K, _MAX_PTRS = 48, 64, 32   # csrc/thermo_fixed.cu's limits
+_MAX_K, _MAX_PTRS = 64, 32   # csrc/thermo_column.cuh's limits
 
 fixed_tile_thermo_counter = KernelCounter()
 
@@ -221,33 +232,57 @@ def thermo_column_reference(model, state, dt):
 # --- the kernel's wrapper -------------------------------------------------------
 
 class _Program:
-    """The kernel's arguments: integer header and flux programs, float32
-    constants and device pointers."""
+    """The kernel's arguments as a model's flux programs bind them: the
+    programs' (op, a, b) triples, float32 constants, and the tensors behind
+    the device pointers: those fixed for the model (the cast grid planes, Tb,
+    flux arrays) in ``tensors``, those made anew every call in ``per_call``
+    (pointer index → a function of the clock giving the tensor: the clock's
+    time, each series value at it).  The state fields and dt take the
+    pointer slots of ``_P_NAMES``."""
 
-    def __init__(self, model):
-        self.model = model
+    def __init__(self, model, clock):
+        self.grid = model.grid
+        self.clock = clock
+        self.present = _present(model)
         self.k = [0.0] * len(_K_NAMES)
-        self.ptrs = [None] * len(_P_NAMES)
-        self.keep = []          # tensors whose pointers the launch uses
-        self.n_regs = 0         # registers of the recorded fluxes
+        self.tensors = [None] * len(_P_NAMES)
+        self.per_call = {}
 
     def const(self, value):
         self.k.append(float(value))
         return len(self.k) - 1
 
     def pointer(self, tensor):
-        self.keep.append(tensor)
-        self.ptrs.append(tensor.data_ptr())
-        return len(self.ptrs) - 1
+        self.tensors.append(tensor)
+        return len(self.tensors) - 1
 
-    def flux(self, spec, grid, clock):
+    def call_value(self, fn, kind=None):
+        """An operation reading ``fn(clock)``, a 0-d value or a grid array
+        made anew every call (its kind, unless ``kind`` is given, from this
+        clock's value)."""
+        grid = self.grid
+
+        def make(clock):
+            return _as_grid_value(fn(clock), grid).to(torch.float32).contiguous()
+
+        t = make(self.clock)
+        if kind is None:
+            if t.dim() and tuple(t.shape) != grid.shape:
+                raise NotImplementedError(f"a flux array of shape {tuple(t.shape)} on a grid "
+                                          f"of {grid.shape}")
+            kind = OP_SCALAR if t.dim() == 0 else OP_ARRAY
+        self.tensors.append(None)
+        self.per_call[len(self.tensors) - 1] = make
+        return (kind, len(self.tensors) - 1, 0)
+
+    def flux(self, spec):
         """Postfix operations of a flux specification: (op, a, b) triples."""
         if spec is None:
             return [(OP_CONST, self.const(0.0), 0)]
         if isinstance(spec, tuple):        # 0 + f₁ + f₂ + … in order
             ops = [(OP_CONST, self.const(0.0), 0)]
             for s in spec:
-                ops += self.flux(s, grid, clock) + [(OP_ADD, 0, 0)]
+                ops += self.flux(s) + [(OP_ADD, 0, 0)]
             return ops
         if isinstance(spec, RadiativeEmission):
             c1 = (_number(spec.emissivity, "an emissivity")
@@ -255,15 +290,16 @@ class _Program:
             Tr = _number(spec.reference_temperature, "a reference temperature")
             return [(OP_EMISSION, self.const(c1), self.const(Tr))]
         if hasattr(spec, "at_time"):
-            return [self.value(spec.at_time(clock.time), grid)]
+            return [self.call_value(lambda clock: spec.at_time(clock.time))]
         if _recorded(spec):
-            return self.recorded(spec, grid, clock)
-        return [self.value(spec, grid)]
+            return self.recorded(spec)
+        return [self.value(spec)]
 
-    def recorded(self, spec, grid, clock):
-        """A recorded flux's operations, its inputs bound to this call's
-        state, grid planes, clock time and series values."""
-        rec = flux_recording(spec, grid, _present(self.model))
+    def recorded(self, spec):
+        """A recorded flux's operations, its inputs bound to the state, the
+        grid planes, the clock's time and the series values at it."""
+        grid = self.grid
+        rec = flux_recording(spec, grid, self.present)
 
         def slot(s):
             kind = s[0]
@@ -274,18 +310,15 @@ class _Program:
             if kind == "grid":
                 plane = getattr(grid, s[1]).to(torch.float32).broadcast_to(grid.shape)
                 return (OP_ARRAY, self.pointer(plane.contiguous()))
-            t = clock.time if kind == "time" else s[1].at_time(clock.time)
-            return (OP_SCALAR, self.pointer(t.to(torch.float32).contiguous()))
+            if kind == "time":
+                return self.call_value(lambda clock: clock.time, OP_SCALAR)[:2]
+            return self.call_value(lambda clock: s[1].at_time(clock.time), OP_SCALAR)[:2]
 
-        ops = rec.bind(self.const, slot, self.pointer, reg_base=self.n_regs)
-        self.n_regs += rec.n_regs
-        if self.n_regs > MAX_REGS:
-            raise NotImplementedError(f"flux callables needing more than {MAX_REGS} registers "
-                                      "in all")
-        return ops
+        return rec.bind(self.const, slot, self.pointer)
 
-    def value(self, x, grid):
+    def value(self, x):
         """One operation pushing a number, a 0-d tensor or an array."""
+        grid = self.grid
         if not isinstance(x, torch.Tensor) and not hasattr(x, "shape"):
             return (OP_CONST, self.const(_number(x, "a flux value")), 0)
         t = _as_grid_value(x, grid)
@@ -294,115 +327,157 @@ class _Program:
         if tuple(t.shape) != grid.shape:
             raise NotImplementedError(f"a flux array of shape {tuple(t.shape)} on a grid of "
                                       f"{grid.shape}")
-        return (OP_ARRAY, self.pointer(t.contiguous()), 0)
+        return (OP_ARRAY, self.pointer(t.to(torch.float32).contiguous()), 0)
 
 
-def _program(model, state, dt):
-    grid = model.grid
-    pt = model.phase_transitions
-    ice, snow = model.ice_thermodynamics, model.snow_thermodynamics
-    layered = snow is not None
-    prog = _Program(model)
-    L0 = _number(pt.reference_latent_heat, "the latent heat")
-    rho_i = _number(model.sea_ice_density, "the ice density")
-    values = dict(
-        hc=_number(model.ice_consolidation_thickness, "the consolidation thickness"),
-        rho_i=rho_i,
-        neg_k_ice=-_number(ice.internal_heat_flux.conductivity, "a conductivity"),
-        T0=_number(pt.liquidus.freshwater_melting_temperature, "the melting temperature"),
-        slope=_number(pt.liquidus.slope, "the liquidus slope"),
-        L0=L0,
-        kL=(_number(pt.liquid_density, "the water density")
-            * _number(pt.liquid_heat_capacity, "a heat capacity")
-            / _number(pt.density, "the ice density") - _number(pt.heat_capacity,
-                                                                "a heat capacity")),
-        Tref=_number(pt.reference_temperature, "the reference temperature"),
-        k_ice=_number(ice.internal_heat_flux.conductivity, "a conductivity"))
-    if layered:
-        rho_s = _number(model.snow_density, "the snow density")
-        rho_w = _number(pt.liquid_density, "the water density")
-        values.update(k_snow=_number(snow.internal_heat_flux.conductivity, "a conductivity"),
-                      rho_s=rho_s, rho_s_L0=rho_s * L0, rho_i_L0=rho_i * L0,
-                      flood=1 - rho_i / rho_w, rho_w=rho_w)
-    for name, v in values.items():
-        prog.k[_K_NAMES.index(name)] = v
+class _Plan:
+    """What every call of the column kernel on one model shares: the flux
+    programs and their generated unit (:mod:`..dynamics.fixed_tile_codegen`),
+    its C entry (loaded at the first launch), the constants, the pointers
+    fixed for the model and how to make the others.  Made at the model's
+    first call, from that call's clock (which fixes whether a series value
+    is 0-d or an array)."""
 
-    f32 = torch.float32
-    fields = {"h": state.h, "a": state.a, "hs": state.hs if layered else state.h,
-              "S": state.S, "Tu": state.Tu, "Tus": state.Tus if layered else state.Tu}
-    for name, q in fields.items():
-        if q.dtype != f32 or tuple(q.shape) != grid.shape:
-            raise ValueError(f"{name} must be a float32 {grid.shape} tensor")
-        q = q.contiguous()
-        prog.keep.append(q)
-        prog.ptrs[_P_NAMES.index(name)] = q.data_ptr()
-    dt_number = not isinstance(dt, torch.Tensor)
-    dt_t = grid.scalar(dt) if dt_number else dt.to(f32).contiguous()
-    if dt_t.dim() != 0:
-        raise ValueError("dt must be a number or a 0-d tensor")
-    Tb = bottom_temperature(ice.bottom_heat_bc, grid, pt.liquidus, None)
-    Tb = Tb.to(f32).broadcast_to(grid.shape).contiguous() if Tb.dim() else Tb.to(f32)
-    for name, t in (("dt", dt_t), ("Tb", Tb)):
-        prog.keep.append(t)
-        prog.ptrs[_P_NAMES.index(name)] = t.data_ptr()
+    def __init__(self, model, clock):
+        check_fixed_tile_thermo(model)
+        grid = model.grid
+        pt = model.phase_transitions
+        ice, snow = model.ice_thermodynamics, model.snow_thermodynamics
+        self.layered = snow is not None
+        self.shape = grid.shape
+        prog = _Program(model, clock)
+        L0 = _number(pt.reference_latent_heat, "the latent heat")
+        rho_i = _number(model.sea_ice_density, "the ice density")
+        values = dict(
+            hc=_number(model.ice_consolidation_thickness, "the consolidation thickness"),
+            rho_i=rho_i,
+            neg_k_ice=-_number(ice.internal_heat_flux.conductivity, "a conductivity"),
+            T0=_number(pt.liquidus.freshwater_melting_temperature, "the melting temperature"),
+            slope=_number(pt.liquidus.slope, "the liquidus slope"),
+            L0=L0,
+            kL=(_number(pt.liquid_density, "the water density")
+                * _number(pt.liquid_heat_capacity, "a heat capacity")
+                / _number(pt.density, "the ice density") - _number(pt.heat_capacity,
+                                                                    "a heat capacity")),
+            Tref=_number(pt.reference_temperature, "the reference temperature"),
+            k_ice=_number(ice.internal_heat_flux.conductivity, "a conductivity"))
+        if self.layered:
+            rho_s = _number(model.snow_density, "the snow density")
+            rho_w = _number(pt.liquid_density, "the water density")
+            values.update(k_snow=_number(snow.internal_heat_flux.conductivity,
+                                         "a conductivity"),
+                          rho_s=rho_s, rho_s_L0=rho_s * L0, rho_i_L0=rho_i * L0,
+                          flood=1 - rho_i / rho_w, rho_w=rho_w)
+        for name, v in values.items():
+            prog.k[_K_NAMES.index(name)] = v
+        Tb = bottom_temperature(ice.bottom_heat_bc, grid, pt.liquidus, None)
+        Tb = Tb.to(torch.float32).broadcast_to(grid.shape).contiguous() if Tb.dim() \
+            else Tb.to(torch.float32)
+        prog.tensors[_P_NAMES.index("Tb")] = Tb
 
-    top_bc = (snow if layered else ice).top_heat_bc
-    prescribed = isinstance(top_bc, PrescribedTemperature)
-    sf = model.snowfall
-    programs = [prog.flux(model.top_heat_flux, grid, state.clock),
-                prog.flux(model.bottom_heat_flux, grid, state.clock),
-                [prog.value(sf.at_time(state.clock.time), grid) if hasattr(sf, "at_time")
-                 else prog.value(0.0 if sf is None else sf, grid)]]
-    ints = [int(layered), grid.nxp * grid.nyp, int(prescribed),
-            0 if prescribed else int(top_bc.iterations), int(dt_number),
-            int(values["hc"] > 0), int(Tb.dim() == 2)]
-    for ops in programs:
-        if len(ops) > _MAX_OPS:
-            raise NotImplementedError(f"a flux of more than {_MAX_OPS} terms")
-        ints.append(len(ops))
-        for op in ops:
-            ints.extend(op)
-    if len(prog.k) > _MAX_K or len(prog.ptrs) > _MAX_PTRS:
-        raise NotImplementedError("too many flux terms for the fixed-tile thermodynamics "
-                                  "kernel")
-    return ints, prog
+        top_bc = (snow if self.layered else ice).top_heat_bc
+        prescribed = isinstance(top_bc, PrescribedTemperature)
+        sf = model.snowfall
+        self.programs = (prog.flux(model.top_heat_flux), prog.flux(model.bottom_heat_flux),
+                         [prog.call_value(lambda clock: sf.at_time(clock.time))
+                          if hasattr(sf, "at_time") else prog.value(0.0 if sf is None else sf)])
+        if len(prog.k) > _MAX_K or len(prog.tensors) > _MAX_PTRS:
+            raise NotImplementedError("too many flux terms for the fixed-tile thermodynamics "
+                                      "kernel")
+        # ints but dt_number, which each call sets: layered, n, prescribed,
+        # iterations, dt is a number, hc > 0, Tb is an array
+        self.ints = [int(self.layered), grid.nxp * grid.nyp, int(prescribed),
+                     0 if prescribed else int(top_bc.iterations), 0, int(values["hc"] > 0),
+                     int(Tb.dim() == 2)]
+        self.k = prog.k
+        self.k_arr = (ctypes.c_float * len(prog.k))(*prog.k)
+        self.tensors, self.per_call = prog.tensors, prog.per_call
+        self.text = unit_source(self.programs)
+        self.name = _build.generated_name("thermo_unit", self.text)
+        self.scalar = grid.scalar
+        self.dts = {}           # dt numbers → their 0-d tensors
+        self.entry = None
+
+    def dt_tensor(self, dt):
+        if not isinstance(dt, torch.Tensor):
+            if dt not in self.dts:
+                if len(self.dts) >= 8:
+                    self.dts.clear()
+                self.dts[dt] = self.scalar(dt)
+            return self.dts[dt]
+        dt = dt.to(torch.float32).contiguous()
+        if dt.dim() != 0:
+            raise ValueError("dt must be a number or a 0-d tensor")
+        return dt
+
+    def inputs(self, state, dt):
+        """The tensors behind the kernel's pointers for a call on ``state``
+        with time step ``dt``, by pointer index."""
+        tensors = list(self.tensors)
+        fields = {"h": state.h, "a": state.a, "hs": state.hs if self.layered else state.h,
+                  "S": state.S, "Tu": state.Tu, "Tus": state.Tus if self.layered else state.Tu}
+        for name, q in fields.items():
+            if q.dtype != torch.float32 or tuple(q.shape) != self.shape:
+                raise ValueError(f"{name} must be a float32 {self.shape} tensor")
+            tensors[_P_NAMES.index(name)] = q.contiguous()
+        tensors[_P_NAMES.index("dt")] = self.dt_tensor(dt)
+        for i, make in self.per_call.items():
+            tensors[i] = make(state.clock)
+        return tensors
+
+    def launch(self, state, dt):
+        if self.entry is None:
+            lib = _build.load(self.name, self.text)
+            fn = lib.csi_thermo_unit
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = lib.csi_cuda_error_string
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+            self.entry = (fn, err)
+        tensors = self.inputs(state, dt)
+        ints = list(self.ints)
+        ints[4] = int(not isinstance(dt, torch.Tensor))
+        device = state.h.device
+        out = torch.empty((10 if self.layered else 8,) + self.shape, dtype=torch.float32,
+                          device=device)
+        i_arr = (ctypes.c_int * len(ints))(*ints)
+        p_arr = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+        fn, err_string = self.entry
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(ctypes.addressof(i_arr), len(ints), ctypes.addressof(self.k_arr),
+                     len(self.k), ctypes.addressof(p_arr), len(tensors), out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"fixed-tile thermodynamics kernel launch failed: CUDA error "
+                               f"{err} ({err_string(err).decode()})")
+        return out
 
 
-def _thermo_entry():
-    fn = _build.load("thermo_fixed").csi_thermo_fixed
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_plans = weakref.WeakKeyDictionary()
+
+
+def plan(model, clock):
+    """``model``'s :class:`_Plan`, made with ``clock`` at its first call;
+    ``plan(...).name`` and ``.text`` are its generated unit's."""
+    if model not in _plans:
+        _plans[model] = _Plan(model, clock)
+    return _plans[model]
 
 
 def thermo_column(model, state, dt):
     """The column step's outputs by name.  CUDA tensors go to the kernel
     (one launch), CPU tensors to :func:`thermo_column_reference`."""
-    check_fixed_tile_thermo(model)
     device = state.h.device
     if device.type == "cpu":
+        check_fixed_tile_thermo(model)
         return thermo_column_reference(model, state, dt)
     if device.type != "cuda":
         raise ValueError(f"no thermodynamics kernel for device {device}")
-    grid = model.grid
-    names = LAYERED_OUTPUTS if model.snow_thermodynamics is not None else BARE_OUTPUTS
-    ints, prog = _program(model, state, dt)
-    out = torch.empty((len(names),) + grid.shape, dtype=torch.float32, device=device)
-    i_arr = (ctypes.c_int * len(ints))(*ints)
-    k_arr = (ctypes.c_float * len(prog.k))(*prog.k)
-    p_arr = (ctypes.c_void_p * len(prog.ptrs))(*prog.ptrs)
-    fn = _thermo_entry()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.addressof(i_arr), len(ints), ctypes.addressof(k_arr), len(prog.k),
-                 ctypes.addressof(p_arr), len(prog.ptrs), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fixed-tile thermodynamics kernel launch failed: CUDA error "
-                           f"{err} ({cuda_error_string('thermo_fixed', err)})")
+    out = plan(model, state.clock).launch(state, dt)
     fixed_tile_thermo_counter.calls += 1
     fixed_tile_thermo_counter.launches += 1
+    names = LAYERED_OUTPUTS if model.snow_thermodynamics is not None else BARE_OUTPUTS
     return dict(zip(names, out.unbind(0)))
 
 

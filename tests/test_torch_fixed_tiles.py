@@ -432,6 +432,135 @@ def test_advection_matches_jax_array_metrics(schemes):
     _check_div(mj, mt, sj, out, "h")
 
 
+# 2.9's tile kernel (csrc/advection_fixed.cu): TX rows and TY columns a tile
+KERNEL_TILE_29 = (16, 32)
+_RADIUS = {(tadv.WENO, 5): 3, (tadv.WENO, 7): 4, (tadv.WENO, 9): 5, (tadv.UpwindBiased, 1): 1,
+           (tadv.UpwindBiased, 3): 2, (tadv.UpwindBiased, 5): 3, (tadv.UpwindBiased, 7): 4,
+           (tadv.Centered, 2): 1, (tadv.Centered, 4): 2}   # a face reads c(I + k), −R ≤ k < R
+
+
+def _tile_schedule(grid, schemes, u, v, c, masks, metrics, widen=0):
+    """2.9's tile kernel emulated with the plain version's operations: per
+    TX × TY tile, c gathered at the images of the tile widened by each
+    scheme's radius (+ ``widen``) and everything beyond set to NaN, the
+    plain reconstructions at the tile's (TX+1)×TY x faces and TX×(TY+1) y
+    faces, the upwind select, the products with the metrics and the masks
+    at each face's images, and each point's divergence from its faces."""
+    from climaseaice_jl_tpu_torch.advection import reconstruct_face, _upwind_select
+    TX, TY = KERNEL_TILE_29
+    sx, sy = schemes
+    RX = _RADIUS[type(sx), sx.order] + widen
+    RY = _RADIUS[type(sy), sy.order] + widen
+    PAD = 6                        # NaN beyond the widened tile, wider than any stencil
+    wx, wy = tadv._wraps(grid, 0), tadv._wraps(grid, 1)
+
+    def ex(a, b):                  # images of padded rows a … b − 1 (the kernel's image())
+        k = torch.arange(a, b)
+        return grid.Hx + torch.remainder(k - grid.Hx, grid.Nx) if wx else k.clamp(0, grid.nxp - 1)
+
+    def ey(a, b):
+        k = torch.arange(a, b)
+        return grid.Hy + torch.remainder(k - grid.Hy, grid.Ny) if wy else k.clamp(0, grid.nyp - 1)
+
+    arr = len(metrics) == 3
+    out = torch.full(grid.shape, float("nan"))
+    for i0 in range(0, grid.nxp, TX):
+        for j0 in range(0, grid.nyp, TY):
+            rows, cols = ex(i0 - RX, i0 + TX + RX), ey(j0 - RY, j0 + TY + RY)
+            block = torch.full((TX + 2 * RX + 2 * PAD, TY + 2 * RY + 2 * PAD), float("nan"))
+            block[PAD:-PAD, PAD:-PAD] = c[rows][:, cols]
+            fr, fc = ex(i0, i0 + TX + 1), ey(j0, j0 + TY)                  # x faces
+            lx, rx = (q[PAD + RX:PAD + RX + TX + 1, PAD + RY:PAD + RY + TY]
+                      for q in reconstruct_face(sx, block, 0))
+            ug = u[fr][:, fc]
+            cx = _upwind_select(ug, lx, rx)
+            fx = metrics[0][fr][:, fc] * ug * cx if arr else ug * cx
+            fx = torch.where(masks[0][fr][:, fc], 0.0, fx)
+            gr, gc = ex(i0, i0 + TX), ey(j0, j0 + TY + 1)                  # y faces
+            ly, ry = (q[PAD + RX:PAD + RX + TX, PAD + RY:PAD + RY + TY + 1]
+                      for q in reconstruct_face(sy, block, 1))
+            vg = v[gr][:, gc]
+            cy = _upwind_select(vg, ly, ry)
+            fy = metrics[1][gr][:, gc] * vg * cy if arr else vg * cy
+            fy = torch.where(masks[1][gr][:, gc], 0.0, fy)
+            dfx, dfy = fx[1:] - fx[:-1], fy[:, 1:] - fy[:, :-1]
+            pr, pc = ex(i0, i0 + TX), ey(j0, j0 + TY)
+            div = ((dfx + dfy) / metrics[2][pr][:, pc] if arr
+                   else dfx * metrics[0] + dfy * metrics[1])
+            ni, nj = min(TX, grid.nxp - i0), min(TY, grid.nyp - j0)
+            out[i0:i0 + ni, j0:j0 + nj] = div[:ni, :nj]
+    return out
+
+
+def _tile_case(direction):
+    """The slice's advection inputs with x wrapped (periodic-x), or on shard
+    (1, 1) of a (2, 2) mesh of the periodic slice, where no direction wraps
+    (split), with its masks and uniform metrics."""
+    from test_torch_immersed import _shard_model
+    if direction == "wrapped":
+        m = _model(cst, topology=("periodic", "bounded"), device="cpu")
+        s = _initial(cst, m)
+    else:
+        m = _model(cst, topology=("periodic", "periodic"), halo=13, device="cpu")
+        m, s = _shard_model(m, _initial(cst, m), (1, 1), 13)
+    g = m.grid
+    assert tadv._wraps(g, 0) == (direction == "wrapped") and not tadv._wraps(g, 1)
+    metrics = (1.0 / g.scalar(g.dx_cc), 1.0 / g.scalar(g.dy_cc))
+    return g, s.u, s.v, s.h, (m.masks.per_fc, m.masks.per_cf), metrics
+
+
+@pytest.mark.parametrize("scheme", ["weno7", "upwind5", "centered4"])
+@pytest.mark.parametrize("direction", ["wrapped", "split"])
+def test_tile_schedule_matches_plain_version(scheme, direction):
+    """2.9's tile schedule, emulated on the CPU with the plain operations
+    and NaN beyond each tile's widened region, equals
+    fixed_tile_div_reference bitwise over the whole padded arrays."""
+    sch = {"weno7": tadv.WENO(order=7), "upwind5": tadv.UpwindBiased(order=5),
+           "centered4": tadv.Centered(order=4)}[scheme]
+    g, u, v, h, masks, metrics = _tile_case(direction)
+    ref = tadv.fixed_tile_div_reference(g, (sch, sch), u, v, h, masks, metrics)
+    out = _tile_schedule(g, (sch, sch), u, v, h, masks, metrics)
+    assert torch.equal(ref.view(torch.int32), out.view(torch.int32))
+
+
+@pytest.mark.parametrize("direction", ["wrapped", "split"])
+def test_tile_schedule_needs_its_widening(direction):
+    """One point short of the stencil radius, the emulated schedule reads
+    NaN at the tiles' edge faces."""
+    sch = tadv.WENO(order=7)
+    g, u, v, h, masks, metrics = _tile_case(direction)
+    ref = tadv.fixed_tile_div_reference(g, (sch, sch), u, v, h, masks, metrics)
+    out = _tile_schedule(g, (sch, sch), u, v, h, masks, metrics, widen=-1)
+    assert not torch.equal(ref.view(torch.int32), out.view(torch.int32))
+    assert torch.isnan(out).any()
+
+
+def test_advection_dispatch_names_a_kernel_for_every_scheme_pair():
+    """Every pair of schemes the fixed-tile advection takes has a C entry
+    of csrc/advection_fixed.cu: the tile kernel where x and y use the same
+    scheme, compiled for exactly TILE_SCHEMES, else the runtime-scheme
+    kernel; the tile kernel's WENO tables have no zero smoothness
+    coefficient."""
+    import re
+    from pathlib import Path
+    src = (Path(tadv.__file__).parents[1] / "csrc" / "advection_fixed.cu").read_text()
+    for entry in (tadv.TILE_ENTRY, tadv.RUNTIME_ENTRY):
+        assert f'extern "C" int {entry}(' in src
+    kinds = {"WENO": tadv.WENO, "UPWIND": tadv.UpwindBiased, "CENTERED": tadv.Centered}
+    listed = src.split("#define CSI_TILE_SCHEMES(X)")[1].split("\n\n")[0]
+    compiled = {(kinds[k], int(o)) for k, o in re.findall(r"X\((\w+), (\d+)\)", listed)}
+    assert compiled == set(tadv.TILE_SCHEMES) == set(_RADIUS)
+    schemes = [kind(order=o) for kind, o in _RADIUS]
+    for sx in schemes:
+        for sy in schemes:
+            same = (type(sx), sx.order) == (type(sy), sy.order)
+            assert tadv.kernel_for(sx, sy) == (tadv.TILE_ENTRY if same else tadv.RUNTIME_ENTRY)
+    for o in (5, 7, 9):
+        assert tadv._scheme_table(tadv.WENO(order=o), "cpu")[0] == 2
+    with pytest.raises(ValueError, match="UpwindBiased order 9"):
+        tadv.kernel_for(tadv.UpwindBiased(order=9), tadv.UpwindBiased(order=9))
+
+
 # --- 2.11: the column thermodynamics ---------------------------------------------------
 
 def _series_class(lib):
@@ -507,6 +636,56 @@ def test_thermo_flux_function_raises():
 
 
 # --- the slice as a whole ------------------------------------------------------------
+
+@pytest.mark.parametrize("layered", [False, True], ids=["bare", "snow"])
+def test_codegen_twin_matches_plain_column(layered):
+    """The column kernel's flux programs in the generated unit's SSA form
+    (a series, radiative emission and a number on top; with snow a
+    snowfall series), evaluated by a twin with the prologue once and the
+    rest at every T, equal the plain fluxes and the plain column step
+    bitwise (tests/test_torch_tripolar_fixed_tiles.py:check_twin_column)."""
+    from test_torch_tripolar_fixed_tiles import check_twin_column
+    m = _thermo_model(cst, layered, device="cpu")
+    s = _thermo_state(cst, m)
+    check_twin_column(m, s, 600.0, (s.Tu, s.Tu - 2.5, torch.zeros_like(s.Tu)))
+
+
+def test_thermo_unit_ignores_the_clock_and_the_flux_values():
+    """The generated unit, and so its library's name, depends on the flux
+    programs' structure only: not on the clock's time, the series' values or
+    the numbers in the fluxes; a flux of another structure gets another."""
+    def unit(top, time):
+        m = _thermo_model(cst, True, device="cpu").evolve(top_heat_flux=top)
+        s = _thermo_state(cst, m)
+        s = s.evolve(clock=s.clock.evolve(time=m.grid.scalar(time)))
+        p = tthermo.plan(m, s.clock)
+        return p.name, p.text
+
+    def series(scale):
+        return FieldTimeSeries(times=(np.arange(12) * 30 * DAY).astype(np.float32),
+                               data=(scale * np.cos(np.arange(12))).astype(np.float32),
+                               cyclical=True)
+
+    first = unit((series(60.0), cst.RadiativeEmission(), -15.0), 17 * DAY)
+    assert unit((series(-3.0), cst.RadiativeEmission(emissivity=0.9), 4.0), 211 * DAY) == first
+    assert unit((series(60.0), cst.RadiativeEmission()), 17 * DAY)[0] != first[0]
+
+
+@pytest.mark.parametrize("case", ["tanh", "python-branch"])
+def test_thermo_plan_refuses_what_it_cannot_record(case):
+    """A flux callable outside the op set raises NotImplementedError naming
+    it on the CPU (the plain version's route) and where the card's route
+    makes its plan, before anything is compiled."""
+    fns = {"tanh": (lambda grid, Tu, clock, fields: torch.tanh(Tu), "tanh"),
+           "python-branch": (lambda grid, Tu, clock, fields: Tu if Tu > 0 else -Tu, "__bool__")}
+    fn, what = fns[case]
+    m = _model(cst, device="cpu", top_heat_flux=(cst.FluxFunction(func=fn), -5.0))
+    s = _initial(cst, m)
+    with pytest.raises(NotImplementedError, match=what):
+        tthermo.thermo_column(m, s, 600.0)
+    with pytest.raises(NotImplementedError, match=what):
+        tthermo.plan(m, s.clock)
+
 
 def _spy(monkeypatch):
     """Count the calls of the four fixed-tile routes and the other EVP
@@ -681,25 +860,57 @@ def test_cuda_tiled_evp_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 def test_cuda_advection_matches_plain(cuda_device):
-    """The advection kernel against its plain version on the card, WENO-7
-    with land: interiors ≤ 1e-6 of the largest value."""
+    """The advection kernel (the tile kernel, WENO-7 with land) against its
+    plain version on the card: the plain version's bits over the whole
+    padded arrays, signed zeros included, so within 1e-6 of the largest
+    value; one launch."""
     m = _model(cst, device=cuda_device)
     s = _initial(cst, m)
     div = tadv.make_fixed_tile_div(m, s.u, s.v)
     schemes = tadv._schemes(m.advection)
+    assert tadv.kernel_for(*schemes) == tadv.TILE_ENTRY
     metrics = (1.0 / m.grid.scalar(m.grid.dx_cc), 1.0 / m.grid.scalar(m.grid.dy_cc))
     ref = tadv.fixed_tile_div_reference(m.grid, schemes, s.u, s.v, s.h,
                                         (m.masks.per_fc, m.masks.per_cf), metrics)
+    tadv.fixed_tile_advection_counter.reset()
     out = div(s.h)
     torch.cuda.synchronize()
+    assert tadv.fixed_tile_advection_counter.launches == 1
     assert _rel(_interior(m.grid, ref), _interior(m.grid, out)) <= 1e-6
+    assert torch.equal(ref.view(torch.int32), out.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schemes", ["weno5", "upwind-centered"])
+def test_cuda_advection_schemes_match_plain(cuda_device, schemes):
+    """Both C entries on a latitude-longitude band (array metrics, x
+    periodic): WENO-5 in both directions through the tile kernel, and
+    UpwindBiased(5) in x with Centered(2) in y through the runtime-scheme
+    kernel, each the plain version's bits over the padded arrays."""
+    g = cst.LatitudeLongitudeGrid((48, 128), latitude=(50.0, 80.0), halo=5, dtype="float32",
+                                  topology=("periodic", "bounded"), device=cuda_device)
+    pair = ((tadv.WENO(order=5),) * 2 if schemes == "weno5"
+            else (tadv.UpwindBiased(order=5), tadv.Centered(order=2)))
+    assert tadv.kernel_for(*pair) == (tadv.TILE_ENTRY if schemes == "weno5"
+                                      else tadv.RUNTIME_ENTRY)
+    rng = np.random.default_rng(3)
+    u, v, c = (torch.tensor(rng.standard_normal(g.shape), dtype=torch.float32,
+                            device=cuda_device) for _ in range(3))
+    masks = tuple(torch.tensor(rng.random(g.shape) < 0.1, device=cuda_device) for _ in range(2))
+    metrics = tuple(g.scalar(getattr(g, n)).expand(g.shape).contiguous()
+                    for n in ("dy_fc", "dx_cf", "az_cc"))
+    ref = tadv.fixed_tile_div_reference(g, pair, u, v, c, masks, metrics)
+    out = tadv.fixed_tile_div(g, pair, u, v, c, masks, metrics)
+    torch.cuda.synchronize()
+    assert torch.equal(ref.view(torch.int32), out.view(torch.int32))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layered", [False, True], ids=["bare", "snow"])
 def test_cuda_thermo_matches_plain(cuda_device, layered):
-    """The column kernel against the slab functions on the card: ≤ 1e-5 of
-    each output's largest value."""
+    """The column kernel against the slab functions on the card: the plain
+    version's bits in every output, signed zeros included, so within 1e-5
+    of each output's largest value."""
     m = _thermo_model(cst, layered, device=cuda_device)
     s = _thermo_state(cst, m)
     ref = tthermo.thermo_column_reference(m, s, m.grid.scalar(600.0))
@@ -709,3 +920,4 @@ def test_cuda_thermo_matches_plain(cuda_device, layered):
         r = ref[name].broadcast_to(m.grid.shape)
         assert torch.isfinite(q).all(), name
         assert _rel(r.cpu().numpy(), q.cpu().numpy()) <= 1e-5, name
+        assert torch.equal(r.contiguous().view(torch.int32), q.contiguous().view(torch.int32)), name

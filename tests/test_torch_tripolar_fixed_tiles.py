@@ -27,6 +27,7 @@ from climaseaice_jl_tpu_torch.convert import state_from_numpy, _FIELDS
 from climaseaice_jl_tpu_torch.grids import repad_metric, _METRIC_LOCS
 from climaseaice_jl_tpu_torch import fields as tfields
 from climaseaice_jl_tpu_torch.dynamics import fixed_tile_advection as tadv
+from climaseaice_jl_tpu_torch.dynamics import fixed_tile_codegen as codegen
 from climaseaice_jl_tpu_torch.dynamics import fixed_tile_pointwise as fp
 from climaseaice_jl_tpu_torch.dynamics import fused_evp_curvilinear as tcurv
 from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ttc
@@ -558,6 +559,84 @@ def _run_program(rec, inputs, T=None):
     return st[0]
 
 
+def _twin(values, k, tensors):
+    """A flux's SSA values (fixed_tile_codegen.ssa) evaluated in the
+    generated unit's order with the plain version's float32 operations on
+    the CPU (where x / c divides): the T-independent values once, as the
+    unit's prologue; ``flux(T)`` the rest.  ``k`` and ``tensors`` are the
+    plan's constants and the tensors behind its pointers."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)   # noqa: E731
+
+    def value(v, operand, T):
+        x = [operand(i) for i in v.args]
+        if v.op == fp.OP_CONST:
+            return f32(k[v.a])
+        if v.op in (fp.OP_ARRAY, fp.OP_SCALAR):
+            return tensors[v.a]
+        if v.op == fp.OP_TEMP:
+            return T
+        if v.op == fp.OP_EMISSION:
+            return k[v.a] * (T + k[v.b]) ** 4
+        if v.op == fp.OP_DIVC:
+            return x[0] / f32(k[v.a])
+        if v.op == fp.OP_CLAMP:
+            return torch.clamp(x[0], None if v.a < 0 else k[v.a], None if v.b < 0 else k[v.b])
+        if v.op == fp.OP_WHERE:
+            return torch.where(x[0] != 0, x[1], x[2])
+        if v.op in _UNARY:
+            return _UNARY[v.op](x[0])
+        return _BINARY[v.op](x[0], x[1])
+
+    prologue = {}
+    for i, v in enumerate(values):
+        if not v.t_dep:
+            prologue[i] = value(v, prologue.__getitem__, None)
+
+    def flux(T):
+        got = dict(prologue)
+        for i, v in enumerate(values):
+            if v.t_dep:
+                got[i] = value(v, got.__getitem__, T)
+        return got[len(values) - 1]
+
+    return flux
+
+
+def _twin_fluxes(model, state, dt):
+    """The twins of the (top, bottom, snowfall) programs of ``model``'s
+    column-kernel plan, on ``state``'s inputs."""
+    plan = tthermo.plan(model, state.clock)
+    tensors = plan.inputs(state, dt)
+    return [_twin(codegen.ssa(ops), plan.k, tensors) for ops in plan.programs]
+
+
+def check_twin_column(model, state, dt, temperatures):
+    """The twins equal the plain fluxes bitwise at ``temperatures``, the
+    snowfall program the plain snowfall rate, and the plain column step with
+    the model's fluxes replaced by the twins equals thermo_column_reference
+    bitwise in every output."""
+    from climaseaice_jl_tpu_torch.model import make_fields
+    from climaseaice_jl_tpu_torch.thermodynamics.heat_bcs import getflux
+    from climaseaice_jl_tpu_torch.thermodynamics.slab import _snowfall_rate
+    g = model.grid
+    top, bottom, snow = _twin_fluxes(model, state, dt)
+    fields = make_fields(model, state)
+    for T in temperatures:
+        for twin, spec in ((top, model.top_heat_flux), (bottom, model.bottom_heat_flux)):
+            plain = getflux(spec, g, T, state.clock, fields)
+            assert torch.equal(_bits(twin(T).broadcast_to(g.shape)),
+                               _bits(plain.broadcast_to(g.shape)))
+    rate = torch.as_tensor(_snowfall_rate(model, state.clock), dtype=torch.float32)
+    assert torch.equal(_bits(snow(None).broadcast_to(g.shape)), _bits(rate.broadcast_to(g.shape)))
+    twinned = model.evolve(
+        top_heat_flux=cst.FluxFunction(func=lambda grid, Tu, clock, f: top(Tu)),
+        bottom_heat_flux=cst.FluxFunction(func=lambda grid, Tu, clock, f: bottom(Tu)))
+    ref = tthermo.thermo_column_reference(model, state, dt)
+    out = tthermo.thermo_column_reference(twinned, state, dt)
+    for name, r in ref.items():
+        assert torch.equal(_bits(r.broadcast_to(g.shape)), _bits(out[name].broadcast_to(g.shape))), name
+
+
 def test_pointwise_winds_match_jax():
     """Both wind components through `fixed_tile_pointwise` of the port (the
     callable eagerly on the CPU) against the JAX package's
@@ -666,6 +745,47 @@ def test_solar_flux_thermo_matches_jax(basin):
     T = st.Tus
     plain = flux.func(mt.grid, T, st.clock, None, flux.parameters)
     assert _rel(plain.numpy(), _run_program(rec, inputs, T=T).numpy()) <= 1e-6
+
+
+def _solar_case():
+    """The 32×64 basin with snow on part of the ice and top temperatures on
+    both sides of the albedo's jump at −0.1 °C, on the CPU."""
+    m, s = db.build(*SIZE, fixed_tiles=FIXED, device="cpu")
+    g = m.grid
+    rng = np.random.default_rng(11)
+    Tu = torch.tensor(np.where(rng.random(g.shape) < 0.5, -0.05, -8.0 * rng.random(g.shape)),
+                      dtype=torch.float32)
+    hs = torch.tensor(np.where(rng.random(g.shape) < 0.5, 0.0, 0.1 * rng.random(g.shape)),
+                      dtype=torch.float32)
+    return m, s.evolve(Tu=Tu, Tus=Tu, hs=hs, clock=s.clock.evolve(time=g.scalar(150 * DAY)))
+
+
+def test_codegen_twin_matches_plain_solar_column():
+    """The basin's flux programs in the generated unit's SSA form (the solar
+    FluxFunction, three series and emission summed; bottom and snowfall
+    numbers), evaluated by a twin with the prologue once and the rest at
+    every T, equal the plain fluxes and the plain column step bitwise."""
+    m, s = _solar_case()
+    check_twin_column(m, s, DT, (s.Tus, s.Tus - 0.07, s.Tus + 1.0, torch.zeros_like(s.Tus)))
+
+
+def test_codegen_hoists_what_does_not_depend_on_T():
+    """The solar flux's cosine, its scaling and clamp and the series value
+    are computed once per point (the unit's flux(T) reads none of them);
+    a callable whose every operation depends on T hoists nothing."""
+    m, s = _solar_case()
+    plan = tthermo.plan(m, s.clock)
+    values = codegen.ssa(plan.programs[0])
+    fixed_ops = {v.op for v in values if not v.t_dep}
+    assert {fp.OP_COS, fp.OP_CLAMP, fp.OP_DIVC, fp.OP_SCALAR} <= fixed_ops
+    assert not {fp.OP_COS, fp.OP_CLAMP} & {v.op for v in values if v.t_dep}
+    flux_body = plan.text.split("float flux(")[1].split("struct Bottom")[0]
+    assert "OP_COS" not in flux_body and "clamp(" not in flux_body and "powf" in flux_body
+    steep = cst.FluxFunction(func=lambda grid, Tu, clock, fields: torch.exp(Tu * 0.01) * Tu - Tu,
+                             top_temperature_dependent=True)
+    values = codegen.ssa(tthermo.plan(m.evolve(top_heat_flux=steep), s.clock).programs[0])
+    assert codegen.hoisted(values) == []
+    assert all(v.t_dep for v in values if v.op != fp.OP_CONST)
 
 
 def test_equilibrium_top_flux_under_fixed_tiles():
@@ -854,7 +974,8 @@ def test_cuda_tiled_settled_blocks_match_plain(cuda_device, case):
 def test_cuda_strength_winds_and_flux_match_plain(cuda_device):
     """The ice-strength, pointwise and column kernels against their plain
     versions on the card: P within 2 ulp, both winds within 2 ulp, the
-    column physics with the solar FluxFunction within 1e-5."""
+    column physics with the solar FluxFunction the plain version's bits,
+    signed zeros included, so within 1e-5."""
     m, s = _card_basin(cuda_device)
     prm = ttc.ice_strength_params(m)
     np.testing.assert_array_max_ulp(ttc.fixed_tile_P_reference(prm, s.h, s.a).cpu().numpy(),
@@ -870,4 +991,6 @@ def test_cuda_strength_winds_and_flux_match_plain(cuda_device):
     out = tthermo.thermo_column(m, s, dt)
     torch.cuda.synchronize()
     for name, q in out.items():
-        assert _rel(ref[name].broadcast_to(g.shape).cpu().numpy(), q.cpu().numpy()) <= 1e-5, name
+        r = ref[name].broadcast_to(g.shape)
+        assert _rel(r.cpu().numpy(), q.cpu().numpy()) <= 1e-5, name
+        assert torch.equal(_bits(r), _bits(q)), name

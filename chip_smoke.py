@@ -5,8 +5,8 @@
                                        # one flagship (512² and 2048²), one
                                        # bounded, one tripolar basin and one
                                        # fixed-tile step to file F
-    python3 chip_smoke.py --parent D   # also hold 2.9 and 2.11 against a
-                                       # checkout D of commit d8b908f, in turns
+    python3 chip_smoke.py --parent D   # also hold 2.10 and 2.4 against a
+                                       # checkout D of commit 2a3ee95, in turns
                                        # (any other tree is refused)
 
 Drives the port (``climaseaice_jl_tpu_torch``) through the entry points a
@@ -16,7 +16,9 @@ Phases, each of which raises (exit code 1) when it fails:
 1. build the CUDA kernels from ``climaseaice_jl_tpu_torch/csrc`` and the
    column-kernel units generated for the script's three flux
    configurations (bare ice under number fluxes, snow under series and
-   emission, the basin's solar FluxFunction), one ``nvcc`` each, all at once;
+   emission, the basin's solar FluxFunction), the pointwise units of the
+   basin's two wind components and of sin(x)·cos(x), one ``nvcc`` each, all
+   at once;
 2. the EVP kernel (2.1) vs its plain version on the card: the flagship at
    512² in soft ice (P★ = 27.5), 120 substeps; bitwise over the whole
    interior (0 ulp, a gate), so within the bars u/v ≤ 1e-4, σ/α ≤ 4e-3
@@ -83,7 +85,13 @@ Phases, each of which raises (exit code 1) when it fails:
     slice's 522² padded shape (phase 6's configuration with
     ``fixed_tiles=(8, 128)`` and the wide halo policy, soft ice, seeded
     velocities), each timed per call with its plain version: the EVP
-    coefficients (within 1 ulp); the tiled EVP loop (bitwise over the
+    coefficients (the plain version's raw bits, a gate, also with the
+    peripheral masks folded in; its device time a launch under
+    torch.profiler beside the CUDA-event time a call and the host time a
+    call; its registers and stack frame, a gate: no stack frame, no spill;
+    with ``--parent DIR`` against the earlier tree's build, its raw bits a
+    gate, timed in turns, and the device operations of the EVP launcher's
+    inputs before and after); the tiled EVP loop (bitwise over the
     interiors, 0 ulp, as the parent design was, so within phase 2's bars;
     bitwise against itself with chunks of 1 and K substeps and against the
     padded kernel on the same input; one launch a chunk; its registers,
@@ -96,14 +104,15 @@ Phases, each of which raises (exit code 1) when it fails:
     series and emission, the plain version's raw bits in every output, so
     within 1e-5, with the wrapper's host time per call; the registers and
     stack frame of the tile kernels and the two column units (a gate: no
-    stack frame, no spill); with ``--parent DIR`` each against the earlier
-    tree's build (its raw bits, a gate) and its wrapper, timed in turns;
+    stack frame, no spill);
 14. the fixed-tile slice's main path at the default P★: one warm-up step,
     five timed ``cst.step`` calls and two iterations of ``Simulation.run``;
     finite and physical, land empty, u and v zero on peripheral nodes; per
     step 3 tiled EVP, 3 coefficient, 6 advection and 3 thermodynamics calls
     and no padded, periodic or curvilinear EVP call; in turns with phase
-    7's slice; one profiled step's device-busy share; then two steps of the
+    7's slice; one profiled step's device-busy share and device operations
+    (with ``--parent`` also with the earlier tree's coefficient launch and
+    launcher inputs); then two steps of the
     slice with UpwindBiased(5) in x and Centered(2) in y, 12 launches of
     2.9's runtime-scheme kernel;
 15. halo 5 against halo 19 on the card: the fixed-tile slice for five RK3
@@ -123,10 +132,16 @@ Phases, each of which raises (exit code 1) when it fails:
     or within 1e-5, timed in turns with it, with that kernel's share of
     settled blocks); the ice strength on the
     widened h, ℵ (within 2 ulp); both
-    wind components (within 2 ulp); the snow column physics with the solar
-    FluxFunction (the plain version's raw bits, so within 1e-5; its unit's
-    registers and stack frame, a gate as in phase 13; with ``--parent`` as
-    in phase 13);
+    wind components through their generated units (within 2 ulp, the same
+    bits at one and four points a thread, timed in turns; the units'
+    registers and stack frame, a gate: no spill, and no stack frame beyond
+    the one a unit of sin(x)·cos(x) alone keeps (CUDA's sinf and cosf, for
+    the argument reduction of |x| > 105615); device time a launch
+    under torch.profiler; with ``--parent`` the earlier tree's interpreter's
+    raw bits, a gate, timed in turns with host time a call); the snow
+    column physics with the solar FluxFunction (the plain version's raw
+    bits, so within 1e-5; its unit's registers and stack frame, a gate as in
+    phase 13);
 18. the slice's main path: that basin at the default P★, dt 600 s, one
     warm-up step, five timed ``cst.step`` calls and two iterations of
     ``Simulation.run``; every field finite, halos included, h, hs ≥ 0,
@@ -134,7 +149,7 @@ Phases, each of which raises (exit code 1) when it fails:
     step one pinned EVP call (two chunks), one ice-strength, two wind, three
     advection and one column call, and no call of the other EVP kernels; in
     turns with the same build without ``fixed_tiles``; one profiled step's
-    device-busy share and host waits;
+    device-busy share, device operations and host waits;
 19. halo 5 against halo 19 on the card: the basin at 360×300 (the script's
     default size), 3 steps, bitwise-equal interiors of u, v, h, ℵ, hs, σ₁₁,
     σ₂₂, σ₁₂ and α;
@@ -163,7 +178,9 @@ Phases, each of which raises (exit code 1) when it fails:
     version (2.7 over the interiors, signed zeros included, with its settled
     flags and share as in phase 17, 2.9 over the padded arrays, signed zeros
     included), timed per call with its plain
-    version and its bound (2.9 with ``--parent`` as in phase 13);
+    version and its bound; both wind components (2.10) on every shard of
+    the (2, 2) mesh within 2 ulp of their plain version (with ``--parent``
+    the earlier tree's interpreter's raw bits, a gate);
 25. the distributed step (``parallel.make_distributed_step``) on four gloo
     ranks sharing the card, after asking gloo whether its send and receive
     take CUDA tensors: the basin of phase 18 at the default P★, dt 600 s, 3
@@ -191,7 +208,8 @@ Phases, each of which raises (exit code 1) when it fails:
     bitwise against its plain version over the whole padded arrays, also
     with phase 6's island and drag put on the periodic grid, across all
     four shards; 2.4 (images clamped at the padded edge) over the padded
-    arrays; 2.5 (the padded extent carried) over the interiors, with its
+    arrays, with its device time a launch (with ``--parent`` against the
+    earlier tree's build as in phase 13); 2.5 (the padded extent carried) over the interiors, with its
     distance over the split directions' padded extent printed (a record:
     that band goes stale from the padded edge and depends on the chunk
     length); each timed per call with its plain version and its bound;
@@ -318,9 +336,10 @@ TC_ARRAYS_READ = 27      # 21 raw planes + 6 carried fields
 # product, per point; h and ℵ read, P written
 STRENGTH_FLOPS_PER_POINT = 5
 STRENGTH_ARRAYS = 3
-# csrc/pointwise_fixed.cu: the recorded program's operations per point, each
-# value once (the recorder shares repeated subexpressions), a clamp 2,
-# selects not counted; longitude and latitude read, the stress written
+# the generated pointwise units (2.10): the recorded program's operations per
+# point, each value once (the recorder shares repeated subexpressions), a
+# clamp 2, selects not counted; longitude and latitude read, the stress
+# written
 POINTWISE_ARRAYS = 3
 # csrc/thermo_column.cuh, snow on ice, 20 secant iterations, the basin's top
 # flux (the solar program, three series and emission, summed: F operations),
@@ -783,22 +802,24 @@ def cuda_ms(fn, repeats):
     return start.elapsed_time(end) / repeats
 
 
-# sha256 of commit d8b908f's climaseaice_jl_tpu_torch/csrc and its two wrappers
-# of kernels 2.9 and 2.11, as earlier_modules hashes them: that commit's
+# sha256 of commit 2a3ee95's climaseaice_jl_tpu_torch/csrc and its two wrappers
+# of kernels 2.10 and 2.4, as earlier_modules hashes them: that commit's
 # wrappers are run here on this tree's other modules, and its C entries are
 # called with its argument lists, which ctypes cannot check
-EARLIER_SHA256 = "f3d9fa7ae79ad365085582a7d76399abdd0b36dbf4ce1d176a4b512661988362"
-EARLIER_WRAPPERS = {"advection_fixed": "dynamics/fixed_tile_advection.py",
-                    "thermo_fixed": "thermodynamics/fixed_tile_thermo.py"}
+EARLIER_SHA256 = "3d9b972d520d83f62d86ead1aec65094888ffb0319e5c1c2db46df4f16835c9d"
+EARLIER_WRAPPERS = {"pointwise_fixed": "dynamics/fixed_tile_pointwise.py",
+                    "evp_prep": "dynamics/fused_evp_padded.py"}
 
 
 def earlier_modules(tree):
-    """Kernels 2.9 and 2.11 as ``tree``, a checkout of commit d8b908f, has
+    """Kernels 2.10 and 2.4 as ``tree``, a checkout of commit 2a3ee95, has
     them: its wrapper modules loaded beside this tree's (their relative
-    imports resolve to this tree's unchanged modules) and calling its CUDA
-    sources, built with this tree's flags into ``_build/earlier``.  Returns
-    {"advection_fixed": module, "thermo_fixed": module}; raises if the tree's
-    sources or wrappers are not that commit's."""
+    imports resolve to this tree's modules, which give them what they
+    import) and calling its CUDA sources, the interpreter
+    ``pointwise_fixed.cu`` and ``evp_prep.cu``, built with this tree's flags
+    into ``_build/earlier``.  Returns {"pointwise_fixed": module, "evp_prep":
+    module}; raises if the tree's sources or wrappers are not that
+    commit's."""
     import ctypes
     import hashlib
     import importlib.util
@@ -813,7 +834,7 @@ def earlier_modules(tree):
             digest.update(os.path.join("climaseaice_jl_tpu_torch", rel).encode() + b"\0"
                           + f.read())
     if digest.hexdigest() != EARLIER_SHA256:
-        raise ValueError(f"{tree} holds other sources than commit d8b908f's: its C entries "
+        raise ValueError(f"{tree} holds other sources than commit 2a3ee95's: its C entries "
                          f"would be called with the wrong arguments")
     out_dir = _build.BUILD_DIR / "earlier"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -830,6 +851,7 @@ def earlier_modules(tree):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"CUDA build of the earlier {name} failed:\n{log}")
+        _build.build_logs[f"earlier {name}"] = log
         os.replace(tmp, out)
     modules = {}
     for name, rel in EARLIER_WRAPPERS.items():
@@ -840,19 +862,83 @@ def earlier_modules(tree):
         sys.modules[spec.name] = mod
         spec.loader.exec_module(mod)
         lib = ctypes.CDLL(str(out_dir / f"lib{name}_{EARLIER_SHA256[:16]}.so"))
-        if name == "advection_fixed":
-            fn = lib.csi_fixed_tile_div
-            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-                           + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-            mod._div_entry = lambda fn=fn: fn
-        else:
-            fn = lib.csi_thermo_fixed
+        if name == "pointwise_fixed":
+            fn = lib.csi_pointwise_fixed
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            mod._thermo_entry = lambda fn=fn: fn
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_void_p]
+            mod._pointwise_entry = lambda fn=fn: fn
+        else:
+            fn = lib.csi_evp_prep
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            mod._prep_entry = lambda fn=fn: fn
         fn.restype = ctypes.c_int
         modules[name] = mod
     return modules
+
+
+def pointwise_units():
+    """The generated pointwise units (name → text) of the basin's two wind
+    components, planned on the card at a small shape (a unit's text does
+    not depend on the shape)."""
+    from climaseaice_jl_tpu_torch import distributed_basin
+    from climaseaice_jl_tpu_torch.dynamics import fixed_tile_pointwise as fpw
+    units = {}
+    for fn in distributed_basin.WINDS:
+        plan = fpw.plan(fn, 2, 1, "cuda", (8, 8))
+        units[plan.name] = plan.text
+    return units
+
+
+def device_profile(fn, calls=20, match=None):
+    """``fn`` called ``calls`` times under torch.profiler after a warm-up:
+    (device µs a launch of the kernels whose names hold ``match``, or of
+    every kernel without it; those launches a call; the device operations,
+    kernels, copies and fills, a call).  The profiler now and then returns
+    a trace without the device's activity: a trace without a launch named
+    ``match`` is taken again, up to four times, and the µs are None (not
+    measured) if none holds one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        chosen = [e for e in events if match is None or match in e.name]
+        if chosen or match is None:
+            break
+    us = sum(e.time_range.end - e.time_range.start for e in chosen)
+    return (us / len(chosen) if chosen else None), len(chosen) / calls, len(events) / calls
+
+
+def device_ms_text(us):
+    """A device time a launch from device_profile, in ms, for a report."""
+    return "not measured (no launch in the profiler's traces)" if us is None else \
+        f"{us / 1e3:.4f} ms"
+
+
+def device_in_turns(fns, match, calls=20):
+    """Device µs a launch of the kernels named ``match`` (device_profile),
+    each of ``fns`` (label → function) in turns, forwards then backwards:
+    label → [µs, µs]."""
+    times = {}
+    for label in list(fns) + list(fns)[::-1]:
+        times.setdefault(label, []).append(device_profile(fns[label], calls, match)[0])
+    return times
+
+
+def print_turns(what, times, unit, card):
+    def text(t):
+        return "not measured" if t is None else f"{t:.4f}" if unit == "ms" else f"{t:.2f}"
+    print(f"      in turns, {what}: "
+          + "; ".join(f"{k} {', '.join(text(t) for t in v)}" for k, v in times.items())
+          + f" {unit}, on {card}")
 
 
 def in_turns(fns, repeats):
@@ -927,10 +1013,32 @@ def ptxas_kernels(log):
     return found
 
 
-def print_ptxas(name, kernels=None, gate=None):
+def ptxas_stack(name):
+    """The largest stack frame (bytes) of the kernels of build ``name``, or
+    None where it was not built in this run."""
+    from climaseaice_jl_tpu_torch import _build
+    log = _build.build_logs.get(name)
+    return None if log is None else max(stack for _, _, stack, _ in ptxas_kernels(log))
+
+
+def trig_unit():
+    """The generated pointwise unit of sin(x)·cos(x) on the card: the
+    yardstick of the stack frame that CUDA's sinf and cosf keep for the
+    argument reduction of |x| > 105615 (Payne-Hanek, through an array in
+    local memory)."""
+    from climaseaice_jl_tpu_torch.dynamics import fixed_tile_pointwise as fpw
+    return fpw.plan(_sin_cos, 1, 0, "cuda", (8, 8))
+
+
+def _sin_cos(x):
+    import torch
+    return torch.sin(x) * torch.cos(x)
+
+
+def print_ptxas(name, kernels=None, gate=None, max_stack=0):
     """Registers and stack frame of the kernels of build ``name`` whose
     mangled names hold one of ``kernels``; with ``gate``, raise unless those
-    have a 0-byte stack frame and no spill."""
+    have no spill and a stack frame of at most ``max_stack`` bytes."""
     from climaseaice_jl_tpu_torch import _build
     log = _build.build_logs.get(name)
     if log is None:
@@ -941,9 +1049,9 @@ def print_ptxas(name, kernels=None, gate=None):
             continue
         print(f"    {name} {kernel}: {regs} registers, {stack} bytes stack frame, {spill} "
               f"bytes spilled")
-        if gate and (stack or spill):
+        if gate and (stack > max_stack or spill):
             raise AssertionError(f"{kernel} has a {stack}-byte stack frame and {spill} bytes "
-                                 "of spills")
+                                 f"of spills (at most {max_stack} and 0 allowed)")
 
 
 def thermo_units(cst):
@@ -1017,6 +1125,23 @@ def timed_steps(cst, model, state, dt, steps):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / steps * 1e3
     return state, start.elapsed_time(end) / steps, host_ms
+
+
+def steps_in_turns_with_earlier(cst, model, state, dt, steps, module, attr, earlier_fn):
+    """ms a step (CUDA events) of this tree and of the same step with
+    ``module.attr`` swapped for the earlier tree's ``earlier_fn``, in turns
+    (this tree, earlier, this tree, earlier), after an untimed step of each."""
+    mine = getattr(module, attr)
+    times = []
+    for name in ("warm-up", "warm-up earlier", "this tree", "earlier", "this tree", "earlier"):
+        setattr(module, attr, earlier_fn if name.endswith("earlier") else mine)
+        try:
+            _, ms, _ = timed_steps(cst, model, state, dt, 1 if name.startswith("warm") else steps)
+        finally:
+            setattr(module, attr, mine)
+        if not name.startswith("warm"):
+            times.append(f"{name} {ms:.2f}")
+    return times
 
 
 def profile_step(cst, model, state, dt, title, card):
@@ -1122,9 +1247,9 @@ def main(argv=None):
                         help="write torch.profiler tables of one flagship step and "
                              "one bounded step to FILE")
     parser.add_argument("--parent", metavar="DIR",
-                        help="a checkout of commit d8b908f (its CUDA sources and wrappers "
-                             "are checked): hold kernels 2.9 and 2.11 against its builds of "
-                             "them and time them in turns (phases 13, 17, 24)")
+                        help="a checkout of commit 2a3ee95 (its CUDA sources and wrappers "
+                             "are checked): hold kernels 2.10 and 2.4 against its builds of "
+                             "them and time them in turns (phases 13, 14, 17, 24, 27)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1151,9 +1276,11 @@ def main(argv=None):
     # --- 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     units = thermo_units(cst)
-    _build.build(generated=units)
-    print(f"[1] built {sorted(_build.SOURCES)} and the column-kernel units {sorted(units)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    winds = pointwise_units()
+    trig = trig_unit()
+    _build.build(generated={**units, **winds, trig.name: trig.text})
+    print(f"[1] built {sorted(_build.SOURCES)}, the column-kernel units {sorted(units)} and "
+          f"the wind units {sorted(winds)} in {time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1530,23 +1657,55 @@ def main(argv=None):
     print(f"[13] fixed-tile kernels vs plain versions, {N}² bounded + island + drag, "
           f"{grid.nxp}×{grid.nyp} padded, on {card}:")
 
-    # 2.4: the EVP coefficients, bitwise or within 1 ulp
-    prm = fused_evp_padded.evp_prep_params(model, grid.scalar(dt))
+    # 2.4: the EVP coefficients, the plain version's raw bits
+    dt_t = grid.scalar(dt)
+    prm = fused_evp_padded.evp_prep_params(model, dt_t)
     h, a = state.h.contiguous(), state.a.contiguous()
-    out = fused_evp_padded.evp_prep(prm, h, a, grid)
+    per = (model.masks.per_fc.contiguous(), model.masks.per_cf.contiguous())
+    prep_fn = lambda: fused_evp_padded.evp_prep(model, dt_t, h, a)   # noqa: E731
+    out = prep_fn()
+    masked = fused_evp_padded.evp_prep(model, dt_t, h, a, grid, *per)
     ref = fused_evp_padded.evp_prep_reference(prm, h, a, grid)
     torch.cuda.synchronize()
-    ulps = max(max_ulp(r, o) for r, o in zip(ref, out))
+    masked_ref = [r * (~per[k == 9]).to(torch.float32) if k in (6, 9) else r
+                  for k, r in enumerate(ref)]
+    ulps, same = bits_record(ref, out)
+    masked_same = bits_record(masked_ref, masked)[1]
     prep_abs = max((r.double() - o.double()).abs().max().item() for r, o in zip(ref, out))
     prep_rel = max(rel_diff(r, o)[0] for r, o in zip(ref, out))
-    print(f"  coefficients: at most {ulps} ulp apart (bar 1), max abs diff {prep_abs:.3e}")
-    if ulps > 1:
-        raise AssertionError(f"the coefficient kernel is {ulps} ulp from its plain version")
-    kernel_ms = cuda_ms(lambda: fused_evp_padded.evp_prep(prm, h, a, grid), 50)
+    print(f"  coefficients: {ulps} ulp from the plain version, raw bits {same}; with the "
+          f"peripheral masks folded in, raw bits {masked_same}")
+    if not (same and masked_same):
+        raise AssertionError(f"the coefficient kernel is {ulps} ulp from its plain version, "
+                             f"or differs in a signed zero (masked: raw bits {masked_same})")
+    print_ptxas("evp_prep", gate=True)
+    if earlier:
+        old_prep = earlier["evp_prep"]
+        old_fn = lambda: old_prep.evp_prep(   # noqa: E731
+            old_prep.evp_prep_params(model, dt_t), h, a, grid)
+        against_earlier("2.4", list(out), list(old_fn()), list(ref), True, card,
+                        {"2.4": prep_fn, "earlier 2.4": old_fn})
+        print_turns("device µs a launch (torch.profiler)",
+                    device_in_turns({"2.4": prep_fn, "earlier 2.4": old_fn}, "evp_prep"),
+                    "µs", card)
+        print(f"      host µs a call: 2.4 {host_us(prep_fn):.1f}, earlier 2.4 (its parameters "
+              f"formed on the device, as its launcher did) {host_us(old_fn):.1f}; device "
+              f"operations a call: 2.4 {device_profile(prep_fn)[2]:.0f}, earlier 2.4 "
+              f"{device_profile(old_fn)[2]:.0f}")
+        inputs = {"2.4": fused_evp_padded.padded_evp_inputs,
+                  "earlier 2.4": old_prep.padded_evp_inputs}
+        print("      the EVP launcher's inputs (padded_evp_inputs, the masking folded in or "
+              "not), device operations a call: " + "; ".join(
+                  f"{k} {device_profile(lambda f=f: f(model, state, dt, state.u, state.v))[2]:.0f}"
+                  for k, f in inputs.items()))
+    kernel_ms = cuda_ms(prep_fn, 50)
+    prep_dev_us = device_profile(prep_fn, 20, "evp_prep")[0]
     plain_ms = cuda_ms(lambda: fused_evp_padded.evp_prep_reference(prm, h, a, grid), 10)
     bytes_ms, ops_ms = bounds_ms((PREP_ARRAYS * points + PREP_PARAMS) * 4,
                                  PREP_FLOPS_PER_POINT * points)
-    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
+    print(f"    kernel {kernel_ms:.4f} ms a call by CUDA events ({host_us(prep_fn):.1f} µs of "
+          f"host time a call), {device_ms_text(prep_dev_us)} of device time a launch "
+          f"(torch.profiler), plain {plain_ms:.4f} ms/call, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms")
     prep_timing = (prep_abs, prep_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
 
@@ -1634,13 +1793,6 @@ def main(argv=None):
     if not same:
         raise AssertionError(f"2.9 is {ulps} ulp from its plain version")
     print_ptxas("advection_fixed", ["8tile_divI"], gate=True)
-    if earlier:
-        old_adv = earlier["advection_fixed"]
-        against_earlier("2.9 at 522²", [out], [old_adv.fixed_tile_div(
-            grid, schemes, u_c, v_c, h_c, masks, uniform)], [ref], True, card, {
-            "2.9": lambda: div(h_c),
-            "earlier 2.9": lambda: old_adv.fixed_tile_div(grid, schemes, u_c, v_c, h_c, masks,
-                                                          uniform)})
     kernel_ms = cuda_ms(lambda: div(h_c), 50)
     plain_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div_reference(
         grid, schemes, u_c, v_c, h_c, masks, uniform), 10)
@@ -1661,9 +1813,6 @@ def main(argv=None):
           f"over the padded arrays, raw bits {same}")
     if not same:
         raise AssertionError(f"2.9's runtime-scheme kernel is {ulps} ulp from its plain version")
-    if earlier:
-        against_earlier("2.9, two schemes", [out], [earlier["advection_fixed"].fixed_tile_div(
-            grid, mixed, u_c, v_c, h_c, masks, uniform)], [ref], True, card)
     kernel_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div(
         grid, mixed, u_c, v_c, h_c, masks, uniform), 50)
     plain_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div_reference(
@@ -1699,14 +1848,6 @@ def main(argv=None):
           f"version, raw bits {same}")
     if not same:
         raise AssertionError(f"2.9 with array metrics is {ulps} ulp from its plain version")
-    if earlier:
-        old_adv = earlier["advection_fixed"]
-        against_earlier(f"2.9 at {bg.nxp}×{bg.nyp}", [out], [old_adv.fixed_tile_div(
-            bg, schemes, bu, bv, bh, bmasks, metrics)], [ref], True, card, {
-            "2.9": lambda: fixed_tile_advection.fixed_tile_div(bg, schemes, bu, bv, bh, bmasks,
-                                                               metrics),
-            "earlier 2.9": lambda: old_adv.fixed_tile_div(bg, schemes, bu, bv, bh, bmasks,
-                                                          metrics)})
     basin_adv_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div(
         bg, schemes, bu, bv, bh, bmasks, metrics), 50)
     bpoints = bg.nxp * bg.nyp
@@ -1739,13 +1880,6 @@ def main(argv=None):
         raise AssertionError(f"2.11 (bare ice) is {ulps} ulp from its plain version")
     print_ptxas(bare_unit, gate=True)
     thermo_fn = lambda: fixed_tile_thermo.thermo_column(model, state, dt_t)   # noqa: E731
-    if earlier:
-        old_th = earlier["thermo_fixed"]
-        old_fn = lambda: old_th.thermo_column(model, state, dt_t)   # noqa: E731
-        against_earlier("2.11, bare ice", list(out.values()), list(old_fn().values()), refs,
-                        True, card, {"2.11": thermo_fn, "earlier 2.11": old_fn})
-        print(f"      host µs per call: 2.11 {host_us(thermo_fn):.1f}, earlier 2.11 "
-              f"{host_us(old_fn):.1f}")
     kernel_ms = cuda_ms(thermo_fn, 50)
     plain_ms = cuda_ms(lambda: fixed_tile_thermo.thermo_column_reference(model, state, dt_t),
                        5)
@@ -1773,10 +1907,6 @@ def main(argv=None):
         raise AssertionError(f"2.11 (snow) is {ulps} ulp from its plain version")
     print_ptxas(snow_unit, gate=True)
     layered_fn = lambda: fixed_tile_thermo.thermo_column(layered, lstate, dt_t)   # noqa: E731
-    if earlier:
-        old_fn = lambda: old_th.thermo_column(layered, lstate, dt_t)   # noqa: E731
-        against_earlier("2.11, snow", list(out.values()), list(old_fn().values()), refs, True,
-                        card, {"2.11": layered_fn, "earlier 2.11": old_fn})
     layered_ms = cuda_ms(layered_fn, 50)
     print(f"    snow kernel {layered_ms:.4f} ms/call")
     del layered, lstate, out, ref, refs
@@ -1816,6 +1946,24 @@ def main(argv=None):
           f"device time, busy {100 * device_ms / step_ms:.1f} % of a step, {syncs} host waits "
           f"on a device value, on {card}")
     print("\n".join(table.splitlines()[:14]))
+    step_fn = lambda: cst.step(model, state, dt)   # noqa: E731
+    line = f"    device operations a step: {device_profile(step_fn, 1)[2]:.0f}"
+    if earlier:
+        # the same step with the earlier tree's launcher inputs and coefficient kernel
+        from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_padded as ftp
+        mine = ftp.padded_evp_inputs
+        ftp.padded_evp_inputs = earlier["evp_prep"].padded_evp_inputs
+        try:
+            line += (f"; {device_profile(step_fn, 1)[2]:.0f} with the earlier tree's "
+                     "coefficient launch and launcher inputs")
+        finally:
+            ftp.padded_evp_inputs = mine
+    print(line)
+    if earlier:
+        print("    in turns with the earlier tree's coefficient launch and launcher inputs, "
+              "ms/step (CUDA events): " + ", ".join(steps_in_turns_with_earlier(
+                  cst, model, state, dt, steps, ftp, "padded_evp_inputs",
+                  earlier["evp_prep"].padded_evp_inputs)))
     turns = []
     for name, m, s in (("fixed", model, state), ("bounded", bounded_model, bounded_state),
                        ("fixed", model, state), ("bounded", bounded_model, bounded_state)):
@@ -1993,42 +2141,76 @@ def main(argv=None):
     if ulps > 2:
         raise AssertionError(f"the ice-strength kernel is {ulps} ulp from its plain version")
     kernel_ms = cuda_ms(lambda: ftc.fixed_tile_P(prm, hw, aw), 50)
+    strength_dev_us = device_profile(lambda: ftc.fixed_tile_P(prm, hw, aw), 20,
+                                     "ice_strength")[0]
     plain_ms = cuda_ms(lambda: ftc.fixed_tile_P_reference(prm, hw, aw), 20)
     bytes_ms, ops_ms = bounds_ms((STRENGTH_ARRAYS * points + 2) * 4,
                                  STRENGTH_FLOPS_PER_POINT * points)
-    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
+    print(f"    kernel {kernel_ms:.4f} ms a call by CUDA events, "
+          f"{device_ms_text(strength_dev_us)} of device time a launch (torch.profiler), plain {plain_ms:.4f} ms/call, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms")
     strength_timing = (*rel_diff(ref, out)[::-1], kernel_ms, plain_ms, bytes_ms, ops_ms)
     del planes, carry
 
-    # 2.10: both wind components on the basin's coordinates
+    # 2.10: both wind components on the basin's coordinates, through their units
     g = model.grid
     gpoints = g.nxp * g.nyp
     lon, lat = g.lon_cc.contiguous(), g.lat_cc.contiguous()
     t = state.clock.time
+    # the units are held to no spill and, where they call sinf or cosf, to
+    # the stack frame of a unit of sin(x)·cos(x) alone
+    trig_frame = ptxas_stack(trig_unit().name)
+    print("  a unit of sin(x)·cos(x) alone: "
+          + ("not built in this run (no ptxas report)" if trig_frame is None else
+             f"{trig_frame}-byte stack frame (CUDA's sinf and cosf, the argument reduction of "
+             "|x| > 105615)"))
     for comp, fn in enumerate(distributed_basin.WINDS):
         out = fpw.fixed_tile_pointwise(fn, fixed, (lon, lat), scalars=(t,))
         ref = fpw.fixed_tile_pointwise_reference(fn, (lon, lat), (t,))
+        wplan = fpw.plan(fn, 2, 1, lon.device, g.shape)
         torch.cuda.synchronize()
         ulps = max_ulp(ref, out)
-        print(f"  wind {'xy'[comp]}: at most {ulps} ulp apart (bar 2), bitwise "
-              f"{torch.equal(ref, out)}")
+        print(f"  wind {'xy'[comp]} (unit {wplan.name}, {len(wplan.k)} constants): at most "
+              f"{ulps} ulp apart (bar 2), bitwise {torch.equal(ref, out)}, raw bits "
+              f"{same_bits(ref, out)}")
         if ulps > 2:
             raise AssertionError(f"the pointwise kernel is {ulps} ulp from its plain version")
+        trig = any(op in (fpw.OP_SIN, fpw.OP_COS) for op, _, _ in wplan.ops)
+        print_ptxas(wplan.name, gate=True, max_stack=(trig_frame or 0) if trig else 0)
+        if earlier:
+            old_pw = earlier["pointwise_fixed"]
+            against_earlier(f"2.10, wind {'xy'[comp]}", [out], [old_pw.fixed_tile_pointwise(
+                fn, fixed, (lon, lat), scalars=(t,))], [ref], False, card)
         if comp == 0:
             wind_err = rel_diff(ref, out)[::-1]
     wind_fn = distributed_basin.WINDS[0]
-    rec = fpw.pointwise_recording(wind_fn, 2, 1, lon.device)
-    kernel_ms = cuda_ms(lambda: fpw.fixed_tile_pointwise(wind_fn, fixed, (lon, lat),
-                                                         scalars=(t,)), 50)
+    wplan = fpw.plan(wind_fn, 2, 1, lon.device, g.shape)
+    wind_call = lambda: fpw.fixed_tile_pointwise(   # noqa: E731
+        wind_fn, fixed, (lon, lat), scalars=(t,))
+    if earlier:
+        print_ptxas("earlier pointwise_fixed")
+        old_call = lambda: old_pw.fixed_tile_pointwise(   # noqa: E731
+            wind_fn, fixed, (lon, lat), scalars=(t,))
+        print_turns("CUDA-event ms a call", in_turns({"2.10": wind_call,
+                                                      "earlier 2.10": old_call}, 20), "ms",
+                    card)
+        print_turns("device µs a launch (torch.profiler)", device_in_turns(
+            {"2.10": wind_call, "earlier 2.10": old_call}, "pointwise"), "µs", card)
+        print(f"      host µs a call: 2.10 {host_us(wind_call):.1f}, earlier 2.10 "
+              f"{host_us(old_call):.1f}")
+    kernel_ms = cuda_ms(wind_call, 50)
+    wind_dev_us = device_profile(wind_call, 20, "pointwise_unit")[0]
     plain_ms = cuda_ms(lambda: fpw.fixed_tile_pointwise_reference(wind_fn, (lon, lat), (t,)),
                        20)
-    bytes_ms, ops_ms = bounds_ms(POINTWISE_ARRAYS * gpoints * 4 + 4,
-                                 program_flops(rec.ops) * gpoints)
-    print(f"    kernel {kernel_ms:.4f} ms/call ({len(rec.ops)} program steps, "
-          f"{program_flops(rec.ops)} operations a point), plain {plain_ms:.4f} ms/call, "
-          f"bound {max(bytes_ms, ops_ms):.4f} ms")
+    flops = program_flops(wplan.ops)
+    bytes_ms, ops_ms = bounds_ms(POINTWISE_ARRAYS * gpoints * 4 + 4, flops * gpoints)
+    print(f"    kernel {kernel_ms:.4f} ms a call by CUDA events ({host_us(wind_call):.1f} µs "
+          f"of host time a call), {device_ms_text(wind_dev_us)} of device time a launch "
+          f"(torch.profiler; {len(wplan.ops)} program steps, {flops} operations a point), "
+          f"plain {plain_ms:.4f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms "
+          f"({'bytes' if bytes_ms > ops_ms else 'operations'})")
     wind_timing = (*wind_err, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    wind_unit = wplan.name
 
     # 2.11 with the solar FluxFunction: the snow column under the basin's fluxes
     dt_t = g.scalar(dt)
@@ -2052,14 +2234,6 @@ def main(argv=None):
         raise AssertionError(f"2.11 (solar FluxFunction) is {ulps} ulp from its plain version")
     print_ptxas(basin_unit, gate=True)
     flux_fn = lambda: fixed_tile_thermo.thermo_column(model, state, dt_t)   # noqa: E731
-    if earlier:
-        old_th = earlier["thermo_fixed"]
-        old_fn = lambda: old_th.thermo_column(model, state, dt_t)   # noqa: E731
-        against_earlier("2.11, solar FluxFunction", list(out.values()),
-                        list(old_fn().values()), refs, True, card,
-                        {"2.11": flux_fn, "earlier 2.11": old_fn})
-        print(f"      host µs per call: 2.11 {host_us(flux_fn):.1f}, earlier 2.11 "
-              f"{host_us(old_fn):.1f}")
     solar = fixed_tile_thermo.flux_recording(model.top_heat_flux[0], g,
                                              fixed_tile_thermo._present(model))
     F = program_flops(solar.ops) + 5 + 3       # the sums and emission
@@ -2112,6 +2286,13 @@ def main(argv=None):
           f"{100 * device_ms / step_ms:.1f} % of a step, {syncs} host waits on a device "
           f"value, on {card}")
     print("\n".join(table.splitlines()[:16]))
+    print(f"    device operations a step: "
+          f"{device_profile(lambda: cst.step(model, state, dt), 1)[2]:.0f}")
+    if earlier:
+        print("    in turns with the earlier tree's winds (its interpreter kernel), ms/step "
+              "(CUDA events): " + ", ".join(steps_in_turns_with_earlier(
+                  cst, model, state, dt, steps, distributed_basin, "fixed_tile_pointwise",
+                  earlier["pointwise_fixed"].fixed_tile_pointwise)))
     eager, eager_state = distributed_basin.build(1152, 960)
     eager_state = cst.step(eager, eager_state, dt)      # warm-up
     turns = []
@@ -2369,14 +2550,6 @@ def main(argv=None):
     if not same_bits(ref, out):
         raise AssertionError(f"2.9 on the shard is {max_ulp(ref, out)} ulp from its plain "
                              "version over the padded arrays, or differs in a signed zero")
-    if earlier:
-        old_adv = earlier["advection_fixed"]
-        against_earlier("2.9 on the shard", [out], [old_adv.fixed_tile_div(
-            lgrid, schemes, u, v, h, masks, metrics)], [ref], True, card, {
-            "2.9": lambda: fixed_tile_advection.fixed_tile_div(lgrid, schemes, u, v, h, masks,
-                                                               metrics),
-            "earlier 2.9": lambda: old_adv.fixed_tile_div(lgrid, schemes, u, v, h, masks,
-                                                          metrics)})
     kernel_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div(lgrid, schemes, u, v, h,
                                                                      masks, metrics), 50)
     plain_ms = cuda_ms(lambda: fixed_tile_advection.fixed_tile_div_reference(
@@ -2386,6 +2559,31 @@ def main(argv=None):
           f"padded arrays; kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms")
     advm_timing = (0.0, 0.0, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    # 2.10 on every shard's coordinates, as each rank of the distributed step runs it
+    worst = 0
+    for sx in range(mesh_shape[0]):
+        for sy in range(mesh_shape[1]):
+            sg = _local_grid(g, nx, ny, sx, sy, ("x", "y"), mesh_shape,
+                             ProcessMesh(mesh_shape, (sx, sy), g.device, transport=False))
+            slon = sg.lon_cc.to(torch.float32).contiguous()
+            slat = sg.lat_cc.to(torch.float32).contiguous()
+            for comp, fn in enumerate(distributed_basin.WINDS):
+                out = fpw.fixed_tile_pointwise(fn, fixed, (slon, slat),
+                                               scalars=(state.clock.time,))
+                ref = fpw.fixed_tile_pointwise_reference(fn, (slon, slat), (state.clock.time,))
+                worst = max(worst, max_ulp(ref, out))
+                if earlier:
+                    old = earlier["pointwise_fixed"].fixed_tile_pointwise(
+                        fn, fixed, (slon, slat), scalars=(state.clock.time,))
+                    if not same_bits(old, out):
+                        raise AssertionError(f"2.10 on shard {(sx, sy)}, wind {'xy'[comp]}: "
+                                             f"not the earlier tree's bits "
+                                             f"({max_ulp(old, out)} ulp)")
+    print(f"  2.10 on the {mesh_shape} mesh's four shards ({sg.nxp}×{sg.nyp} padded), both "
+          f"components: at most {worst} ulp from the plain version (bar 2)"
+          + ("; the earlier tree's raw bits on every shard" if earlier else ""))
+    if worst > 2:
+        raise AssertionError(f"2.10 on a shard is {worst} ulp from its plain version")
     del model, state, u, v, h, masks, metrics, out, ref
 
     # --- 25-26. the distributed step: four gloo ranks on the card ------------------------------
@@ -2560,20 +2758,34 @@ def main(argv=None):
     lmodel, lstate = shard_model(model, flagship_state(cst, model, velocity_seed=29), shard,
                                  mesh_shape, Hw)
     del model
-    prm = fused_evp_padded.evp_prep_params(lmodel, lgrid.scalar(dt))
+    dt_t = lgrid.scalar(dt)
+    prm = fused_evp_padded.evp_prep_params(lmodel, dt_t)
     h, a = lstate.h.contiguous(), lstate.a.contiguous()
-    out = fused_evp_padded.evp_prep(prm, h, a, lgrid)
+    prepm_fn = lambda: fused_evp_padded.evp_prep(lmodel, dt_t, h, a, lgrid)   # noqa: E731
+    out = prepm_fn()
     ref = fused_evp_padded.evp_prep_reference(prm, h, a, lgrid)
     torch.cuda.synchronize()
-    if not all(torch.equal(r, o) for r, o in zip(ref, out)):
+    if not all(same_bits(r, o) for r, o in zip(ref, out)):
         raise AssertionError(f"2.4 meshed is {max(max_ulp(r, o) for r, o in zip(ref, out))} "
-                             "ulp from its plain version over the padded arrays")
-    kernel_ms = cuda_ms(lambda: fused_evp_padded.evp_prep(prm, h, a, lgrid), 50)
+                             "ulp from its plain version over the padded arrays, or differs in "
+                             "a signed zero")
+    if earlier:
+        old_prep = earlier["evp_prep"]
+        old_fn = lambda: old_prep.evp_prep(   # noqa: E731
+            old_prep.evp_prep_params(lmodel, dt_t), h, a, lgrid)
+        against_earlier("2.4 meshed", list(out), list(old_fn()), list(ref), True, card,
+                        {"2.4": prepm_fn, "earlier 2.4": old_fn})
+        print_turns("device µs a launch (torch.profiler)",
+                    device_in_turns({"2.4": prepm_fn, "earlier 2.4": old_fn}, "evp_prep"),
+                    "µs", card)
+    kernel_ms = cuda_ms(prepm_fn, 50)
+    prepm_dev_us = device_profile(prepm_fn, 20, "evp_prep")[0]
     plain_ms = cuda_ms(lambda: fused_evp_padded.evp_prep_reference(prm, h, a, lgrid), 10)
     bytes_ms, ops_ms = bounds_ms((PREP_ARRAYS * points + PREP_PARAMS) * 4,
                                  PREP_FLOPS_PER_POINT * points)
-    print(f"  2.4 meshed (images clamped at the padded edge): bitwise equal to the plain "
-          f"version over the padded arrays; kernel {kernel_ms:.4f} ms/call, plain "
+    print(f"  2.4 meshed (images clamped at the padded edge): the plain version's raw bits "
+          f"over the padded arrays; kernel {kernel_ms:.4f} ms a call by CUDA events, "
+          f"{device_ms_text(prepm_dev_us)} of device time a launch (torch.profiler), plain "
           f"{plain_ms:.4f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms")
     prepm_timing = (0.0, 0.0, kernel_ms, plain_ms, bytes_ms, ops_ms)
     params, consts, carry, _ = fused_evp_padded.padded_evp_inputs(lmodel, lstate, dt,
@@ -2816,9 +3028,10 @@ def main(argv=None):
                      "_curvilinear_kernel", curv_launches, *curv_timing,
                      "1162x970 padded (1152x960 tripolar basin, land, fold, drag, f planes), "
                      "120 substeps"),
-        kernel_entry("evp_prep", "climaseaice_jl_tpu_torch/csrc/evp_prep.cu",
-                     "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:512", "_prep_kernel",
-                     fixed_launches["prep"], *prep_timing, shape),
+        dict(kernel_entry("evp_prep", "climaseaice_jl_tpu_torch/csrc/evp_prep.cu",
+                          "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:512",
+                          "_prep_kernel", fixed_launches["prep"], *prep_timing, shape),
+             device_ms=None if prep_dev_us is None else prep_dev_us / 1e3),
         kernel_entry("tiled_padded_evp_substeps",
                      "climaseaice_jl_tpu_torch/csrc/evp_tiled_padded.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_padded.py:262",
@@ -2846,14 +3059,19 @@ def main(argv=None):
                      "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662",
                      "_tiled_curv_kernel", basin_launches["tiled_curvilinear"], *tc_timing,
                      tc_shape),
-        kernel_entry("fixed_tile_P", "climaseaice_jl_tpu_torch/csrc/ice_strength_fixed.cu",
-                     "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:1022",
-                     "_p_kernel", basin_launches["strength"], *strength_timing,
-                     "1162x1018 widened (1152x960 tripolar basin)"),
-        kernel_entry("fixed_tile_pointwise", "climaseaice_jl_tpu_torch/csrc/pointwise_fixed.cu",
-                     "climaseaice_jl_tpu/dynamics/pallas_pointwise.py:28",
-                     "fixed_tile_pointwise", basin_launches["wind"], *wind_timing,
-                     "1162x970 padded (1152x960 tripolar basin), the x wind"),
+        dict(kernel_entry("fixed_tile_P", "climaseaice_jl_tpu_torch/csrc/ice_strength_fixed.cu",
+                          "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:1022",
+                          "_p_kernel", basin_launches["strength"], *strength_timing,
+                          "1162x1018 widened (1152x960 tripolar basin)"),
+             device_ms=None if strength_dev_us is None else strength_dev_us / 1e3),
+        dict(kernel_entry("fixed_tile_pointwise",
+                          "climaseaice_jl_tpu_torch/dynamics/fixed_tile_codegen.py",
+                          "climaseaice_jl_tpu/dynamics/pallas_pointwise.py:28",
+                          "fixed_tile_pointwise", basin_launches["wind"], *wind_timing,
+                          "1162x970 padded (1152x960 tripolar basin), the x wind"),
+             device_ms=None if wind_dev_us is None else wind_dev_us / 1e3, unit=f"climaseaice_jl_tpu_torch/_build/{wind_unit}.cu",
+             includes="climaseaice_jl_tpu_torch/csrc/pointwise_program.cuh",
+             generated_by="climaseaice_jl_tpu_torch/dynamics/fixed_tile_codegen.py"),
         dict(kernel_entry("thermo_column_flux_function",
                           "climaseaice_jl_tpu_torch/csrc/thermo_column.cuh",
                           "climaseaice_jl_tpu/dynamics/pallas_pointwise.py:69",
@@ -2878,9 +3096,10 @@ def main(argv=None):
         kernel_entry("padded_evp_substeps_meshed", "climaseaice_jl_tpu_torch/csrc/evp_padded.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:167", "_padded_kernel",
                      pm_launches, *pm_timing, pm_shape),
-        kernel_entry("evp_prep_meshed", "climaseaice_jl_tpu_torch/csrc/evp_prep.cu",
-                     "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:512", "_prep_kernel",
-                     b_launches["2.4"], *prepm_timing, pm_shape),
+        dict(kernel_entry("evp_prep_meshed", "climaseaice_jl_tpu_torch/csrc/evp_prep.cu",
+                          "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:512",
+                          "_prep_kernel", b_launches["2.4"], *prepm_timing, pm_shape),
+             device_ms=None if prepm_dev_us is None else prepm_dev_us / 1e3),
         kernel_entry("tiled_padded_evp_substeps_meshed",
                      "climaseaice_jl_tpu_torch/csrc/evp_tiled_padded.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_padded.py:262",

@@ -7,8 +7,9 @@ named by a hash of the sources and flags, so an edited source is rebuilt and
 a built one is reused.  ``build()`` starts one ``nvcc`` per source, all at
 once, and waits for them together.
 
-Generated units (the column kernels of ``thermodynamics/fixed_tile_thermo.py``,
-written by ``dynamics/fixed_tile_codegen.py``) are built the same way: the
+Generated units (the column kernels of ``thermodynamics/fixed_tile_thermo.py``
+and the pointwise kernels of ``dynamics/fixed_tile_pointwise.py``, written by
+``dynamics/fixed_tile_codegen.py``) are built the same way: the
 text is written to ``_build/`` and compiled against the headers of
 ``csrc/``; source and library are named by a hash of the text, the flags and
 those headers.  Every file is written under a name of its own process and
@@ -34,8 +35,7 @@ SOURCES = {"evp": "evp.cu", "evp_padded": "evp_padded.cu",
            "evp_tiled_padded": "evp_tiled_padded.cu",
            "advection_fixed": "advection_fixed.cu",
            "evp_tiled_curvilinear": "evp_tiled_curvilinear.cu",
-           "ice_strength_fixed": "ice_strength_fixed.cu", "pointwise_fixed": "pointwise_fixed.cu",
-           "evp_tiled": "evp_tiled.cu"}
+           "ice_strength_fixed": "ice_strength_fixed.cu", "evp_tiled": "evp_tiled.cu"}
 
 # No --use_fast_math: it would change the divides and square roots.  No
 # source contracts a multiply-add (-fmad=false): each operation rounds on

@@ -1,17 +1,15 @@
-// Per-point evaluation of the postfix programs that
-// dynamics/fixed_tile_pointwise.py records from elementwise callables, shared
-// by pointwise_fixed.cu (kernel 2.10) and thermo_fixed.cu (the flux
-// programs of kernel 2.11).
+// Per-point operations of the programs that dynamics/fixed_tile_pointwise.py
+// records from elementwise callables: the helpers that the units generated
+// by dynamics/fixed_tile_codegen.py call with constant op codes, for the
+// pointwise units of kernel 2.10 and the flux functors of the column kernel
+// 2.11 (thermo_column.cuh).
 //
-// A program is a list of (op, a, b): constants k[a], arrays p[a][point],
-// 0-d values p[a][0], the argument T (the surface temperature of a flux),
-// radiative emission k[a]·(T + k[b])⁴, registers (STORE keeps the top of the
-// stack, LOAD pushes it again), and the float32 operations PyTorch computes
-// on the card, in its forms: x / c for a Python number c is x·(1/c) (DIVC),
-// remainder is fmod with the sign of the divisor, clamp and minimum/maximum
-// pass NaN through, a comparison gives 1 or 0, where selects on a nonzero
-// condition.  Sources that include this header are built with -fmad=false,
-// so no multiply and add are contracted across two operations.
+// The operations are the float32 ones PyTorch computes on the card, in its
+// forms: x / c for a Python number c is x·(1/c) (OP_DIVC, written out by the
+// generator), remainder is fmod with the sign of the divisor, clamp and
+// minimum/maximum pass NaN through, a comparison gives 1 or 0, where selects
+// on a nonzero condition.  Sources that include this header are built with
+// -fmad=false, so no multiply and add are contracted across two operations.
 
 #pragma once
 
@@ -24,14 +22,6 @@ enum Op {
   OP_SUB, OP_MUL, OP_DIV, OP_DIVC, OP_REM, OP_MIN, OP_MAX, OP_LT, OP_LE, OP_GT, OP_GE,
   OP_EQ, OP_NE, OP_AND, OP_OR, OP_NEG, OP_RECIP, OP_SIN, OP_COS, OP_EXP, OP_SQRT, OP_ABS,
   OP_NOT, OP_CLAMP, OP_WHERE, N_OPS
-};
-
-constexpr int MAX_STACK = 16, MAX_REGS = 24;
-
-template <int MAX_OPS>
-struct Prog {
-  int n;
-  int op[MAX_OPS], a[MAX_OPS], b[MAX_OPS];
 };
 
 __device__ __forceinline__ float binary(int op, float x, float y) {
@@ -71,67 +61,13 @@ __device__ __forceinline__ float unary(int op, float x) {
   }
 }
 
-// The program's value at `point`, with T for OP_TEMP.
-template <int MAX_OPS>
-__device__ float run(const Prog<MAX_OPS>& g, const float* k, const float* const* p,
-                     long long point, float T) {
-  float st[MAX_STACK];
-  float reg[MAX_REGS];
-  int top = 0;
-  for (int q = 0; q < g.n; ++q) {
-    const int op = g.op[q], a = g.a[q], b = g.b[q];
-    switch (op) {
-      case OP_CONST: st[top++] = k[a]; break;
-      case OP_ARRAY: st[top++] = p[a][point]; break;
-      case OP_SCALAR: st[top++] = p[a][0]; break;
-      case OP_TEMP: st[top++] = T; break;
-      case OP_EMISSION: st[top++] = k[a] * powf(T + k[b], 4.0f); break;
-      case OP_LOAD: st[top++] = reg[a]; break;
-      case OP_STORE: reg[a] = st[top - 1]; break;
-      case OP_DIVC: st[top - 1] = st[top - 1] * (1.0f / k[a]); break;
-      case OP_CLAMP: {          // torch.clamp with number bounds
-        float v = st[top - 1];
-        if (v == v) {
-          if (a >= 0) v = fmaxf(v, k[a]);
-          if (b >= 0) v = fminf(v, k[b]);
-        }
-        st[top - 1] = v;
-        break;
-      }
-      case OP_WHERE: {
-        const float y = st[--top];
-        const float x = st[--top];
-        st[top - 1] = st[top - 1] != 0.0f ? x : y;
-        break;
-      }
-      default:
-        if (op >= OP_NEG) {
-          st[top - 1] = unary(op, st[top - 1]);
-        } else {
-          const float y = st[--top];
-          st[top - 1] = binary(op, st[top - 1], y);
-        }
-    }
+// torch.clamp with number bounds (either may be absent): NaN passes through
+__device__ __forceinline__ float clamp(float v, bool has_lo, float lo, bool has_hi, float hi) {
+  if (v == v) {
+    if (has_lo) v = fmaxf(v, lo);
+    if (has_hi) v = fminf(v, hi);
   }
-  return st[0];
-}
-
-// Reads a program from `ints` at `at` (count, then (op, a, b) triples);
-// returns -1 where it does not fit or names an unknown operation.
-template <int MAX_OPS>
-int read_prog(const int* ints, int n_ints, int& at, Prog<MAX_OPS>& g) {
-  if (at >= n_ints) return -1;
-  g.n = ints[at++];
-  if (g.n < 1 || g.n > MAX_OPS || at + 3 * g.n > n_ints) return -1;
-  for (int q = 0; q < g.n; ++q) {
-    g.op[q] = ints[at++];
-    g.a[q] = ints[at++];
-    g.b[q] = ints[at++];
-    if (g.op[q] < 0 || g.op[q] >= N_OPS) return -1;
-    if ((g.op[q] == OP_LOAD || g.op[q] == OP_STORE) && (g.a[q] < 0 || g.a[q] >= MAX_REGS))
-      return -1;
-  }
-  return 0;
+  return v;
 }
 
 }  // namespace csi_prog

@@ -20,9 +20,9 @@
 // and Snow, and instantiates this header with them.  A functor's
 // prologue(A, pt) computes once per point the values that do not depend on
 // the surface temperature; flux(A, T) computes the rest, at every secant
-// iterate.  Every operation of the program is kept, with the semantics of
-// pointwise_program.cuh's interpreter, so each value has the interpreter's
-// bits.  Constants, pointers and 0-d values travel in the launch arguments.
+// iterate.  Every operation of the program is kept, through
+// pointwise_program.cuh's helpers, so each value has the bits of the
+// program's operations in order.  Constants, pointers and 0-d values travel in the launch arguments.
 //
 // What bounds it on an H100: for the bare-ice slice with 20 secant
 // iterations the column needs 254 float32 operations per point (counted
@@ -67,15 +67,6 @@ struct Args {
   float k[MAX_K];
   const float* p[MAX_PTRS];
 };
-
-// torch.clamp with number bounds (either may be absent): NaN passes through
-__device__ __forceinline__ float clamp(float v, bool has_lo, float lo, bool has_hi, float hi) {
-  if (v == v) {
-    if (has_lo) v = fmaxf(v, lo);
-    if (has_hi) v = fminf(v, hi);
-  }
-  return v;
-}
 
 // x / c for a Python number c, as PyTorch's CUDA division computes it
 __device__ __forceinline__ float rdiv(float x, float c) { return x * (1.0f / c); }

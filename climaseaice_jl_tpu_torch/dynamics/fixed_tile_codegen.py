@@ -1,5 +1,10 @@
-"""Straight-line CUDA code from the recorded flux programs of the fixed-tile
-column thermodynamics (kernel 2.11).
+"""Straight-line CUDA code from recorded programs: the flux programs of the
+fixed-tile column thermodynamics (kernel 2.11) and the elementwise callables
+of the fixed-tile pointwise kernel (2.10).
+
+A pointwise program (:mod:`.fixed_tile_pointwise`) becomes one function that
+computes its SSA values in the program's order at a point, and a kernel that
+calls it at every point (:func:`pointwise_unit_source`).
 
 The column kernel evaluates its top heat flux at every iterate of the
 surface-temperature secant, 22 times a point.  A flux is a postfix program
@@ -11,8 +16,9 @@ emission (``OP_EMISSION``) or reads a T-dependent value.  The generated
 functor computes the T-independent values once per point in ``prologue`` and
 the T-dependent ones in ``flux(T)``: every operation of the program is kept,
 with its operands, so no sum is reassociated and no constant is folded
-across a rounding, and each value has the bits the program's interpreter
-(``csrc/pointwise_program.cuh``) gives it.
+across a rounding, and each value has the bits of the program's operation
+on its operands (``csrc/pointwise_program.cuh``'s helpers), as the earlier
+interpreter of the programs computed them.
 
 :func:`unit_source` writes one CUDA unit for the three programs of a
 configuration (top flux, bottom flux, snowfall): the functors, and a C entry
@@ -153,13 +159,62 @@ def unit_source(programs) -> str:
     return ("// Generated by climaseaice_jl_tpu_torch/dynamics/fixed_tile_codegen.py from the\n"
             "// flux programs of one configuration; built by _build.py.\n"
             '#include "thermo_column.cuh"\n\n'
-            "namespace {\n\nusing namespace csi_prog;\nusing csi_thermo::Args;\n"
-            "using csi_thermo::clamp;\n\n"
+            "namespace {\n\nusing namespace csi_prog;\nusing csi_thermo::Args;\n\n"
             f"{functors}\n}}  // namespace\n\n"
             'extern "C" int csi_thermo_unit(const int* ints, int n_ints, const float* consts,\n'
             "                               int n_k, const void* const* ptrs, int n_p,\n"
             "                               float* out, void* stream) {\n"
             f"  return csi_thermo::launch<{', '.join(FLUXES)}>(ints, n_ints, consts, n_k, ptrs,\n"
             "                                               n_p, out, stream);\n}\n\n"
+            'extern "C" const char* csi_cuda_error_string(int code) {\n'
+            "  return cudaGetErrorString(static_cast<cudaError_t>(code));\n}\n")
+
+
+POINTWISE_BLOCK = 256     # threads a block of a pointwise unit
+
+
+def pointwise_unit_source(ops) -> str:
+    """The CUDA unit of a bound pointwise program: ``value(A, pt)`` computes
+    its SSA values in order at point ``pt`` (constants read where they are
+    used), the kernel ``pointwise_unit`` writes it at one point a thread, a
+    block's points contiguous and its threads' loads coalesced, and the C
+    entry ``csi_pointwise_unit`` launches it.  A program with the column
+    kernel's surface temperature or emission is refused."""
+    values = ssa(ops)
+    if any(v.op in (OP_TEMP, OP_EMISSION) for v in values):
+        raise ValueError("a pointwise program reads no surface temperature or emission")
+
+    def name(j):
+        return _expr(values[j], name) if values[j].op == OP_CONST else f"v{j}"
+
+    body = "".join(f"  const float v{i} = {_expr(v, name)};\n" for i, v in enumerate(values)
+                   if v.op != OP_CONST)
+    return ("// Generated by climaseaice_jl_tpu_torch/dynamics/fixed_tile_codegen.py from the\n"
+            "// recorded program of one elementwise callable; built by _build.py.\n"
+            '#include "pointwise_program.cuh"\n\n'
+            "namespace {\n\nusing namespace csi_prog;\n\n"
+            f"constexpr int MAX_K = {_fp.MAX_K}, MAX_PTRS = {_fp.MAX_PTRS}, "
+            f"BLOCK = {POINTWISE_BLOCK};\n\n"
+            "struct Args {\n  float k[MAX_K];\n  const float* p[MAX_PTRS];\n};\n\n"
+            "__device__ __forceinline__ float value(const Args& A, long long pt) {\n"
+            f"{body}  return {name(len(values) - 1)};\n}}\n\n"
+            "__global__ void __launch_bounds__(BLOCK) pointwise_unit(const __grid_constant__ Args A,\n"
+            "                                                      float* __restrict__ out,\n"
+            "                                                      long long n) {\n"
+            "  const long long pt = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;\n"
+            "  if (pt < n) out[pt] = value(A, pt);\n}\n\n}  // namespace\n\n"
+            "// The program at each of the n points into `out` on `stream`, one point a\n"
+            "// thread; `consts` and `ptrs` are host arrays of its constants and device\n"
+            "// pointers.  Returns 0, a CUDA error, or -1 for arguments it cannot take.\n"
+            'extern "C" int csi_pointwise_unit(const float* consts, int n_k, const void* const* ptrs,\n'
+            "                                  int n_p, float* out, long long n, void* stream) {\n"
+            "  if (n_k > MAX_K || n_p > MAX_PTRS) return -1;\n"
+            "  Args A{};\n"
+            "  for (int q = 0; q < n_k; ++q) A.k[q] = consts[q];\n"
+            "  for (int q = 0; q < n_p; ++q) A.p[q] = static_cast<const float*>(ptrs[q]);\n"
+            "  if (n <= 0) return 0;\n"
+            "  const unsigned blocks = static_cast<unsigned>((n + BLOCK - 1) / BLOCK);\n"
+            "  pointwise_unit<<<blocks, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(A, out, n);\n"
+            "  return static_cast<int>(cudaGetLastError());\n}\n\n"
             'extern "C" const char* csi_cuda_error_string(int code) {\n'
             "  return cudaGetErrorString(static_cast<cudaError_t>(code));\n}\n")

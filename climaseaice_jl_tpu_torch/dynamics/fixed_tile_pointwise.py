@@ -1,6 +1,6 @@
 """Fixed-tile pointwise evaluation of an elementwise callable: the recorder
-that turns the callable into a program, the CUDA kernel's wrapper and its
-plain version.
+that turns the callable into a program, the plan that compiles the program
+into a CUDA unit and launches it, and the plain version.
 
 Counterpart of `climaseaice_jl_tpu/dynamics/pallas_pointwise.py:
 fixed_tile_pointwise`, which re-traces any elementwise callable of arrays
@@ -11,10 +11,20 @@ cannot enter a hand-written CUDA kernel, so here the callable is *recorded*:
 it runs once on small placeholder tensors under a
 ``torch.overrides.TorchFunctionMode`` that notes every operation applied to
 them, and the record is compiled into a postfix program (constants, inputs,
-operations, and registers for values used more than once).  The CUDA kernel
-(``csrc/pointwise_fixed.cu``, one thread per point, one launch per call)
-runs that program at every point with a small stack.  A program is recorded
-once per callable and kept, as a jitted JAX caller traces its closure once.
+operations, and registers for values used more than once).  A program is
+recorded once per callable and kept, as a jitted JAX caller traces its
+closure once.
+
+The program is compiled, not interpreted: :class:`_Plan` binds it to
+constant and pointer indices and :mod:`.fixed_tile_codegen` writes it as
+straight-line CUDA code, one SSA value per operation in the program's own
+order, each a call of ``csrc/pointwise_program.cuh``'s helpers with a
+constant op code.  The unit's kernel evaluates it at one point a thread,
+one launch per call; it is built by ``_build`` into ``_build/`` at its first
+launch, named by a hash of its text.  Constants, pointers and 0-d values are
+launch arguments, so the text depends on the callable's operations alone.
+A plan is made once per callable, device, shape and count of inputs; a
+call fills in its arrays' and scalars' pointers and launches.
 
 The operations are those the repo's callables use: ``+ − × ÷``,
 ``remainder``, negation, reciprocal, ``sin``, ``cos``, ``exp``, ``sqrt``,
@@ -26,7 +36,8 @@ card (read through their pointers).  Anything else raises
 NotImplementedError naming the operation, on either device and before
 anything is evaluated: an operation outside the set, a captured array, a
 value read back to Python (data-dependent control flow), a float64
-intermediate.
+intermediate, more constants or inputs than a unit's launch arguments hold
+(``MAX_K``, ``MAX_PTRS``).
 
 Each operation is the one PyTorch computes on the card in float32, with its
 forms: ``x / c`` for a Python number ``c`` is ``x·(1/c)`` with the
@@ -37,7 +48,7 @@ happens in double and meets the tensors as one float32 constant.
 :func:`fixed_tile_pointwise` picks by the tensors' device: CUDA tensors go to
 the kernel, CPU tensors to :func:`fixed_tile_pointwise_reference`, which is
 the callable called eagerly on the arrays.  A CUDA tensor never reaches the
-plain version; a kernel that fails to build or launch raises.
+plain version; a unit that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -51,15 +62,14 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from .. import _build
-from .fused_evp import KernelCounter, cuda_error_string
+from .fused_evp import KernelCounter
 
 # operations (csrc/pointwise_program.cuh, enum Op)
 (OP_CONST, OP_ARRAY, OP_SCALAR, OP_EMISSION, OP_ADD, OP_TEMP, OP_LOAD, OP_STORE,
  OP_SUB, OP_MUL, OP_DIV, OP_DIVC, OP_REM, OP_MIN, OP_MAX, OP_LT, OP_LE, OP_GT, OP_GE,
  OP_EQ, OP_NE, OP_AND, OP_OR, OP_NEG, OP_RECIP, OP_SIN, OP_COS, OP_EXP, OP_SQRT, OP_ABS,
  OP_NOT, OP_CLAMP, OP_WHERE) = range(33)
-MAX_STACK, MAX_REGS = 16, 24            # the kernels' per-thread stack and registers
-MAX_OPS, MAX_K, MAX_PTRS = 192, 64, 16  # csrc/pointwise_fixed.cu's limits
+MAX_K, MAX_PTRS = 64, 16   # constants and pointers a unit's launch arguments hold
 
 _BINARY = {"add": OP_ADD, "sub": OP_SUB, "mul": OP_MUL, "div": OP_DIV, "rem": OP_REM,
            "minimum": OP_MIN, "maximum": OP_MAX, "lt": OP_LT, "le": OP_LE, "gt": OP_GT,
@@ -98,6 +108,20 @@ _LEAVES = ("const", "in", "cap")
 fixed_tile_pointwise_counter = KernelCounter()
 
 
+@dataclasses.dataclass
+class PlanCounter:
+    """Callables recorded and programs bound (each once per plan)."""
+    records: int = 0
+    binds: int = 0
+
+    def reset(self):
+        self.records = 0
+        self.binds = 0
+
+
+plan_counter = PlanCounter()
+
+
 def _f32(x):
     return float(np.float32(x))
 
@@ -114,13 +138,11 @@ class Recording:
     ops: list
     slots: list
     captured: list
-    n_regs: int
-    depth: int
 
-    def bind(self, const, slot, pointer, reg_base=0):
-        """The kernel's (op, a, b) triples: ``const(value)`` gives a constant's
+    def bind(self, const, slot, pointer):
+        """The unit's (op, a, b) triples: ``const(value)`` gives a constant's
         index, ``slot(s)`` an input's (op, a), ``pointer(t)`` a captured
-        tensor's pointer index; registers start at ``reg_base``."""
+        tensor's pointer index."""
         out = []
         for op, a, b in self.ops:
             if op == OP_CONST:
@@ -135,7 +157,7 @@ class Recording:
             elif op == OP_DIVC:
                 out.append((OP_DIVC, const(a), 0))
             elif op in (OP_LOAD, OP_STORE):
-                out.append((op, a + reg_base, 0))
+                out.append((op, a, 0))
             else:
                 out.append((op, 0, 0))
         return out
@@ -327,7 +349,7 @@ class _Recorder(TorchFunctionMode):
                 ops.append((OP_STORE, regs[n], None))
 
         emit(root)
-        depth = top = 0
+        top = 0
         for op, _, _ in ops:
             if op in (OP_CONST, OP_ARRAY, OP_SCALAR, OP_TEMP, OP_LOAD, OP_EMISSION):
                 top += 1
@@ -335,15 +357,9 @@ class _Recorder(TorchFunctionMode):
                 top -= 2
             elif op in _BINARY.values():
                 top -= 1
-            depth = max(depth, top)
         if top != 1:
             raise AssertionError("fixed-tile program does not leave one value")
-        if depth > MAX_STACK or len(regs) > MAX_REGS:
-            raise NotImplementedError(f"a fixed-tile program needs a stack of {depth} and "
-                                      f"{len(regs)} registers (the kernels have {MAX_STACK} "
-                                      f"and {MAX_REGS})")
-        return Recording(ops=ops, slots=list(self.slots), captured=list(self.captured),
-                         n_regs=len(regs), depth=depth)
+        return Recording(ops=ops, slots=list(self.slots), captured=list(self.captured))
 
 
 PLACEHOLDER_SHAPE = (2,)
@@ -358,6 +374,7 @@ def record(fn, make_args, device) -> Recording:
     args = make_args(rec)
     with rec:
         out = fn(*args)
+    plan_counter.records += 1
     return rec.compile(out)
 
 
@@ -411,14 +428,104 @@ def fixed_tile_pointwise_reference(fn, arrays, scalars=()):
 
 # --- the kernel's wrapper -------------------------------------------------------------
 
-def _pointwise_entry():
-    fn = _build.load("pointwise_fixed").csi_pointwise_fixed
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+class _Plan:
+    """What every call of one callable on one device, shape and count of
+    arrays and scalars shares: the recording, its program bound to constant
+    and pointer indices (inputs first: the arrays, then the scalars, then the
+    captured 0-d tensors), the constants (each float32 value once), the
+    generated unit (:func:`.fixed_tile_codegen.pointwise_unit_source`) and
+    its C entry (loaded at the first launch), and the ctypes argument
+    arrays.  A call writes its arrays' and scalars' pointers into the
+    pointer array and launches.  ``text`` and ``name`` work on the CPU too."""
+
+    def __init__(self, fn, n_arrays, n_scalars, device, shape):
+        from .fixed_tile_codegen import pointwise_unit_source
+        self.rec = pointwise_recording(fn, n_arrays, n_scalars, device)
+        self.k, self.tensors, index = [], [], {}
+
+        def const(value):
+            key = np.float32(value).tobytes()
+            if key not in index:
+                index[key] = len(self.k)
+                self.k.append(_f32(value))
+            return index[key]
+
+        def pointer(t):
+            self.tensors.append(t)
+            return len(self.tensors) - 1
+
+        inputs = {("array", i): (OP_ARRAY, pointer(None)) for i in range(n_arrays)}
+        inputs.update({("scalar", i): (OP_SCALAR, pointer(None)) for i in range(n_scalars)})
+        self.ops = self.rec.bind(const, inputs.__getitem__, pointer)
+        plan_counter.binds += 1
+        if len(self.k) > MAX_K or len(self.tensors) > MAX_PTRS:
+            raise NotImplementedError(f"a pointwise program of {len(self.k)} constants and "
+                                      f"{len(self.tensors)} inputs (a unit takes {MAX_K} and "
+                                      f"{MAX_PTRS})")
+        self.n_inputs = n_arrays + n_scalars
+        self.shape, self.device = shape, device
+        self.numel = int(np.prod(shape, dtype=np.int64))
+        self.text = pointwise_unit_source(self.ops)
+        self.name = _build.generated_name("pointwise_unit", self.text)
+        self.k_arr = (ctypes.c_float * max(len(self.k), 1))(*self.k)
+        self.p_arr = (ctypes.c_void_p * len(self.tensors))(
+            *(0 if t is None else t.data_ptr() for t in self.tensors))
+        self.entry = None
+
+    def inputs(self, arrays, scalars):
+        """The tensors behind the unit's pointers for a call, by pointer index."""
+        return list(arrays) + list(scalars) + self.tensors[self.n_inputs:]
+
+    def launch(self, arrays, scalars):
+        """The unit at every point into a new array: one launch, on the
+        current stream of the plan's device, counted in
+        ``fixed_tile_pointwise_counter``."""
+        if self.entry is None:
+            lib = _build.load(self.name, self.text)
+            fn = lib.csi_pointwise_unit
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = lib.csi_cuda_error_string
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+            self.entry = (fn, err, ctypes.addressof(self.k_arr), ctypes.addressof(self.p_arr))
+        fn, err_string, k_addr, p_addr = self.entry
+        p = self.p_arr
+        for i, t in enumerate(arrays):
+            p[i] = t.data_ptr()
+        for i, t in enumerate(scalars, len(arrays)):
+            p[i] = t.data_ptr()
+        out = torch.empty(self.shape, dtype=torch.float32, device=self.device)
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = fn(k_addr, len(self.k), p_addr, len(self.tensors), out.data_ptr(),
+                     self.numel, stream)
+        if err != 0:
+            why = err_string(err).decode() if err > 0 else "arguments the unit cannot take"
+            raise RuntimeError(f"fixed-tile pointwise unit {self.name} launch failed: error "
+                               f"{err} ({why})")
+        fixed_tile_pointwise_counter.calls += 1
+        fixed_tile_pointwise_counter.launches += 1
+        return out
+
+
+_plans = weakref.WeakKeyDictionary()
+
+
+def plan(fn, n_arrays, n_scalars, device, shape) -> _Plan:
+    """The :class:`_Plan` of ``fn`` with ``n_arrays`` arrays of ``shape`` and
+    ``n_scalars`` scalars on ``device``, made at its first call and kept per
+    callable (made anew every call for a callable that is not weakly
+    referable)."""
+    device = torch.device(device)
+    key = (n_arrays, n_scalars, str(device), tuple(shape))
+    try:
+        per_fn = _plans.setdefault(fn, {})
+    except TypeError:
+        return _Plan(fn, n_arrays, n_scalars, device, tuple(shape))
+    if key not in per_fn:
+        per_fn[key] = _Plan(fn, n_arrays, n_scalars, device, tuple(shape))
+    return per_fn[key]
 
 
 def fixed_tile_pointwise(fn, fixed, arrays, scalars=()):
@@ -427,10 +534,10 @@ def fixed_tile_pointwise(fn, fixed, arrays, scalars=()):
     taken as float32, ``scalars`` numbers or 0-d tensors taken as float32,
     ``fixed = (TX, TY)`` the pinned tiles of the mode (the kernel's
     per-point arithmetic depends on neither).  Returns a new float32 array of
-    the arrays' shape.  CUDA tensors go to the kernel (one launch), CPU
-    tensors to :func:`fixed_tile_pointwise_reference`; on both devices ``fn``
-    is recorded first, so that an operation outside the op set raises
-    NotImplementedError."""
+    the arrays' shape.  CUDA tensors go to the callable's generated unit (one
+    launch), CPU tensors to :func:`fixed_tile_pointwise_reference`; on both
+    devices the callable's plan is made first, so that an operation outside
+    the op set raises NotImplementedError."""
     _check_fixed(fixed)
     arrays = [torch.as_tensor(a) for a in arrays]
     if not arrays:
@@ -438,44 +545,11 @@ def fixed_tile_pointwise(fn, fixed, arrays, scalars=()):
     device, shape = arrays[0].device, tuple(arrays[0].shape)
     if any(a.device != device or tuple(a.shape) != shape for a in arrays):
         raise ValueError("fixed_tile_pointwise arrays must share one shape and device")
-    arrays = [a.to(torch.float32) for a in arrays]
+    arrays = [a.to(torch.float32).contiguous() for a in arrays]
     scalars = [_scalar_tensor(s, device) for s in scalars]
-    rec = pointwise_recording(fn, len(arrays), len(scalars), device)
+    p = plan(fn, len(arrays), len(scalars), device, shape)
     if device.type == "cpu":
         return fixed_tile_pointwise_reference(fn, arrays, scalars)
     if device.type != "cuda":
         raise ValueError(f"no pointwise kernel for device {device}")
-    consts, ptrs, keep = [], [], []
-
-    def const(value):
-        consts.append(value)
-        return len(consts) - 1
-
-    def pointer(t):
-        keep.append(t)
-        ptrs.append(t.data_ptr())
-        return len(ptrs) - 1
-
-    inputs = {("array", i): (OP_ARRAY, pointer(a.contiguous())) for i, a in enumerate(arrays)}
-    inputs.update({("scalar", i): (OP_SCALAR, pointer(s)) for i, s in enumerate(scalars)})
-    ops = rec.bind(const, inputs.__getitem__, pointer)
-    if len(ops) > MAX_OPS or len(consts) > MAX_K or len(ptrs) > MAX_PTRS:
-        raise NotImplementedError(f"a pointwise program of {len(ops)} operations, "
-                                  f"{len(consts)} constants and {len(ptrs)} inputs (the "
-                                  f"kernel takes {MAX_OPS}, {MAX_K} and {MAX_PTRS})")
-    ints = [len(ops)] + [x for op in ops for x in op]
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    i_arr = (ctypes.c_int * len(ints))(*ints)
-    k_arr = (ctypes.c_float * max(len(consts), 1))(*consts)
-    p_arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
-    entry = _pointwise_entry()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = entry(ctypes.addressof(i_arr), len(ints), ctypes.addressof(k_arr), len(consts),
-                    ctypes.addressof(p_arr), len(ptrs), out.data_ptr(), out.numel(), stream)
-    if err != 0:
-        raise RuntimeError(f"fixed-tile pointwise kernel launch failed: CUDA error {err} "
-                           f"({cuda_error_string('pointwise_fixed', err)})")
-    fixed_tile_pointwise_counter.calls += 1
-    fixed_tile_pointwise_counter.launches += 1
-    return out
+    return p.launch(arrays, scalars)

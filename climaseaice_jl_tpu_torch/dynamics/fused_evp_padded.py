@@ -35,7 +35,9 @@ launch raises.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -404,15 +406,17 @@ def padded_evp_substeps(params, consts, carry, nsub, grid):
 # the interior along a periodic direction and clamping at the padded edge
 # along a bounded one or one split across ranks (`pallas_evp_padded.py:
 # 585-588`), and shifts inside the tile; a point's neighbours are
-# therefore the gathered images of its padded index − 1.  Both versions here
-# read those images directly (``csrc/evp_prep.cu``: one thread per padded
-# point).  Along a periodic direction the point itself is read from its
-# interior image too, as the gather does.  This differs from
-# :func:`.fused_evp.evp_coefficients`, whose shifts wrap over the padded
-# extent, in the outermost halo ring only.
+# therefore the gathered images of its padded index − 1.  The plain version
+# reads those images directly; the kernel (``csrc/evp_prep.cu``) loads them
+# into a shared-memory tile a block, one point of halo at i−1 and j−1, and
+# forms m and P once a tile point.  Along a periodic direction the point
+# itself is read from its interior image too, as the gather does.  This
+# differs from :func:`.fused_evp.evp_coefficients`, whose shifts wrap over
+# the padded extent, in the outermost halo ring only.
 
-N_PREP_PARAMS = 7   # ρ, P★, C, c_α·Δt, Az, minimum mass, minimum concentration
+N_PREP_PARAMS = 7   # ρ, P★, C, c_α·Δt (c_α in the launch), Az, minimum mass and concentration
 N_PREP_OUT = 10     # P, Pff, gcc, gff, drag_u, invm_u, act_u, drag_v, invm_v, act_v
+PREP_TILE = (8, 32)  # a block's outputs, one a thread: rows along x, columns along y
 
 evp_prep_counter = KernelCounter()
 
@@ -425,8 +429,9 @@ def _prep_sources(ext, n_int, H, wrap, device):
 
 
 def evp_prep_params(model, dt):
-    """The float32[7] parameters of the coefficient kernel, formed as
-    `pallas_evp_padded.py:595-603` forms them; ``dt`` a 0-d float32 tensor."""
+    """The float32[7] parameters of the coefficient kernel's plain version,
+    formed on the device as `pallas_evp_padded.py:595-603` forms them;
+    ``dt`` a 0-d float32 tensor."""
     grid = model.grid
     dyn = model.dynamics
     rheo = dyn.rheology
@@ -436,6 +441,40 @@ def evp_prep_params(model, dt):
                         f32(rheo.relaxation_strength) * dt,
                         f32(grid.dx_cc) * f32(grid.dy_cc),
                         f32(dyn.minimum_mass), f32(dyn.minimum_concentration)])
+
+
+def _host_f32(x):
+    return np.float32(x.item() if isinstance(x, torch.Tensor) else x)
+
+
+class PrepPlan:
+    """The coefficient kernel's parameters for one model, rounded to float32
+    on the host as :func:`evp_prep_params` rounds them on the device: ρ, P★,
+    C, the relaxation strength c_α (the kernel forms c_α·Δt with the 0-d
+    Δt of the call), Az = f32(Δx)·f32(Δy), minimum mass and minimum
+    concentration; ``values`` as Python floats, ``array`` as the ctypes
+    array the launch passes."""
+
+    def __init__(self, model):
+        grid, dyn = model.grid, model.dynamics
+        rheo = dyn.rheology
+        values = (_host_f32(model.sea_ice_density), _host_f32(rheo.ice_compressive_strength),
+                  _host_f32(rheo.ice_compaction_hardening),
+                  _host_f32(rheo.relaxation_strength),
+                  _host_f32(grid.dx_cc) * _host_f32(grid.dy_cc),
+                  _host_f32(dyn.minimum_mass), _host_f32(dyn.minimum_concentration))
+        self.values = tuple(float(v) for v in values)
+        self.array = (ctypes.c_float * N_PREP_PARAMS)(*self.values)
+
+
+_prep_plans = weakref.WeakKeyDictionary()
+
+
+def prep_plan(model) -> PrepPlan:
+    """``model``'s :class:`PrepPlan`, made at its first call."""
+    if model not in _prep_plans:
+        _prep_plans[model] = PrepPlan(model)
+    return _prep_plans[model]
 
 
 def evp_prep_reference(prm, h, a, grid):
@@ -484,38 +523,54 @@ def evp_prep_reference(prm, h, a, grid):
 def _prep_entry():
     fn = _build.load("evp_prep").csi_evp_prep
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def evp_prep(prm, h, a, grid):
+def evp_prep(model, dt, h, a, grid=None, per_fc=None, per_cf=None):
     """The ten coefficient arrays of the substep loop from h and ℵ on
-    ``grid``'s padded shape.  CUDA tensors go to the kernel
-    (``csrc/evp_prep.cu``, one launch), CPU tensors to
-    :func:`evp_prep_reference`."""
-    device = prm.device
+    ``grid``'s padded shape (default ``model.grid``; a shard's grid with the
+    serial model's parameters), at the 0-d float32 time step ``dt``; with
+    the peripheral masks ``per_fc``, ``per_cf`` (bool arrays), act_u and
+    act_v are zero where they are set.  CUDA tensors go to the kernel
+    (``csrc/evp_prep.cu``: one launch, one output point a thread, the
+    parameters from the model's :class:`PrepPlan`, no other device
+    operation), CPU tensors to :func:`evp_prep_reference`."""
+    grid = model.grid if grid is None else grid
+    device = h.device
     if device.type == "cpu":
-        if h.device != device or a.device != device:
+        if a.device != device or dt.device != device:
             raise ValueError("coefficient tensors span devices")
-        return evp_prep_reference(prm, h, a, grid)
+        out = list(evp_prep_reference(evp_prep_params(model, dt), h, a, grid))
+        for k, per in ((6, per_fc), (9, per_cf)):
+            if per is not None:
+                out[k] = out[k] * (~per).to(torch.float32)
+        return tuple(out)
     if device.type != "cuda":
         raise ValueError(f"no coefficient kernel for device {device}")
-    if prm.dtype != torch.float32 or tuple(prm.shape) != (N_PREP_PARAMS,) \
-            or not prm.is_contiguous():
-        raise ValueError(f"prep parameters must be a contiguous float32[{N_PREP_PARAMS}]")
+    if dt.device != device or dt.dtype != torch.float32 or dt.dim() != 0:
+        raise ValueError(f"dt must be a 0-d float32 tensor on {device}")
     for q in (h, a):
         if (q.device != device or q.dtype != torch.float32 or tuple(q.shape) != grid.shape
                 or not q.is_contiguous()):
             raise ValueError(f"h and ℵ must be contiguous float32 {grid.shape} tensors "
                              f"on {device}")
+    masks = []
+    for per in (per_fc, per_cf):
+        if per is not None and (per.device != device or per.dtype != torch.bool
+                                or tuple(per.shape) != grid.shape or not per.is_contiguous()):
+            raise ValueError(f"peripheral masks must be contiguous bool {grid.shape} tensors "
+                             f"on {device}")
+        masks.append(None if per is None else per.data_ptr())
+    plan = prep_plan(model)
     out = torch.empty((N_PREP_OUT,) + grid.shape, dtype=torch.float32, device=device)
     fn = _prep_entry()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(prm.data_ptr(), h.data_ptr(), a.data_ptr(), out.data_ptr(),
-                 grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy, grid.Ny,
-                 int(_wraps(grid, 0)), int(_wraps(grid, 1)), stream)
+        err = fn(ctypes.addressof(plan.array), dt.data_ptr(), h.data_ptr(), a.data_ptr(),
+                 *masks, out.data_ptr(), grid.nxp, grid.nyp, grid.Hx, grid.Nx, grid.Hy,
+                 grid.Ny, int(_wraps(grid, 0)), int(_wraps(grid, 1)), stream)
     if err != 0:
         raise RuntimeError(f"EVP coefficient kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('evp_prep', err)})")
@@ -539,14 +594,15 @@ def padded_evp_inputs(model, state, dt, u_start, v_start):
     masks = model.masks
     f32 = grid.scalar
     dt = f32(dt)
-    if dyn.solver.fixed_tiles is not None:
+    if dyn.solver.fixed_tiles is not None:     # act_u, act_v masked by the kernel
         (P, Pff, gcc, gff, drag_u, invm_u, act_u, drag_v, invm_v, act_v) = evp_prep(
-            evp_prep_params(model, dt), state.h.contiguous(), state.a.contiguous(), grid)
+            model, dt, state.h.contiguous(), state.a.contiguous(), grid,
+            masks.per_fc.contiguous(), masks.per_cf.contiguous())
     else:
         (P, Pff, gcc, gff, drag_u, invm_u, act_u,
          drag_v, invm_v, act_v) = evp_coefficients(model, state, dt)
-    act_u = act_u * (~masks.per_fc).to(torch.float32)
-    act_v = act_v * (~masks.per_cf).to(torch.float32)
+        act_u = act_u * (~masks.per_fc).to(torch.float32)
+        act_v = act_v * (~masks.per_cf).to(torch.float32)
     # 1 where σ₁₁, σ₂₂ are read (a shard without land has no solid mask)
     msk_cc = (torch.ones(grid.shape, dtype=torch.float32, device=grid.device)
               if masks.solid_cc is None else (~masks.solid_cc).to(torch.float32))

@@ -989,9 +989,10 @@ def test_cuda_wide_halo_kernels_match_plain(cuda_device):
             out = tpad.padded_evp_substeps(params, consts, [q.clone() for q in carry], NSUB, lg)
             ref = tpad.padded_evp_substeps_reference(params, consts, carry, NSUB, lg)
         else:
-            prm = tpad.evp_prep_params(m, g.scalar(DT))
+            dt = g.scalar(DT)
+            prm = tpad.evp_prep_params(m, dt)
             h, a = cut(s.h), cut(s.a)
-            assert all(torch.equal(o, r) for o, r in zip(tpad.evp_prep(prm, h, a, lg),
+            assert all(torch.equal(o, r) for o, r in zip(tpad.evp_prep(m, dt, h, a, lg),
                                                          tpad.evp_prep_reference(prm, h, a, lg)))
             out = ttp.tiled_padded_evp_substeps(params, consts, [q.clone() for q in carry],
                                                 NSUB, lg, fixed)

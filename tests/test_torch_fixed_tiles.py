@@ -229,6 +229,139 @@ def test_prep_matches_jax(topology):
             np.testing.assert_array_equal(b, expect[name].astype(np.float32), err_msg=name)
 
 
+def _prep_case(case, P_star=27.5):
+    """h and ℵ for 2.4 at varied values (some ℵ below the minimum
+    concentration, h = 0 on land): the file's bounded + island slice, its
+    periodic-x slice without land, and shard (1, 1) of a (2, 2) mesh of the
+    periodic island with halo 13, where no direction wraps (split)."""
+    from test_torch_immersed import _shard_model
+    kw = dict(P_star=P_star, device="cpu")
+    if case == "periodic-x":
+        m = _model(cst, topology=("periodic", "bounded"), land=False, **kw)
+    elif case == "split":
+        m = _model(cst, topology=("periodic", "periodic"), halo=13, **kw)
+    else:
+        m = _model(cst, **kw)
+    rng = np.random.default_rng(4)
+    shape = m.grid.interior_shape
+    s = cst.initial_state(m, h=torch.tensor(1.0 + 0.5 * rng.random(shape), dtype=torch.float32),
+                          a=torch.tensor(rng.random(shape), dtype=torch.float32))
+    if case == "split":
+        m, s = _shard_model(m, s, (1, 1), 13)
+    g = m.grid
+    assert tadv._wraps(g, 0) == (case == "periodic-x") and not tadv._wraps(g, 1)
+    return m, s
+
+
+def _prep_schedule(prm, h, a, grid, per=(None, None), halo=1):
+    """2.4's block schedule (csrc/evp_prep.cu) emulated on the CPU: per
+    block of PREP_TILE outputs, the (BY + halo) × (BX + halo) tile of h and
+    ℵ at the kernel's images (the remainder only in a wrapped direction's
+    halo, the ragged edge read at the last row or column), NaN beyond the
+    tile, m and P once a tile point, and the ten outputs in the kernel's
+    operation order, act_u and act_v zero where the peripheral masks are
+    set."""
+    BY, BX = tpad.PREP_TILE
+    rho, Pstar, Chard, cadt, az, mass_min, conc_min = prm
+    wx, wy = tadv._wraps(grid, 0), tadv._wraps(grid, 1)
+
+    def image(k, ext, H, N, wrap):
+        k = np.minimum(k, ext - 1)
+        if wrap:
+            return np.where((k >= H) & (k < H + N), k, H + np.mod(k - H, N))
+        return np.clip(k, 0, ext - 1)
+
+    out = torch.full((tpad.N_PREP_OUT,) + grid.shape, float("nan"))
+    for i0 in range(0, grid.nxp, BY):
+        for j0 in range(0, grid.nyp, BX):
+            rows = image(np.arange(i0 - 1, i0 + BY), grid.nxp, grid.Hx, grid.Nx, wx)
+            cols = image(np.arange(j0 - 1, j0 + BX), grid.nyp, grid.Hy, grid.Ny, wy)
+            ht, at = h[rows][:, cols].clone(), a[rows][:, cols].clone()
+            for q in (ht, at):
+                q[:1 - halo] = float("nan")
+                q[:, :1 - halo] = float("nan")
+            m = ht * at * rho
+            P = Pstar * ht * torch.exp(-Chard * (1.0 - at))
+
+            def ff(q):
+                return 0.5 * (0.5 * (q[1:, 1:] + q[1:, :-1]) + 0.5 * (q[:-1, 1:] + q[:-1, :-1]))
+
+            m_cc = m[1:, 1:]
+            m_fc, a_fc = 0.5 * (m_cc + m[:-1, 1:]), 0.5 * (at[1:, 1:] + at[:-1, 1:])
+            m_cf, a_cf = 0.5 * (m_cc + m[1:, :-1]), 0.5 * (at[1:, 1:] + at[1:, :-1])
+            m_ff = ff(m)
+            invm_u = torch.where(m_fc > 0, 1.0 / m_fc, 0.0)
+            invm_v = torch.where(m_cf > 0, 1.0 / m_cf, 0.0)
+            ni, nj = min(BY, grid.nxp - i0), min(BX, grid.nyp - j0)
+            act = []
+            for mq, aq, mask in ((m_fc, a_fc, per[0]), (m_cf, a_cf, per[1])):
+                ok = (mq >= mass_min) & (aq >= conc_min)
+                if mask is not None:
+                    ok = ok & ~torch.nn.functional.pad(mask[i0:i0 + ni, j0:j0 + nj],
+                                                       (0, BX - nj, 0, BY - ni))
+                act.append(ok.to(torch.float32))
+            vals = (P[1:, 1:], ff(P), torch.where(m_cc > 0, cadt / (m_cc * az), -1.0),
+                    torch.where(m_ff > 0, cadt / (m_ff * az), -1.0), invm_u * a_fc, invm_u,
+                    act[0], invm_v * a_cf, invm_v, act[1])
+            for k, q in enumerate(vals):
+                out[k, i0:i0 + ni, j0:j0 + nj] = q[:ni, :nj]
+    return out.unbind(0)
+
+
+@pytest.mark.parametrize("case", ["bounded-island", "periodic-x", "split"])
+def test_prep_schedule_matches_plain_version(case):
+    """2.4's block schedule, emulated on the CPU as the kernel tiles it,
+    equals evp_prep_reference bitwise over the whole padded arrays, and with
+    the peripheral masks evp_prep's masked act_u, act_v."""
+    m, s = _prep_case(case)
+    g = m.grid
+    prm = tpad.evp_prep_params(m, g.scalar(120.0))
+    ref = tpad.evp_prep_reference(prm, s.h, s.a, g)
+    out = _prep_schedule(prm, s.h, s.a, g)
+    for k, (r, o) in enumerate(zip(ref, out)):
+        assert torch.equal(r.view(torch.int32), o.view(torch.int32)), (case, k)
+    masks = (m.masks.per_fc, m.masks.per_cf)
+    assert masks[0].any() or case == "periodic-x"
+    ref = tpad.evp_prep(m, g.scalar(120.0), s.h, s.a, g, *masks)
+    out = _prep_schedule(prm, s.h, s.a, g, per=masks)
+    for k, (r, o) in enumerate(zip(ref, out)):
+        assert torch.equal(r.view(torch.int32), o.view(torch.int32)), (case, "masked", k)
+
+
+@pytest.mark.parametrize("case", ["bounded-island", "split"])
+def test_prep_schedule_needs_its_halo(case):
+    """One point short of the tile's halo, the emulated schedule reads NaN
+    at the i−1 and j−1 neighbours of each block's first row and column."""
+    m, s = _prep_case(case)
+    g = m.grid
+    prm = tpad.evp_prep_params(m, g.scalar(120.0))
+    ref = tpad.evp_prep_reference(prm, s.h, s.a, g)
+    out = _prep_schedule(prm, s.h, s.a, g, halo=0)
+    assert torch.isnan(out[1]).any()
+    assert not all(torch.equal(r.view(torch.int32), o.view(torch.int32))
+                   for r, o in zip(ref, out))
+
+
+@pytest.mark.parametrize("case, P_star", [("bounded-island", 27.5), ("periodic-x", 27500.0),
+                                          ("split", 27.5)])
+def test_prep_plan_rounds_as_the_device_params(case, P_star):
+    """The coefficient kernel's parameters rounded on the host (the model's
+    PrepPlan) are evp_prep_params' values bitwise, c_α·Δt, which the kernel
+    forms, the same float32 product at every Δt; the plan is made once per
+    model."""
+    m, _ = _prep_case(case, P_star)
+    plan = tpad.prep_plan(m)
+    assert tpad.prep_plan(m) is plan
+    for dt in (40.0, 120.0, 600.0 / 7):
+        dt = m.grid.scalar(dt)
+        want = tpad.evp_prep_params(m, dt)
+        host = [np.float32(v) for v in plan.values]
+        host[3] = host[3] * np.float32(dt.item())
+        assert np.array_equal(np.array(host, np.float32).view(np.int32),
+                              want.numpy().view(np.int32))
+        assert list(plan.array) == list(plan.values)
+
+
 # --- 2.5: the tiled EVP loop ---------------------------------------------------------
 
 @pytest.mark.parametrize("case", ["bounded-island", "periodic-x"])
@@ -822,17 +955,27 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cuda_prep_matches_plain(cuda_device):
     """The coefficient kernel against its plain version on the card: within
-    1 ulp at every padded point."""
+    1 ulp at every padded point, and its raw bits; with the peripheral masks
+    act_u and act_v those of the plain version masked as the launcher
+    masks them."""
     m = _model(cst, device=cuda_device)
     s = _initial(cst, m)
-    prm = tpad.evp_prep_params(m, m.grid.scalar(120.0))
+    dt = m.grid.scalar(120.0)
+    prm = tpad.evp_prep_params(m, dt)
     ref = tpad.evp_prep_reference(prm, s.h, s.a, m.grid)
     tpad.evp_prep_counter.reset()
-    out = tpad.evp_prep(prm, s.h.contiguous(), s.a.contiguous(), m.grid)
+    out = tpad.evp_prep(m, dt, s.h.contiguous(), s.a.contiguous())
+    masks = (m.masks.per_fc.contiguous(), m.masks.per_cf.contiguous())
+    masked = tpad.evp_prep(m, dt, s.h.contiguous(), s.a.contiguous(), m.grid, *masks)
     torch.cuda.synchronize()
-    assert (tpad.evp_prep_counter.calls, tpad.evp_prep_counter.launches) == (1, 1)
+    assert (tpad.evp_prep_counter.calls, tpad.evp_prep_counter.launches) == (2, 2)
     for a, b in zip(ref, out):
         np.testing.assert_array_max_ulp(a.cpu().numpy(), b.cpu().numpy(), maxulp=1)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for k, (a, b) in enumerate(zip(ref, masked)):
+        if k in (6, 9):
+            a = a * (~masks[k == 9]).to(torch.float32)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), k
 
 
 @pytest.mark.cuda

@@ -559,10 +559,11 @@ def _run_program(rec, inputs, T=None):
     return st[0]
 
 
-def _twin(values, k, tensors):
+def _twin(values, k, tensors, divc=lambda x, c: x / c):
     """A flux's SSA values (fixed_tile_codegen.ssa) evaluated in the
     generated unit's order with the plain version's float32 operations on
-    the CPU (where x / c divides): the T-independent values once, as the
+    the CPU (x / c as ``divc`` forms it: by default it divides, as the
+    column's plain version does): the T-independent values once, as the
     unit's prologue; ``flux(T)`` the rest.  ``k`` and ``tensors`` are the
     plan's constants and the tensors behind its pointers."""
     f32 = lambda x: torch.tensor(x, dtype=torch.float32)   # noqa: E731
@@ -578,7 +579,7 @@ def _twin(values, k, tensors):
         if v.op == fp.OP_EMISSION:
             return k[v.a] * (T + k[v.b]) ** 4
         if v.op == fp.OP_DIVC:
-            return x[0] / f32(k[v.a])
+            return divc(x[0], f32(k[v.a]))
         if v.op == fp.OP_CLAMP:
             return torch.clamp(x[0], None if v.a < 0 else k[v.a], None if v.b < 0 else k[v.b])
         if v.op == fp.OP_WHERE:
@@ -664,14 +665,92 @@ def test_pointwise_winds_match_jax():
         rec = fp.pointwise_recording(fn, 2, 1, torch.device("cpu"))
         prog = _run_program(rec, {("array", 0): lon, ("array", 1): lat, ("scalar", 0): t})
         assert _rel(out.numpy(), prog.numpy()) <= 2e-7, comp
-        assert len(rec.ops) <= fp.MAX_OPS and rec.depth <= fp.MAX_STACK
+        plan = fp.plan(fn, 2, 1, "cpu", g.shape)
+        assert len(plan.k) <= fp.MAX_K and len(plan.tensors) <= fp.MAX_PTRS
     assert fp.fixed_tile_pointwise_counter.calls == 0
     assert torch.equal(db.wind_component(g, SimpleNamespace(time=t), 0, FIXED),
                        db.wind_component(g, SimpleNamespace(time=t), 0))
 
 
+def _many_constants(a):
+    for i in range(fp.MAX_K + 1):
+        a = a + (i + 0.5)
+    return a
+
+
+def _unit_twin(plan, arrays, scalars):
+    """The plan's generated unit evaluated on the CPU: its SSA values
+    (fixed_tile_codegen.ssa of the bound program) in order, on float32
+    tensors, x / c as the unit forms it, x·(1/c) with the reciprocal
+    rounded to float32."""
+    values = codegen.ssa(plan.ops)
+    twin = _twin(values, plan.k, plan.inputs(arrays, scalars),
+                 divc=lambda x, c: x * (torch.tensor(1.0, dtype=torch.float32) / c))
+    return twin(None)
+
+
+def test_pointwise_unit_twin_equals_program():
+    """Both winds' generated units, evaluated by a CPU twin in their SSA
+    order on the basin's coordinates (constants bound once each, inputs by
+    pointer index), equal the recorded program run as the earlier
+    interpreter ran it (`_run_program`) bitwise."""
+    g = _port_grid()
+    lon, lat = g.lon_cc.float().contiguous(), g.lat_cc.float().contiguous()
+    for t in (37 * DAY, 211.5 * DAY):
+        t = g.scalar(t)
+        for fn in db.WINDS:
+            plan = fp.plan(fn, 2, 1, "cpu", g.shape)
+            rec = fp.pointwise_recording(fn, 2, 1, torch.device("cpu"))
+            prog = _run_program(rec, {("array", 0): lon, ("array", 1): lat, ("scalar", 0): t})
+            twin = _unit_twin(plan, (lon, lat), (t,))
+            assert torch.equal(_bits(prog.broadcast_to(g.shape)), _bits(twin)), fn.__name__
+
+
+def test_pointwise_unit_text_is_the_callable_s_alone():
+    """A unit's text holds the program's operations and the indices of its
+    constants and pointers, not their values: the same at every time and
+    for callables that differ in a constant only; straight-line code, no
+    interpreter; a program with the column kernel's temperature is
+    refused."""
+    g = _port_grid()
+    lon, lat = g.lon_cc.float().contiguous(), g.lat_cc.float().contiguous()
+    texts = set()
+    for scale in (1.37, 2.91):
+        fn = lambda lo, la, t, c=scale: db.wind_x(lo, la, t) * c   # noqa: E731
+        for t in (0.0, 37 * DAY):
+            fp.fixed_tile_pointwise(fn, FIXED, (lon, lat), scalars=(t,))
+        plan = fp.plan(fn, 2, 1, "cpu", g.shape)
+        texts.add(plan.text)
+        assert fp._f32(scale) in plan.k
+    (text,) = texts
+    assert "run(" not in text and "switch" not in text and "stack" not in text
+    assert text.count("const float v") == sum(v.op != fp.OP_CONST
+                                              for v in codegen.ssa(plan.ops))
+    assert fp.plan(db.wind_x, 2, 1, "cpu", g.shape).name.startswith("pointwise_unit_")
+    with pytest.raises(ValueError, match="temperature"):
+        codegen.pointwise_unit_source([(fp.OP_TEMP, 0, 0)])
+
+
+def test_pointwise_plan_records_and_binds_once():
+    """A second call through a plan neither records the callable nor binds
+    its program again; another shape makes a second plan from the same
+    recording."""
+    g = _port_grid()
+    lon, lat = g.lon_cc.float().contiguous(), g.lat_cc.float().contiguous()
+    fn = lambda lo, la, t: db.wind_y(lo, la, t)   # noqa: E731
+    fp.plan_counter.reset()
+    first = fp.fixed_tile_pointwise(fn, FIXED, (lon, lat), scalars=(g.scalar(DAY),))
+    assert (fp.plan_counter.records, fp.plan_counter.binds) == (1, 1)
+    second = fp.fixed_tile_pointwise(fn, FIXED, (lon, lat), scalars=(g.scalar(DAY),))
+    assert (fp.plan_counter.records, fp.plan_counter.binds) == (1, 1)
+    assert torch.equal(first, second)
+    assert fp.plan(fn, 2, 1, "cpu", g.shape) is fp.plan(fn, 2, 1, "cpu", g.shape)
+    fp.fixed_tile_pointwise(fn, FIXED, (lon[:4], lat[:4]), scalars=(0.0,))
+    assert (fp.plan_counter.records, fp.plan_counter.binds) == (1, 2)
+
+
 @pytest.mark.parametrize("case", ["tanh", "pow", "captured-array", "python-branch",
-                                  "float64"])
+                                  "float64", "too-many-constants"])
 def test_pointwise_refuses_what_it_cannot_record(case):
     """A callable outside the op set raises NotImplementedError naming what
     it did, on the CPU as on the card, and before anything is evaluated."""
@@ -681,7 +760,8 @@ def test_pointwise_refuses_what_it_cannot_record(case):
            "pow": (lambda a: a ** 3, "pow"),
            "captured-array": (lambda a: a * big, "captured"),
            "python-branch": (lambda a: a if a > 0.5 else -a, "__bool__"),
-           "float64": (lambda a: a.to(torch.float64), "float64")}
+           "float64": (lambda a: a.to(torch.float64), "float64"),
+           "too-many-constants": (_many_constants, "constants")}
     fn, what = fns[case]
     with pytest.raises(NotImplementedError, match=what):
         fp.fixed_tile_pointwise(fn, FIXED, (x,))

@@ -201,8 +201,15 @@ Phases, each of which raises (exit code 1) when it fails:
     the other EVP kernels; each rank's device, ms per step and bytes sent
     per step;
 26. a 128² doubly periodic float64 run under the 'per_substep' policy on
-    the same ranks, 5 steps, within rtol 1e-7, atol 1e-9 of the serial card
-    run (`tests/test_distributed.py:81`'s contract);
+    the same ranks, 5 steps, in the deferred form (local fills in both
+    half-updates, one joint u, v exchange a substep) within rtol 1e-7, atol
+    1e-9 of the serial card run (`tests/test_distributed.py:81`'s contract),
+    and in turns with the per-half-update form (the gate turned off,
+    ``exchange_every_half_update``): interiors bitwise equal
+    between the forms, 22 exchange rounds a step fewer, each form's rounds,
+    ms per step and bytes sent; the first run's ranks write their snapshots
+    and sharded checkpoints, which must restore bitwise and reassemble to
+    the gathered state;
 27. kernels 2.3, 2.4 and 2.5 meshed on shard (1, 1) of a (2, 2) mesh of the
     512² flagship with halos 2·120+3 (742² padded), soft ice, seeded
     velocities, 120 substeps: 2.3 (no fill along the split directions)
@@ -256,6 +263,21 @@ Phases, each of which raises (exit code 1) when it fails:
     the card, float64 as the examples build them: each the short run of
     `tests/test_examples.py` with its assertions, through ``cst.step`` or
     ``Simulation.run``.
+35. the 'overlap' policy on the same ranks and case, on (2, 2) and (1, 4):
+    every rank in the overlap form, interiors bitwise equal to the deferred
+    form's on the same mesh (else within rtol 1e-7, atol 1e-9 of the serial
+    card run), each rank's ms per step beside the deferred form's;
+36. the three builds of phase 33 at 128² (the viscous explicit beta-plane,
+    the forced αEVP flagship in soft ice, free drift as the whole dynamics)
+    on the same ranks on (2, 2), 2, 1 and 2 RK3 steps: h, ℵ, u, v within
+    1e-5 of the serial card run's largest value, the ulp distance printed;
+37. the run loop's I/O with ``bench.py:build(512, 120)``: 4 steps through
+    ``Simulation.run``; 2 steps with a Checkpointer at step 2 and a fresh
+    run picked up from it (``pickup=True``) to step 4, bitwise equal to the
+    uninterrupted run, 2.1 launched 360 times on the resumed path and no
+    other EVP kernel; a NetCDF record of the card's state read back equal;
+    one step under ``run(profile_dir=…)``, whose Chrome trace holds one
+    event of 2.1's kernel per launch the counter saw.
 Phases 31-34 print ms per step (CUDA events, after a warm-up) with the
 card's name and power limit, and their seconds.
 
@@ -272,9 +294,11 @@ import gc
 import json
 import math
 import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside the
@@ -501,11 +525,11 @@ def fixed_basin(Nx, Ny, fixed_tiles=(8, 128), device="cuda", soft=False, seed=No
     return model, cst.initial_state(model, **kw)
 
 
-def rectilinear_contractive(device="cuda", N=128):
+def rectilinear_contractive(device="cuda", N=128, halo_exchange="per_substep"):
     """A doubly periodic float64 rectilinear run in the contractive regime
     (α⁺ = 1e4), as `tests/test_distributed.py:_build` sets it, at N², under
-    the 'per_substep' halo policy: the general path, its fills exchanging
-    on a shard.  Module-level, so that spawned ranks can build it."""
+    the halo policy ``halo_exchange`` (by default 'per_substep'): the general
+    path.  Module-level, so that spawned ranks can build it."""
     import torch
     import climaseaice_jl_tpu_torch as cst
     L = 20 * KM
@@ -515,7 +539,7 @@ def rectilinear_contractive(device="cuda", N=128):
         rheology=cst.ElastoViscoPlasticRheology(max_relaxation_parameter=1e4),
         coriolis=cst.FPlane(f=1e-4), top_momentum_stress={"u": 0.01, "v": 0.01},
         bottom_momentum_stress=cst.SemiImplicitStress(),
-        solver=cst.SplitExplicitSolver(substeps=10, halo_exchange="per_substep"))
+        solver=cst.SplitExplicitSolver(substeps=10, halo_exchange=halo_exchange))
     model = cst.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
                               advection=cst.WENO(order=7), timestepper="ForwardEuler")
 
@@ -634,6 +658,31 @@ def physics_model(cst, variant, N=512, P_star=27500.0, device="cuda"):
                              top_heat_flux=-20.0, bottom_heat_flux=-5.0,
                              advection=cst.WENO(order=7), timestepper="SplitRungeKutta3",
                              forcing=forcing)
+
+
+@contextlib.contextmanager
+def exchange_every_half_update():
+    """The gate of the split-explicit loop's local fills
+    (``momentum.local_loop_ok``) turned off: a shard's loop exchanges after
+    each half-update, the form 'per_substep' had before the deferred one.
+    Module-level, so that a spawned rank can run a case in it."""
+    from climaseaice_jl_tpu_torch.dynamics import momentum
+    gate = momentum.local_loop_ok
+    momentum.local_loop_ok = lambda model, h_min: False
+    try:
+        yield
+    finally:
+        momentum.local_loop_ok = gate
+
+
+def physics_shard(variant, device="cuda", N=128):
+    """Phase 33's build of ``variant`` (``physics_model`` at N², P★ = 27.5
+    for "forced") and its state: the model that phase 36 steps on a mesh of
+    ranks and serially.  Module-level, so that spawned ranks can build it."""
+    import climaseaice_jl_tpu_torch as cst
+    model = physics_model(cst, variant, N=N, P_star=27.5 if variant == "forced" else 27500.0,
+                          device=device)
+    return model, flagship_state(cst, model, velocity_seed=9)
 
 
 class counting:
@@ -1432,6 +1481,84 @@ def physics_phases(cst, card, evp_counters, adv_counter, thermo_counter):
               f"(CUDA events after a warm-up) on {card}")
     print(f"[34] {time.perf_counter() - t0:.1f} s for the nine short runs")
     return forced
+
+
+def io_phase(cst, card, evp_counters):
+    """Phase 37: the run loop's I/O on the card with the flagship
+    ``bench.py:build(512, 120)``: 4 steps through ``Simulation.run``
+    uninterrupted; 2 steps with a Checkpointer at step 2; a fresh run picked
+    up from it (``pickup=True``) to step 4, with 2.1's launches counted on
+    the resumed path, bitwise equal to the uninterrupted run; one NetCDF
+    file of the card's state written and read back; one step under
+    ``run(profile_dir=…)``, whose trace must show 2.1's kernel.  Returns 2.1's
+    launches on the resumed path."""
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+    from climaseaice_jl_tpu_torch.dynamics import fused_evp
+    from climaseaice_jl_tpu_torch.io import Checkpointer, NetCDFWriter
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        model = flagship(cst, 512, 120)
+        fresh = flagship_state(cst, model)
+        straight = cst.Simulation(model, fresh, dt=120.0, stop_iteration=4)
+        straight.run()
+        prefix = os.path.join(work, "flagship")
+        first = cst.Simulation(model, fresh, dt=120.0, stop_iteration=2)
+        first.output_writers["checkpoint"] = Checkpointer(prefix, cst.IterationInterval(2))
+        first.run()
+        resumed = cst.Simulation(model, flagship_state(cst, model), dt=120.0, stop_iteration=4)
+        resumed.output_writers["checkpoint"] = Checkpointer(prefix, cst.IterationInterval(10 ** 9))
+        for c in evp_counters.values():
+            c.reset()
+        resumed.run(pickup=True)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in evp_counters.items() if c.launches}
+        per_step = 3 * -(-120 // fused_evp.chunk_substeps())
+        if launches != {"2.1": 2 * per_step}:
+            raise AssertionError(f"[37] the resumed run launched {launches}, expected 2.1 "
+                                 f"{2 * per_step} times and nothing else")
+        names = ("h", "a", "u", "v", "sig11", "sig22", "sig12", "alpha", "Tu")
+        differ = [n for n in names if not torch.equal(getattr(straight.state, n),
+                                                      getattr(resumed.state, n))]
+        if resumed.iteration != 4 or differ:
+            raise AssertionError(f"[37] pickup: iteration {resumed.iteration}, fields that "
+                                 f"differ from the uninterrupted run: {differ}")
+        print(f"[37] flagship 512²: 4 steps through Simulation.run, and 2 steps with a "
+              f"Checkpointer at step 2 picked up (pickup=True) by a fresh run to step 4: "
+              f"{', '.join(names)} bitwise equal; 2.1 {launches['2.1']} launches on the resumed "
+              f"path ({per_step} a step), no other EVP kernel")
+        nc = os.path.join(work, "flagship.nc")
+        NetCDFWriter(["h", "a", "u", "v"], nc, cst.IterationInterval(1)).maybe_write(resumed)
+        g = model.grid
+        with netcdf_file(nc, "r", mmap=False) as f:
+            back = {n: f.variables[n][0] for n in ("h", "a", "u", "v")}
+            shape = f.variables["h"].shape
+        if not all(np.array_equal(back[n], g.interior(getattr(resumed.state, n)).cpu().numpy())
+                   for n in back):
+            raise AssertionError("[37] the NetCDF file does not hold the card's state")
+        print(f"    one NetCDF record of h, ℵ, u, v from the card's state ({shape}, "
+              f"{os.path.getsize(nc) / 1e6:.2f} MB) read back equal")
+        traced = cst.Simulation(model, resumed.state, dt=120.0, stop_iteration=5)
+        for c in evp_counters.values():
+            c.reset()
+        traced.run(profile_dir=os.path.join(work, "trace"))
+        with open(traced.trace_file) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "periodic_chunk" in e.get("name", "") and "LoadedForms" in e["name"]]
+        if len(kernels) != evp_counters["2.1"].launches or not kernels:
+            raise AssertionError(f"[37] the trace holds {len(kernels)} launches of 2.1's kernel; "
+                                 f"the counter {evp_counters['2.1'].launches}")
+        print(f"    run(profile_dir=…) of one step: a Chrome trace of "
+              f"{os.path.getsize(traced.trace_file) / 1e6:.1f} MB with {len(kernels)} launches "
+              f"of 2.1's kernel ({kernels[0]['name'][:60]}…), "
+              f"{sum(e['dur'] for e in kernels) / 1e3:.3f} ms of it, on {card} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        return launches["2.1"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main(argv=None):
@@ -2794,12 +2921,30 @@ def main(argv=None):
     cases = [dict(build=distributed_basin.build,
                   kwargs=dict(Nx=1152, Ny=960, fixed_tiles=fixed, drag=drag), mesh=mesh,
                   steps=steps, dt=dt, names=basin_names) for _, mesh, drag in runs]
-    rect_steps = 5
-    cases.append(dict(build=rectilinear_contractive, mesh=(2, 2), steps=rect_steps, dt=60.0,
-                      names=("u", "v", "h", "a")))
+    # 26: the deferred form and the per-half-update form in turns (the
+    # first with the ranks' snapshots and sharded checkpoints); 35: the
+    # overlap policy on (2, 2) and (1, 4), and the deferred form on (1, 4);
+    # 36: the general physics of phase 31 on (2, 2)
+    rect_steps, uv = 5, ("u", "v", "h", "a")
+    io_dir = tempfile.mkdtemp(prefix="chip_smoke_rank_io_")
+    rect_labels = ["deferred", "half-update", "deferred", "half-update"]
+    for k, form in enumerate(rect_labels):
+        cases.append(dict(build=rectilinear_contractive, mesh=(2, 2), steps=rect_steps, dt=60.0,
+                          names=uv, io=io_dir if k == 0 else None,
+                          **({} if form == "deferred" else
+                             dict(context=exchange_every_half_update))))
+    overlap_runs = [("overlap", (2, 2)), ("overlap", (1, 4)), ("per_substep", (1, 4))]
+    cases += [dict(build=rectilinear_contractive, kwargs=dict(halo_exchange=policy), mesh=mesh,
+                   steps=rect_steps, dt=60.0, names=uv) for policy, mesh in overlap_runs]
+    physics_steps = {"viscous": 2, "forced": 1, "free_drift": 2}
+    cases += [dict(build=physics_shard, kwargs=dict(variant=v), mesh=(2, 2), steps=n, dt=120.0,
+                   names=uv) for v, n in physics_steps.items()]
     t0 = time.perf_counter()
     results = launch.run_cases(cases, 4, timeout=900)
     spawn_s = time.perf_counter() - t0
+    physics_results = results[-len(physics_steps):]
+    overlap_results = results[-len(physics_steps) - len(overlap_runs):-len(physics_steps)]
+    rect_results = results[len(runs):len(runs) + len(rect_labels)]
     serial = {}
     for drag in (True, False):
         m, s = distributed_basin.build(1152, 960, fixed_tiles=fixed, drag=drag)
@@ -2855,24 +3000,95 @@ def main(argv=None):
                                  f"{parted}")
         print(f"    within the band: every differing point in the top {Hm} rows, and off "
               f"the top {distributed_basin.CAP} rows u, v < 2e-2, h, ℵ, hs < 5e-3")
-    rect = results[-1]
+    rect = rect_results[0]
     m, s = rectilinear_contractive()
     for _ in range(rect_steps):
         s = cst.step(m, s, 60.0)
     si = strip_halos(m, s)
+    rect_serial = {n: getattr(si, n).cpu().numpy() for n in uv}
     print(f"[26] 128² periodic rectilinear, float64, 'per_substep' on (2, 2), {rect_steps} "
-          "steps, against the serial card run (rtol 1e-7, atol 1e-9):")
-    for name in ("u", "v", "h", "a"):
-        ref, got = getattr(si, name).cpu().numpy(), rect["fields"][name]
+          "steps, in the deferred form (one joint u, v exchange a substep), against the serial "
+          "card run (rtol 1e-7, atol 1e-9):")
+    for name in uv:
+        ref, got = rect_serial[name], rect["fields"][name]
         err = np.abs(got - ref).max()
         print(f"  {name:6s} max abs diff {err:.3e}")
         if not np.allclose(got, ref, rtol=1e-7, atol=1e-9):
             raise AssertionError(f"{name}: per_substep distributed run outside rtol 1e-7, "
                                  f"atol 1e-9 of serial ({err:.3e})")
-    r = rect["records"][0]
-    print(f"    rank 0: ms/step {', '.join(f'{t:.1f}' for t in r['ms_per_step'])}, "
-          f"{r['bytes_per_step'] / 1e6:.3f} MB sent a step, on {r['device']} "
-          f"({r['device_name']})")
+    for res in rect_results[1:]:
+        for name in uv:
+            if not np.array_equal(res["fields"][name], rect["fields"][name]):
+                raise AssertionError(f"[26] {name}: the two forms' interiors differ")
+    print("    the deferred and the per-half-update forms (the gate turned off): interiors of "
+          "u, v, h, ℵ bitwise equal in all four runs")
+    for form, res in zip(rect_labels, rect_results):
+        want = "deferred" if form == "deferred" else "exchanging"
+        if any(r["loop"] != want for r in res["records"]):
+            raise AssertionError(f"[26] {form}: loop forms {[r['loop'] for r in res['records']]}")
+        r = res["records"][0]
+        print(f"    {form}, rank 0: {r['rounds_per_step']:.0f} exchange rounds a step, ms/step "
+              f"{', '.join(f'{t:.1f}' for t in r['ms_per_step'])}, "
+              f"{r['bytes_per_step'] / 1e6:.3f} MB sent a step, on {r['device']} "
+              f"({r['device_name']})")
+    saved = (rect_results[1]["records"][0]["rounds_per_step"]
+             - rect["records"][0]["rounds_per_step"])
+    if saved != (10 + 1) * 2:
+        raise AssertionError(f"[26] the deferred form saves {saved} rounds a step, not 22")
+    if not all(r["checkpoint_bitwise"] for r in rect["records"]) or not all(
+            np.array_equal(rect["snapshot"][n], rect["fields"][n]) for n in uv):
+        raise AssertionError("[26] a rank's sharded checkpoint or the reassembled snapshots "
+                             "differ from the state")
+    print(f"    each rank's snapshot and sharded checkpoint written to a temporary directory: "
+          f"the checkpoints restore bitwise on every rank, the reassembled snapshots equal the "
+          f"gathered state ({len(os.listdir(io_dir))} files)")
+    shutil.rmtree(io_dir, ignore_errors=True)
+
+    print(f"[35] the overlap policy, the same case, {rect_steps} steps, on {card}:")
+    deferred14 = overlap_results[2]
+    for (policy, mesh), res in zip(overlap_runs[:2], overlap_results):
+        if any(r["loop"] != "overlap" for r in res["records"]):
+            raise AssertionError(f"[35] {mesh}: loop forms {[r['loop'] for r in res['records']]}")
+        ref = rect if mesh == (2, 2) else deferred14
+        same = all(np.array_equal(res["fields"][n], ref["fields"][n]) for n in uv)
+        if same:
+            print(f"  {mesh}: interiors of u, v, h, ℵ bitwise equal to the deferred form's")
+        else:
+            for name in uv:
+                err = np.abs(res["fields"][name] - rect_serial[name]).max()
+                print(f"  {mesh}: {name} differs from the deferred form; {err:.3e} from the "
+                      "serial card run")
+                if not np.allclose(res["fields"][name], rect_serial[name], rtol=1e-7,
+                                   atol=1e-9):
+                    raise AssertionError(f"[35] {mesh} {name}: outside rtol 1e-7, atol 1e-9 "
+                                         "of the serial run")
+        for r, d in zip(res["records"], ref["records"]):
+            print(f"    rank {r['rank']}: ms/step {', '.join(f'{t:.1f}' for t in r['ms_per_step'])}"
+                  f" (deferred {', '.join(f'{t:.1f}' for t in d['ms_per_step'])}), "
+                  f"{r['rounds_per_step']:.0f} rounds and {r['bytes_per_step'] / 1e6:.3f} MB a "
+                  "step")
+
+    print(f"[36] the general physics of phase 31 on four gloo ranks, (2, 2), 128², against the "
+          f"serial card run, on {card}:")
+    for (variant, n), res in zip(physics_steps.items(), physics_results):
+        m, s = physics_shard(variant)
+        for _ in range(n):
+            s = cst.step(m, s, 120.0)
+        si = strip_halos(m, s)
+        ulps = []
+        for name in uv:
+            ref = torch.as_tensor(getattr(si, name).cpu().numpy())
+            got = torch.as_tensor(res["fields"][name])
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"[36] {variant}: {name} is not finite")
+            rel, _ = rel_diff(ref, got)
+            check(f"{variant} {name}", rel, 1e-5)
+            ulps.append(max_ulp(ref, got))
+        r = res["records"][0]
+        print(f"  {variant}: {n} RK3 steps, {max(ulps)} ulp from the serial card run at most; "
+              f"loop form {r['loop'] or 'none (no split-explicit loop)'}; rank 0 ms/step "
+              f"{', '.join(f'{t:.1f}' for t in r['ms_per_step'])}, "
+              f"{r['rounds_per_step']:.0f} rounds and {r['bytes_per_step'] / 1e6:.3f} MB a step")
     del m, s, si, results
 
     # --- 27. kernels 2.3, 2.4 and 2.5 meshed on one shard of paths A and B --------------------
@@ -3217,6 +3433,7 @@ def main(argv=None):
                     "2.4": prep_counter, "2.5": tiled_counter, "2.6": curv_counter,
                     "2.7": tc_counter, "2.8": strength_counter}
     forced_launches = physics_phases(cst, card, evp_counters, adv_counter, thermo_counter)
+    io_phase(cst, card, evp_counters)
 
     print(card)
     print(json.dumps({"kernels": [

@@ -30,7 +30,9 @@ mode the result equals the serial step's bit for bit, except with an
 immersed drag on a mesh that splits the north fold across x: there the
 fold halo, which evolves without refills, is not an exact mirror (the drag
 samples each face at its own index), and the result parts from the serial
-one in the rows next to the fold.
+one in the rows next to the fold.  :mod:`.io` writes and restores
+checkpoints (the JAX package's files, both ways) and NPZ and NetCDF output;
+``Simulation.run`` picks up from a checkpoint and writes a device trace.
 """
 
 from .grids import (RectilinearGrid, LatitudeLongitudeGrid, CurvilinearGrid,
@@ -54,5 +56,6 @@ from .dynamics import (FPlane, BetaPlane, LatitudeCoriolis, SemiImplicitStress,
 from .simulation import (Simulation, Callback, IterationInterval, TimeInterval,
                          time_step)
 from .parallel import make_distributed_step, strip_halos, unstrip_halos
+from . import io
 
 __version__ = "0.1.0"

@@ -292,3 +292,32 @@ def horizontal_div_Uc(grid, scheme, u, v, c, masks=None):
     fx = advective_tracer_flux_x(grid, sx, u, c, m_fc)
     fy = advective_tracer_flux_y(grid, sy, v, c, m_cf)
     return (dxc(fx) + dyc(fy)) / grid.az_cc
+
+
+def div_Uah(grid, scheme, u, v, a, h, masks=None):
+    """∇·(U ℵ h) in the flux-ratio form, each face flux the product of the
+    ℵ flux over the face length and the h flux over the velocity
+    (`advection.py:310-335`, mirroring the reference's `div_Uℵh`).  For API
+    parity: no tendency calls it."""
+    if scheme is None:
+        return torch.zeros(grid.shape, dtype=grid.dtype, device=grid.device)
+    if isinstance(scheme, FluxFormAdvection):
+        sx, sy = scheme.x, scheme.y
+    else:
+        sx = sy = scheme
+    m_fc = masks[0] if masks is not None else None
+    m_cf = masks[1] if masks is not None else None
+
+    fa_x = advective_tracer_flux_x(grid, sx, u, a) / grid.dy_fc
+    fh_x = advective_tracer_flux_x(grid, sx, u, h)
+    fx = torch.where(u == 0, 0.0, fa_x * fh_x / torch.where(u == 0, 1.0, u))
+    if m_fc is not None:
+        fx = torch.where(m_fc, 0.0, fx)
+
+    fa_y = advective_tracer_flux_y(grid, sy, v, a) / grid.dx_cf
+    fh_y = advective_tracer_flux_y(grid, sy, v, h)
+    fy = torch.where(v == 0, 0.0, fa_y * fh_y / torch.where(v == 0, 1.0, v))
+    if m_cf is not None:
+        fy = torch.where(m_cf, 0.0, fy)
+
+    return (dxc(fx) + dyc(fy)) / grid.az_cc

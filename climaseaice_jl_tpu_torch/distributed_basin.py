@@ -4,14 +4,18 @@ serially and over a mesh of ranks (:func:`run_distributed`, the script's
 ``main``):
 
     python -m climaseaice_jl_tpu_torch.distributed_basin --size 1152x960 \
-        --mesh 2x2 --fixed-tiles 8x128 [--no-drag] [--steps 3] [--device cpu]
+        --mesh 2x2 --fixed-tiles 8x128 [--no-drag] [--steps 3] [--device cpu] \
+        [--output DIR]
 
 spawns Px·Py ranks on this machine, steps the basin serially and
 distributed, and with ``--fixed-tiles`` gates bit-for-bit equality of u, v,
 h, ℵ and hs, as the script does (`run_distributed_basin.py:270-286`),
 except with the immersed drag on a mesh that splits the fold across x:
-that run is held to :func:`xsplit_drag_band`.  There is no NetCDF output
-(queue 6).
+that run is held to :func:`xsplit_drag_band`.  With ``--output`` each rank
+writes its snapshot and sharded checkpoint there, rank 0's reassembly of
+the snapshots is checked against the gathered state, and h, ℵ, u and v
+stream to ``DIR/dist_basin.nc`` through the NetCDF writer, as the script
+does (`run_distributed_basin.py:177-269`).
 
 A land-masked ``TripolarGrid`` (45°N to the fold, cap from 65°N, halo 5)
 with the script's own idealised continents and the pole-row cells as land;
@@ -37,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import sys
 
 import numpy as np
@@ -228,13 +233,18 @@ def xsplit_drag_band(cmp, rows, max_relaxation):
 
 
 def run_distributed(Nx, Ny, mesh=(1, 4), steps=3, dt=600.0, fixed_tiles=None, thermo=True,
-                    drag=True, max_relaxation=300.0, substeps=24, device=None, timeout=None):
+                    drag=True, max_relaxation=300.0, substeps=24, device=None, timeout=None,
+                    output=None):
     """The basin stepped ``steps`` times serially on ``device`` (default the
     card) and on a ``mesh`` of Px·Py spawned ranks (on the CPU where
     ``device`` is, else on their default devices).
     Returns the serial and gathered interior-only fields (numpy; the y-face
     fields keep the seam row), each rank's record (ms per step, kernel calls
-    and launches, bytes sent per step) and the comparison (:func:`compare`)."""
+    and launches, bytes sent per step) and the comparison (:func:`compare`).
+    With ``output`` (a directory), the ranks' snapshots and sharded
+    checkpoints go there and the result also holds the reassembled
+    ``snapshot`` and the ``netcdf`` file written from it
+    (:func:`write_netcdf`)."""
     from .model import step
     from .parallel import launch, strip_halos
     kw = dict(Nx=Nx, Ny=Ny, substeps=substeps, fixed_tiles=fixed_tiles, thermo=thermo,
@@ -243,15 +253,37 @@ def run_distributed(Nx, Ny, mesh=(1, 4), steps=3, dt=600.0, fixed_tiles=None, th
     names = ("u", "v", "h", "a") + (("hs",) if thermo else ()) + (
         "sig11", "sig22", "sig12", "alpha")
     case = dict(build=build, kwargs=kw, mesh=tuple(mesh), steps=steps, dt=dt, names=names,
-                device="cpu" if on_cpu else None)
+                device="cpu" if on_cpu else None, io=output)
     result = launch.run_cases([case], mesh[0] * mesh[1], timeout=timeout)[0]
     model, state = build(device=device, **kw)
     for _ in range(steps):
         state = step(model, state, dt)
     serial_state = strip_halos(model, state)
     serial = {n: getattr(serial_state, n).cpu().numpy() for n in names}
-    return dict(serial=serial, distributed=result["fields"], records=result["records"],
-                comparison=compare(serial, result["fields"]))
+    out = dict(serial=serial, distributed=result["fields"], records=result["records"],
+               comparison=compare(serial, result["fields"]))
+    if output is not None:
+        out["snapshot"] = result["snapshot"]
+        out["netcdf"] = write_netcdf(model, serial_state, result["snapshot"],
+                                     os.path.join(output, "dist_basin.nc"), dt)
+    return out
+
+
+def write_netcdf(model, state_int, snapshot, path, dt):
+    """Stream h, ℵ, u and v of the reassembled ``snapshot`` (global
+    interior-only numpy fields) to the NetCDF file ``path``: the snapshot's
+    fields put into the interior-only ``state_int`` (whose clock they share),
+    padded and filled, through :class:`.io.NetCDFWriter`."""
+    from .io import NetCDFWriter
+    from .parallel import unstrip_halos
+    from .simulation import Simulation, IterationInterval
+    grid = model.grid
+    upd = {n: torch.as_tensor(q, device=grid.device) for n, q in snapshot.items()
+           if n != "time" and getattr(state_int, n, None) is not None}
+    full = unstrip_halos(model, state_int.evolve(**upd))
+    sim = Simulation(model, full, dt=dt)
+    NetCDFWriter(["h", "a", "u", "v"], path, IterationInterval(1)).maybe_write(sim)
+    return path
 
 
 def main(argv=None):
@@ -270,14 +302,20 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="the serial run's device (default the card)")
     ap.add_argument("--timeout", type=float, default=1800.0,
                     help="seconds the ranks may take before they are stopped")
+    ap.add_argument("--output", default=None, help="a directory for the ranks' snapshots and "
+                    "sharded checkpoints and the NetCDF file of the reassembled fields")
     args = ap.parse_args(argv)
     Nx, Ny = map(int, args.size.split("x"))
     mesh = tuple(map(int, args.mesh.split("x")))
     fixed = tuple(map(int, args.fixed_tiles.split("x"))) if args.fixed_tiles else None
     out = run_distributed(Nx, Ny, mesh, args.steps, args.dt, fixed, not args.no_thermo,
                           not args.no_drag, args.alpha_max, args.substeps, args.device,
-                          args.timeout)
+                          args.timeout, args.output)
     cmp = out["comparison"]
+    snapshot_ok = True
+    if args.output is not None:
+        snapshot_ok = all(np.array_equal(out["snapshot"][n], q)
+                          for n, q in out["distributed"].items())
     errs = {n: c["rel_err"] for n, c in cmp.items()}
     print(json.dumps({
         "grid": f"{Nx}x{Ny} tripolar immersed", "mesh": list(mesh), "steps": args.steps,
@@ -289,13 +327,18 @@ def main(argv=None):
         "devices": [r["device"] for r in out["records"]],
         "ms_per_step": [r["ms_per_step"] for r in out["records"]],
         "bytes_per_step": [r["bytes_per_step"] for r in out["records"]],
-        "staged_through_host": [r["stage"] for r in out["records"]]}))
+        "staged_through_host": [r["stage"] for r in out["records"]],
+        "snapshot_equals_gather": snapshot_ok if args.output else None,
+        "checkpoint_bitwise": ([r["checkpoint_bitwise"] for r in out["records"]]
+                               if args.output else None),
+        "netcdf": out.get("netcdf")}))
     if fixed is not None and mesh[0] > 1 and not args.no_drag:
         ok = xsplit_drag_band(cmp, 2 * args.substeps + 3, args.alpha_max)
     elif fixed is not None:
         ok = all(cmp[n]["points"] == 0 for n in GATED if n in cmp)
     else:
         ok = within_bars(errs, args.alpha_max)
+    ok = ok and snapshot_ok and all(r.get("checkpoint_bitwise", True) for r in out["records"])
     print("OK" if ok else "MISMATCH")
     return 0 if ok else 1
 

@@ -7,12 +7,21 @@ kernels do not take (:func:`~.fused_evp.fused_available`).  The substep
 loop is a Python loop; odd substeps update v then u, even substeps u then v.
 
 On a shard's grid the halo policy decides the velocity fills of the loop
-(`momentum.py:489-534`): under 'per_substep' they are the exchanging fills,
-one exchange a half-update; under 'wide' the local fills, the halos having
-been widened and exchanged once before the step.  The JAX package's
-deferred form of 'per_substep' (local fills within a substep and one joint
-u, v exchange at its end, which gives the same interiors) and the
-'overlap' policy are not ported (queue 9).
+(`momentum.py:489-534`).  Under 'per_substep' with an αEVP rheology, no
+free drift, halos of at least 4 along the split directions and no fold
+split across x (:func:`local_loop_ok`), both half-updates fill locally and
+one joint u, v exchange (:func:`..fields.fill_halos_uv`) ends each substep
+and precedes the loop: the deferred form, half the exchange rounds of one a
+half-update, with the same interiors (a halo cell the substep computes is
+the neighbour's value to a depth of H − 4).  Elsewhere 'per_substep' keeps
+the exchanging fills.  Under 'wide' the fills are local, the halos having
+been widened and exchanged once before the step.  Under 'overlap' (where
+the gate holds with halos of at least 5 and shards of at least
+``_BAND_W`` points along the split directions; else the exchanging fills)
+each substep posts the joint exchange, runs the whole shard on the arrays
+from before it, waits, and runs the substep again on a (2H + 8)-wide band
+at each split edge with the fresh halos, whose H + 4 edge cells replace the
+whole shard's (`momentum.py:345-470, 548-604`).
 
 Immersed boundaries enter as in the JAX package: σ is zeroed at solid cc
 and peripheral ff nodes before the divergence, velocities on peripheral
@@ -36,7 +45,8 @@ import torch
 from ..utils import frozen_dataclass
 from ..ops import ixf, iyf, shift_m
 from ..fields import (fill_halos_fc, fill_halos_cf, fill_halos_many, fill_halos_fc_local,
-                      fill_halos_cf_local)
+                      fill_halos_cf_local, fill_halos_uv, start_fill_halos_uv,
+                      finish_fill_halos_uv, _meshed)
 from ..state import ModelFields
 from .coriolis import x_f_cross_U, y_f_cross_U
 from .stresses import (explicit_tau_x, explicit_tau_y,
@@ -68,8 +78,7 @@ class SplitExplicitSolver:
     ``halo_exchange``: the distributed halo policy of the JAX package
     ('per_substep', 'wide' or 'overlap'; `momentum.py:56-61, 489-534`).
     Only shards read it (:mod:`..parallel.stepper`); serial runs accept and
-    ignore it, as the JAX package does.  'overlap' raises on a shard
-    (queue 9).
+    ignore it, as the JAX package does.
 
     ``fixed_tiles=(TX, TY)`` (``TY=None``: y-spanning slabs) selects the
     decomposition-invariant mode: the EVP coefficients, the EVP substep loop,
@@ -349,18 +358,165 @@ def _make_evp_substep(model, state, dt, clock, P, un, vn, halo_u, halo_v):
     return one
 
 
+# --- the loop's exchanges on a shard ---------------------------------------------
+
+_BAND_W = 8   # interior cells per boundary band: the merge region takes the
+              # substep's stencil depth of 4 cells, whose own stencil reads 4 more
+
+def local_loop_ok(model, h_min):
+    """The JAX package's gate of the substep loop's local fills on a shard
+    (`momentum.py:500-511`): a grid split along some direction, an αEVP
+    rheology (the stencil budget is counted for it), no free drift, halos of
+    at least ``h_min`` along the split directions, and no fold split across
+    x (local fills cannot refresh it)."""
+    dyn, grid = model.dynamics, model.grid
+    return ((_meshed(grid, 0) or _meshed(grid, 1))
+            and isinstance(dyn.rheology, ElastoViscoPlasticRheology)
+            and dyn.free_drift is None
+            and (not _meshed(grid, 0) or grid.Hx >= h_min)
+            and (not _meshed(grid, 1) or grid.Hy >= h_min)
+            and not (grid.north_fold and _meshed(grid, 0)))
+
+
+def loop_form(model):
+    """How the split-explicit loop fills u and v on ``model``'s grid:
+    "deferred" (local fills, one joint exchange a substep), "overlap" (that
+    exchange posted before the whole-shard pass and waited before the edge
+    bands), "local" (the 'wide' policy, or a serial grid) or "exchanging"
+    (an exchange a half-update)."""
+    grid, solver = model.grid, model.dynamics.solver
+    if solver.halo_exchange == "per_substep" and local_loop_ok(model, 4):
+        return "deferred"
+    if (solver.halo_exchange == "overlap" and local_loop_ok(model, 5)
+            and (not _meshed(grid, 0) or grid.Nx >= _BAND_W)
+            and (not _meshed(grid, 1) or grid.Ny >= _BAND_W)):
+        return "overlap"
+    if solver.halo_exchange == "wide" or not (_meshed(grid, 0) or _meshed(grid, 1)):
+        return "local"
+    return "exchanging"
+
+
+def _band_slicer(grid, dim, side):
+    """(cut, paste) for a (2H + _BAND_W)-cell band at one edge of direction
+    ``dim`` (`momentum.py:356-381`); ``paste`` gives the whole array with its
+    H + 4 edge cells (the halo and the 4 interior cells the pass on the
+    arrays from before the exchange got wrong) taken from the band."""
+    H = grid.Hx if dim == 0 else grid.Hy
+    n = grid.nxp if dim == 0 else grid.nyp
+    ext, mw = 2 * H + _BAND_W, H + 4
+    start = 0 if side == 0 else n - ext
+    keep = slice(0, mw) if side == 0 else slice(n - mw, n)
+    from_band = slice(0, mw) if side == 0 else slice(ext - mw, ext)
+
+    def cut(q):
+        if not isinstance(q, torch.Tensor) or q.dim() == 0:
+            return q
+        return q[start:start + ext] if dim == 0 else q[:, start:start + ext]
+
+    def paste(full, band):
+        full = full.clone()
+        if dim == 0:
+            full[keep] = band[from_band]
+        else:
+            full[:, keep] = band[:, from_band]
+        return full
+
+    return cut, paste
+
+
+def _band_submodel(model, dim, side):
+    """The model on one boundary band (`momentum.py:384-445`): the grid's
+    coordinates, metrics, land and masks cut to the band, array stresses
+    cut, StressFunctions evaluated again on the band grid's coordinates.  A
+    south or west band's far edge, which is no edge, gets wall or fold
+    treatment from the local fills only at band cells at least H + _BAND_W
+    deep, outside every read of the merge region; a south band's north edge
+    is not the fold."""
+    from ..grids import _METRIC_LOCS
+    from .stresses import StressFunction, SemiImplicitStress
+    grid = model.grid
+    cut, paste = _band_slicer(grid, dim, side)
+    n = grid.nxp if dim == 0 else grid.nyp
+    ext = 2 * (grid.Hx if dim == 0 else grid.Hy) + _BAND_W
+    start = 0 if side == 0 else n - ext
+
+    def cut_m(m):
+        if not isinstance(m, torch.Tensor) or m.dim() == 0:
+            return m
+        if tuple(m.shape) == grid.shape:
+            return cut(m)
+        if m.dim() == 2 and m.shape[0] == 1:      # (1, nyp) latitude row
+            return cut(m) if dim == 1 else m
+        raise NotImplementedError(f"band slice of metric shape {tuple(m.shape)}")
+
+    def cut1(c):
+        return c[start:start + ext]
+
+    kw = dict(solid_cc=cut_m(grid.solid_cc), lon_cc=cut_m(grid.lon_cc),
+              lat_cc=cut_m(grid.lat_cc), **{f: cut_m(getattr(grid, f)) for f in _METRIC_LOCS})
+    if dim == 0:
+        g = grid.evolve(Nx=_BAND_W, xc=cut1(grid.xc), xf=cut1(grid.xf), **kw)
+    else:
+        g = grid.evolve(Ny=_BAND_W, yc=cut1(grid.yc), yf=cut1(grid.yf),
+                        north_fold=grid.north_fold and side == 1, **kw)
+    m = model.masks
+    bmasks = m.evolve(**{f: cut_m(getattr(m, f)) for f in (
+        "solid_cc", "per_fc", "per_cf", "per_ff", "imm_ff", "solid_full")})
+
+    def cut_s(x):
+        if isinstance(x, torch.Tensor) and x.dim() == 2:
+            return cut(x)
+        return x
+
+    dyn = model.dynamics
+    top = dyn.top_momentum_stress
+    top = {k: cut_s(x) for k, x in top.items()} if isinstance(top, dict) else cut_s(top)
+    bottom = dyn.bottom_momentum_stress
+    if isinstance(bottom, SemiImplicitStress):
+        bottom = dataclasses.replace(bottom, ue=cut_s(bottom.ue), ve=cut_s(bottom.ve))
+    elif not isinstance(bottom, StressFunction):
+        bottom = ({k: cut_s(x) for k, x in bottom.items()} if isinstance(bottom, dict)
+                  else cut_s(bottom))
+    bdyn = dataclasses.replace(dyn, top_momentum_stress=top, bottom_momentum_stress=bottom)
+    return model.evolve(grid=g, masks=bmasks, dynamics=bdyn), cut, paste
+
+
+def _make_bands(model, state, dt, clock, P, un, vn):
+    """One substep closure (:func:`_make_evp_substep`) per split edge, on
+    its band's model with local fills (`momentum.py:448-470`)."""
+    grid = model.grid
+    bands = []
+    for dim in (0, 1):
+        if not _meshed(grid, dim):
+            continue
+        for side in (0, 1):
+            bmodel, cut, paste = _band_submodel(model, dim, side)
+            g = bmodel.grid
+            bstate = state.evolve(
+                h=cut(state.h), a=cut(state.a), hs=cut(state.hs), S=cut(state.S),
+                Tu=cut(state.Tu), Tus=cut(state.Tus),
+                tracers={k: cut(q) for k, q in (state.tracers or {}).items()})
+            one_b = _make_evp_substep(
+                bmodel, bstate, dt, clock, cut(P), cut(un), cut(vn),
+                lambda q, g=g: fill_halos_fc_local(q, g),
+                lambda q, g=g: fill_halos_cf_local(q, g))
+            bands.append((one_b, cut, paste))
+    return bands
+
+
 def split_explicit_momentum_step(model, state, dt, u_start, v_start):
     """N substeps of {αEVP stresses → alternating semi-implicit u/v}, or of
     the alternating updates alone for another rheology.  ``u_start``/
     ``v_start`` are the velocities the substeps start from (Ψ⁻ under RK3).
-    Returns a dict of updated state components: u and v, and with αEVP its
-    auxiliary fields."""
+    The velocity fills follow :func:`loop_form`.  Returns a dict of updated
+    state components: u and v, and with αEVP its auxiliary fields."""
     dyn = model.dynamics
     rheo = dyn.rheology
     grid = model.grid
-    # on a serial grid the local fills are the fills
-    fill_u, fill_v = ((fill_halos_fc_local, fill_halos_cf_local)
-                      if dyn.solver.halo_exchange == "wide" else (fill_halos_fc, fill_halos_cf))
+    form = loop_form(model)
+    local = form != "exchanging"
+    fill_u, fill_v = ((fill_halos_fc_local, fill_halos_cf_local) if local
+                      else (fill_halos_fc, fill_halos_cf))
 
     def halo_u(q):
         return fill_u(q, grid)
@@ -376,19 +532,40 @@ def split_explicit_momentum_step(model, state, dt, u_start, v_start):
 
     one = _make_evp_substep(model, state, dt, state.clock, P, un, vn,
                             halo_u, halo_v)
+    bands = _make_bands(model, state, dt, state.clock, P, un, vn) if form == "overlap" else ()
 
     zeros = torch.zeros(grid.shape, dtype=grid.dtype, device=grid.device)
 
     def _or_zeros(q):
         return q if q is not None else zeros
 
-    carry = (halo_u(u_start), halo_v(v_start), _or_zeros(state.sig11),
+    u0, v0 = (fill_halos_uv(u_start, v_start, grid) if form == "deferred"
+              else (halo_u(u_start), halo_v(v_start)))
+    carry = (u0, v0, _or_zeros(state.sig11),
              _or_zeros(state.sig22), _or_zeros(state.sig12),
              _or_zeros(state.alpha), _or_zeros(state.Delta),
              _or_zeros(state.zeta_cc), _or_zeros(state.zeta_ff))
     for substep in range(1, dyn.solver.substeps + 1):
-        carry = one(*carry, substep)
+        if form == "overlap":
+            # post the exchange, run the whole shard on the arrays from
+            # before it (exact 4 cells in from a split edge), wait, and
+            # recompute each edge's merge region on its band
+            pending = start_fill_halos_uv(carry[0], carry[1], grid)
+            out = one(*carry, substep)
+            u_ex, v_ex = finish_fill_halos_uv(pending)
+            for one_b, cut, paste in bands:
+                b = one_b(cut(u_ex), cut(v_ex), *(cut(q) for q in carry[2:]), substep)
+                out = tuple(paste(o, q) for o, q in zip(out, b))
+            carry = out
+        elif form == "deferred":
+            out = one(*carry, substep)
+            carry = fill_halos_uv(out[0], out[1], grid) + out[2:]
+        else:
+            carry = one(*carry, substep)
     u, v, s11, s22, s12, alpha, Delta, zcc, zff = carry
+    if form == "overlap":
+        # the loop carries stale halos along the split directions
+        u, v = fill_halos_uv(u, v, grid)
     if not is_evp:
         return dict(u=u, v=v)
 

@@ -44,6 +44,21 @@ def strain_rates(grid, u, v):
     return 0.5 * (eD + eT), 0.5 * (eD - eT), 0.5 * eps_S_ff(grid, u, v)
 
 
+def strain_rate_xx(grid, u, v):
+    """ϵ̇₁₁ at cell centres (`rheologies.py:58-59`)."""
+    return 0.5 * (eps_D_cc(grid, u, v) + eps_T_cc(grid, u, v))
+
+
+def strain_rate_yy(grid, u, v):
+    """ϵ̇₂₂ at cell centres."""
+    return 0.5 * (eps_D_cc(grid, u, v) - eps_T_cc(grid, u, v))
+
+
+def strain_rate_xy(grid, u, v):
+    """ϵ̇₁₂ at (f,f) nodes."""
+    return 0.5 * (eps_S_ff(grid, u, v))
+
+
 # --- rheology configurations -------------------------------------------------
 
 @frozen_dataclass

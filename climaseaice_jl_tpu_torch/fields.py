@@ -39,17 +39,23 @@ def _span(dim, a, b=None):
     return (slice(a, b),) if dim == 0 else (slice(None), slice(a, b))
 
 
-def _exchange_pair(qs, dim, grid: Grid):
-    """Ring exchange along ``dim`` for same-shape fields (`fields.py:40-74`):
-    the low halo takes the previous rank's last interior strip, the high
-    halo the next rank's first; every field's strip travels in one stacked
-    message each way."""
+def _start_pair(qs, dim, grid: Grid):
+    """Post the ring exchange along ``dim`` of same-shape fields
+    (`fields.py:40-74`): the low halo takes the previous rank's last
+    interior strip, the high halo the next rank's first; every field's strip
+    travels in one stacked message each way.  Returns a function that waits
+    for the strips and puts them in place."""
     H, N = (grid.Hx, grid.Nx) if dim == 0 else (grid.Hy, grid.Ny)
     to_next = torch.stack([q[_span(dim, N, N + H)] for q in qs])
     to_prev = torch.stack([q[_span(dim, H, 2 * H)] for q in qs])
-    from_prev, from_next = grid.mesh.shift(dim, to_next, to_prev)
-    return [torch.cat([from_prev[k], q[_span(dim, H, H + N)], from_next[k]], dim)
-            for k, q in enumerate(qs)]
+    pending = grid.mesh.start_shift(dim, to_next, to_prev)
+
+    def finish():
+        from_prev, from_next = pending.wait()
+        return [torch.cat([from_prev[k], q[_span(dim, H, H + N)], from_next[k]], dim)
+                for k, q in enumerate(qs)]
+
+    return finish
 
 
 def _bc_meshed(q, grid: Grid, dim: int, face: bool, seam=None):
@@ -77,16 +83,27 @@ def _bc_meshed(q, grid: Grid, dim: int, face: bool, seam=None):
     return q
 
 
-def _fill_split(qs, faces, grid: Grid, dim: int):
-    """Fill direction ``dim``, split across ranks, of same-shape fields at
-    x- or y-face locations ``faces``: one exchange of all their strips, then
+def _start_split(qs, faces, grid: Grid, dim: int):
+    """Post the fill of direction ``dim``, split across ranks, of same-shape
+    fields at x- or y-face locations ``faces``: one exchange of all their
+    strips.  The returned function completes it: the strips in place, then
     the walls on the edge shards, each wall face given back its value."""
     H, N = (grid.Hx, grid.Nx) if dim == 0 else (grid.Hy, grid.Ny)
     seams = [q[_span(dim, H + N, H + N + 1)].clone() if f else None for q, f in zip(qs, faces)]
-    qs = _exchange_pair(qs, dim, grid)
-    if grid.topology[dim] == BOUNDED:
-        qs = [_bc_meshed(q, grid, dim, f, seam=s) for q, f, s in zip(qs, faces, seams)]
-    return qs
+    exchanged = _start_pair(qs, dim, grid)
+
+    def finish():
+        out = exchanged()
+        if grid.topology[dim] == BOUNDED:
+            out = [_bc_meshed(q, grid, dim, f, seam=s) for q, f, s in zip(out, faces, seams)]
+        return out
+
+    return finish
+
+
+def _fill_split(qs, faces, grid: Grid, dim: int):
+    """:func:`_start_split` completed at once."""
+    return _start_split(qs, faces, grid, dim)()
 
 
 def _fill_x(q, grid: Grid, face: bool):
@@ -245,20 +262,30 @@ FILLERS = {
 }
 
 
+def _fill_dims(qs, locs, grid: Grid, dims):
+    """Fill directions ``dims`` of fields at ``locs``, in order; a split
+    direction in one exchange of all the fields' strips."""
+    for dim in dims:
+        faces = [loc[dim] == "f" for loc in locs]
+        if _meshed(grid, dim):
+            qs = _fill_split(qs, faces, grid, dim)
+        else:
+            fill = _fill_x if dim == 0 else _fill_y
+            qs = [fill(q, grid, f) for q, f in zip(qs, faces)]
+    return qs
+
+
+def _fold_all(qs, locs, grid: Grid):
+    return [_maybe_fold(q, grid, loc[0] == "f", loc[1] == "f", _FOLD_SIGN[loc])
+            for q, loc in zip(qs, locs)]
+
+
 def fill_halos_many(qs, locs, grid: Grid):
     """Halo fill for several fields at once; ``locs`` is "cc"/"fc"/"cf"/"ff"
     per field.  Each result equals ``FILLERS[loc](q, grid)``; on a shard
     every split direction's exchange carries all fields' strips in one
     message each way (`fields.py:296-329`)."""
-    qs = list(qs)
-    for dim, fill in ((0, _fill_x), (1, _fill_y)):
-        faces = [loc[dim] == "f" for loc in locs]
-        if _meshed(grid, dim):
-            qs = _fill_split(qs, faces, grid, dim)
-        else:
-            qs = [fill(q, grid, f) for q, f in zip(qs, faces)]
-    return [_maybe_fold(q, grid, loc[0] == "f", loc[1] == "f", _FOLD_SIGN[loc])
-            for q, loc in zip(qs, locs)]
+    return _fold_all(_fill_dims(list(qs), locs, grid, (0, 1)), locs, grid)
 
 
 def fill_halos_uv(u, v, grid: Grid):
@@ -266,6 +293,35 @@ def fill_halos_uv(u, v, grid: Grid):
     one message each way (`fields.py:332-339`)."""
     u, v = fill_halos_many((u, v), ("fc", "cf"), grid)
     return u, v
+
+
+def start_fill_halos_uv(u, v, grid: Grid):
+    """Begin :func:`fill_halos_uv`: post the exchange of the first split
+    direction and return a pending fill for :func:`finish_fill_halos_uv`,
+    so that work which needs no halo can run while the strips travel.  The
+    second split direction's exchange, whose strips carry the corners the
+    first brings, the walls and the fold run when it finishes.  Without a
+    split direction the fill is done here."""
+    locs = ("fc", "cf")
+    split = [dim for dim in (0, 1) if _meshed(grid, dim)]
+    if not split:
+        done = fill_halos_uv(u, v, grid)
+        return lambda: done
+    first = split[0]
+    qs = _fill_dims([u, v], locs, grid, range(first))
+    exchanged = _start_split(qs, [loc[first] == "f" for loc in locs], grid, first)
+
+    def finish():
+        rest = _fill_dims(exchanged(), locs, grid, range(first + 1, 2))
+        return tuple(_fold_all(rest, locs, grid))
+
+    return finish
+
+
+def finish_fill_halos_uv(pending):
+    """``(u, v)`` of a fill begun by :func:`start_fill_halos_uv`, equal to
+    :func:`fill_halos_uv`'s."""
+    return pending()
 
 
 # --- local-only fills ---------------------------------------------------------

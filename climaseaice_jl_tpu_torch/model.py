@@ -411,27 +411,19 @@ def dynamic_step_tracers(model, state, G, dt, base=None):
 
 def meshed_momentum_route(model):
     """The momentum route of a shard's model (a grid that names mesh axes),
-    as the JAX package dispatches it on its TPU (`model.py:401-445`):
+    as the JAX package dispatches it on its TPU (`model.py:397-445`):
     "tiled_curvilinear" (kernel 2.7 on a grid with array metrics or a fold,
     its pinned plan under ``fixed_tiles``, else its unpinned plan), without
     ``fixed_tiles`` "padded" (2.3 meshed), with it "tiled_padded" (2.4 and
-    2.5 meshed), or "general" (the general path: exchanging fills under the
-    'per_substep' halo policy, local fills under 'wide', and under 'wide'
-    where a bounded direction is split, which the kernels' static fills
-    cannot wall).  The 'overlap' policy raises ``NotImplementedError``
-    naming queue 9: a shard never goes quietly to another route; so do
-    dynamics without a ``SplitExplicitSolver`` (free drift as the whole
-    dynamics, ``ExplicitSolver``), whose distributed step is not ported."""
+    2.5 meshed), or "general": the general path, which is also that of free
+    drift as the whole dynamics and of ``ExplicitSolver`` (their fills
+    exchange), of the 'per_substep' and 'overlap' policies (the loop's fills
+    as :func:`.dynamics.momentum.loop_form` says), and under 'wide' of a
+    shard whose bounded direction is split, which the kernels' static fills
+    cannot wall."""
     solver = getattr(model.dynamics, "solver", None)
-    if not isinstance(solver, SplitExplicitSolver):
-        raise NotImplementedError(
-            f"the distributed step of {type(model.dynamics).__name__} with "
-            f"{type(solver).__name__} is not ported yet (queue 9): only "
-            "SplitExplicitSolver dynamics run on a shard")
-    if solver.halo_exchange == "overlap":
-        raise NotImplementedError("the 'overlap' halo policy of the distributed step is not "
-                                  "ported yet (queue 9)")
-    if solver.fused == "never" or solver.halo_exchange != "wide":
+    if (not isinstance(solver, SplitExplicitSolver) or solver.fused == "never"
+            or solver.halo_exchange != "wide"):
         return "general"
     fixed = fixed_tiles(model.grid, model.dynamics) is not None
     if tiled_curvilinear_available(model):
@@ -469,9 +461,6 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     if dyn is None:
         return state
     grid = model.grid
-    if grid.mesh_axes is not None and not isinstance(getattr(dyn, "solver", None),
-                                                     SplitExplicitSolver):
-        meshed_momentum_route(model)              # raises: not ported on shards
     if isinstance(dyn, StressBalanceFreeDrift):
         f = make_fields(model, state)
         u = free_drift_u(grid, dyn, state.clock, f)

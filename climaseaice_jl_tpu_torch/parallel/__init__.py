@@ -6,8 +6,11 @@ local ranks."""
 from .stepper import (ProcessMesh, make_mesh, make_distributed_step, strip_halos,
                       unstrip_halos)
 from .multihost import (initialize, process_index, process_count, default_device,
-                        shard_state, gather_state)
+                        shard_state, gather_state, save_rank_snapshot,
+                        reassemble_rank_snapshots, save_sharded_checkpoint,
+                        load_sharded_checkpoint)
 
 __all__ = ["ProcessMesh", "make_mesh", "make_distributed_step", "strip_halos",
            "unstrip_halos", "initialize", "process_index", "process_count", "default_device",
-           "shard_state", "gather_state"]
+           "shard_state", "gather_state", "save_rank_snapshot", "reassemble_rank_snapshots",
+           "save_sharded_checkpoint", "load_sharded_checkpoint"]

@@ -16,6 +16,7 @@ send and receive take device tensors as they are.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import socket
@@ -26,7 +27,11 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from .. import _build
-from .multihost import initialize, default_device, shard_state, gather_state
+from .multihost import (initialize, default_device, shard_state, gather_state,
+                        save_rank_snapshot, reassemble_rank_snapshots, save_sharded_checkpoint,
+                        load_sharded_checkpoint)
+from ..io.checkpoint import leaves
+from ..dynamics.momentum import SplitExplicitSolver, loop_form
 from .stepper import make_distributed_step, strip_halos
 from ..dynamics import (fused_evp, fused_evp_tiled, fused_evp_padded, fused_evp_curvilinear,
                         fused_evp_tiled_padded, fused_evp_tiled_curvilinear, fixed_tile_advection,
@@ -63,10 +68,18 @@ def _sync(device):
 
 
 def _run_case(case):
-    """One case on this rank: ``(rank 0's result or None)``.  The result
-    holds the gathered interior-only fields as numpy arrays and every
-    rank's record: its device, ms per step, kernel calls and launches in the
-    steps, and bytes sent per step."""
+    """One case on this rank, inside its ``context``: ``(rank 0's result or
+    None)``."""
+    with case.get("context", contextlib.nullcontext)():
+        return _run_case_steps(case)
+
+
+def _run_case_steps(case):
+    """The steps of one case.  The result holds the gathered interior-only
+    fields as numpy arrays and every rank's record: its device, ms per step,
+    kernel calls and launches in the steps, bytes sent and exchange rounds
+    per step, and its split-explicit loop's form
+    (:func:`..dynamics.momentum.loop_form`)."""
     device = default_device() if case.get("device") is None else torch.device(case["device"])
     if "build" in case:
         model, state = case["build"](**dict(case.get("kwargs", {}), device=device))
@@ -77,7 +90,7 @@ def _run_case(case):
     counters = kernel_counters()
     for c in counters.values():
         c.reset()
-    mesh.bytes_sent = 0
+    mesh.bytes_sent = mesh.rounds = 0
     step_ms = []
     for _ in range(case["steps"]):
         _sync(device)
@@ -86,17 +99,50 @@ def _run_case(case):
         _sync(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
+    solver = getattr(model.dynamics, "solver", None)
+    loop = loop_form(dstep.local_model) if isinstance(solver, SplitExplicitSolver) else None
     record = dict(rank=dist.get_rank(), index=mesh.index, device=str(device), device_name=name,
+                  loop=loop,
                   ms_per_step=step_ms, bytes_per_step=mesh.bytes_sent / case["steps"],
+                  rounds_per_step=mesh.rounds / case["steps"],
                   stage=mesh.stage, calls={k: c.calls for k, c in counters.items()},
                   launches={k: c.launches for k, c in counters.items()})
+    full = gather_state(s, mesh)
+    names = [n for n in case.get("names", FIELDS) if getattr(full, n) is not None]
+    snapshot = None
+    if case.get("io") is not None:
+        record["checkpoint_bitwise"], snapshot = _io_round_trip(s, full, mesh, names,
+                                                                case["io"], case["steps"])
     records = [None] * dist.get_world_size()
     dist.all_gather_object(records, record)
-    full = gather_state(s, mesh)
     if dist.get_rank() != 0:
         return None
-    names = [n for n in case.get("names", FIELDS) if getattr(full, n) is not None]
-    return dict(fields={n: getattr(full, n).cpu().numpy() for n in names}, records=records)
+    out = dict(fields={n: getattr(full, n).cpu().numpy() for n in names}, records=records)
+    if snapshot is not None:
+        out["snapshot"] = snapshot
+    return out
+
+
+def _io_round_trip(s, full, mesh, names, directory, iteration):
+    """Every rank writes its snapshot of the fields ``names``
+    (``<directory>/snapshot_rank<P>_<iteration>.npz``) and its sharded
+    checkpoint (``<directory>/checkpoint.rank<P>.npz``) of its shard ``s``,
+    then restores the checkpoint onto its mesh against the gathered state
+    ``full``.  Returns whether every array came back bit for bit, and on
+    rank 0 the snapshot reassembled from all ranks' files."""
+    prefix, ckpt = os.path.join(directory, "snapshot"), os.path.join(directory, "checkpoint")
+    save_rank_snapshot(prefix, s, iteration, time=s.clock.time.cpu(), outputs=names, mesh=mesh)
+    save_sharded_checkpoint(ckpt, s, mesh=mesh)
+    dist.barrier()
+    back, _ = load_sharded_checkpoint(ckpt, full, mesh)
+    mine, theirs = dict(leaves(s)), dict(leaves(back))
+    exact = mine.keys() == theirs.keys() and all(
+        torch.equal(mine[k], theirs[k]) for k in mine)
+    snapshot = None
+    if dist.get_rank() == 0:
+        snapshot = reassemble_rank_snapshots(prefix, iteration, tuple(full.h.shape))
+    dist.barrier()
+    return exact, snapshot
 
 
 def _rank_main(rank, nprocs, port, backend, cases, queue):
@@ -146,7 +192,11 @@ def run_cases(cases, nprocs, backend=None, timeout=None):
     takes it), either ``model`` and ``state`` (picklable, on the CPU) or
     ``build`` (a module-level function returning ``(model, state)`` for a
     ``device`` keyword) with ``kwargs``; optionally ``names`` of the fields
-    to return and ``device``."""
+    to return, ``device``, ``context``, a module-level function whose
+    context manager the case runs in, and ``io``, a
+    directory where every rank writes its snapshot and sharded checkpoint
+    after the steps (:func:`_io_round_trip`; the result then holds the
+    reassembled ``snapshot`` and each record ``checkpoint_bitwise``)."""
     if any(case.get("device", "cuda") != "cpu" for case in cases) and torch.cuda.is_available():
         _build.build()
     return _spawn(_rank_main, nprocs, (nprocs, free_port(), backend, list(cases)), timeout)

@@ -11,21 +11,31 @@ its own shard on its own device.
   single machine announces a cluster;
 * :func:`shard_state` cuts a rank's shard from a global interior-only state;
 * :func:`gather_state` reassembles the global interior-only state on every
-  rank.
+  rank;
+* :func:`save_rank_snapshot` and :func:`reassemble_rank_snapshots` write
+  each rank's shard of some fields and merge the files into global fields
+  (`multihost.py:130-179`);
+* :func:`save_sharded_checkpoint` and :func:`load_sharded_checkpoint` write
+  each rank's shard of the whole state and restore it, bit for bit, on any
+  mesh (`multihost.py:182-231`).
 
-Per-rank snapshots and sharded checkpoints wait for the port's
-``io/checkpoint.py`` (queue 6).
+The files, their names and their keys (``<field>@<i0>_<j0>``: the shard's
+offset in the global interior) are the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import glob
 import os
+import re
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..io.checkpoint import leaves, replace_leaves, to_numpy
 from ..state import Clock
 
 
@@ -111,3 +121,111 @@ def gather_state(state_shard, mesh):
         return torch.cat(cols, 0).to(q.device)
 
     return _map_fields(state_shard, join)
+
+
+# --- per-rank output ---------------------------------------------------------------------
+
+def _offset(q, mesh):
+    """The global interior offset of this rank's shard ``q``."""
+    return mesh.index[0] * q.shape[0], mesh.index[1] * q.shape[1]
+
+
+def _shard_entries(leaf, mesh):
+    """``[(key suffix, array)]`` of this rank's shard of ``leaf``: a 2-D
+    field keyed by its offset, anything else as it is."""
+    if isinstance(leaf, torch.Tensor) and leaf.dim() == 2:
+        i0, j0 = _offset(leaf, mesh)
+        return [(f"@{i0}_{j0}", to_numpy(leaf))]
+    return [("", to_numpy(leaf))]
+
+
+def save_rank_snapshot(prefix, state_shard, iteration, time=None, outputs=None, *, mesh):
+    """Write this rank's shards of the fields ``outputs`` (default u, v, h,
+    ℵ, hs) of ``state_shard`` to ``<prefix>_rank<P>_<iteration>.npz``, keyed
+    ``<field>@<i0>_<j0>``; returns the path."""
+    data = {}
+    for name in (outputs or ("u", "v", "h", "a", "hs")):
+        leaf = getattr(state_shard, name, None)
+        if leaf is None and getattr(state_shard, "tracers", None):
+            leaf = state_shard.tracers.get(name)
+        if leaf is None:
+            continue
+        for suffix, arr in _shard_entries(leaf, mesh):
+            data[name + suffix] = arr
+    if time is not None:
+        data["time"] = np.asarray(time)
+    path = f"{prefix}_rank{process_index():03d}_{iteration:08d}.npz"
+    np.savez(path, **data)
+    return path
+
+
+def reassemble_rank_snapshots(prefix, iteration, global_shape):
+    """``{field: global ndarray}`` from every rank's
+    :func:`save_rank_snapshot` file of ``iteration`` (and ``time``)."""
+    fields = {}
+    files = sorted(glob.glob(f"{prefix}_rank*_{iteration:08d}.npz"))
+    if not files:
+        raise FileNotFoundError(f"no rank files for {prefix} @ {iteration}")
+    for f in files:
+        with np.load(f) as d:
+            for key in d.files:
+                m = re.match(r"(.+)@(\d+)_(\d+)$", key)
+                if not m:
+                    fields.setdefault(key, d[key])
+                    continue
+                name, i0, j0 = m.group(1), int(m.group(2)), int(m.group(3))
+                tgt = fields.setdefault(name, np.full(global_shape, np.nan, d[key].dtype))
+                blk = d[key]
+                tgt[i0:i0 + blk.shape[0], j0:j0 + blk.shape[1]] = blk
+    return fields
+
+
+# --- sharded checkpoints -------------------------------------------------------------------
+
+def save_sharded_checkpoint(prefix, state_shard, clock=None, *, mesh):
+    """Write this rank's shard of every array of ``state_shard`` (keys: the
+    checkpoint's paths, with ``@<i0>_<j0>`` for the 2-D fields) to
+    ``<prefix>.rank<P>.npz``, and ``clock`` as ``__clock__`` where given.
+    Bit-exact."""
+    data = {}
+    for path, leaf in leaves(state_shard):
+        for suffix, arr in _shard_entries(leaf, mesh):
+            data[path + suffix] = arr
+    if clock is not None:
+        data["__clock__"] = np.asarray(clock)
+    path = f"{prefix}.rank{process_index():03d}.npz"
+    np.savez(path, **data)
+    return path
+
+
+def load_sharded_checkpoint(prefix, template_state, mesh):
+    """``(this rank's shard, clock)`` of a sharded checkpoint on ``mesh``.
+    Every rank reads every rank's file, rebuilds each field of the global
+    interior-only ``template_state`` (whose other leaves stay where the
+    files hold none) and cuts its shard (:func:`shard_state`), so a
+    checkpoint restores onto any mesh, bit for bit."""
+    merged, clock = {}, None
+    for f in sorted(glob.glob(f"{prefix}.rank*.npz")):
+        with np.load(f) as d:
+            for key in d.files:
+                if key == "__clock__":
+                    clock = d[key]
+                    continue
+                m = re.match(r"(.+)@(\d+)_(\d+)$", key)
+                if m:
+                    merged.setdefault(m.group(1), []).append(
+                        (int(m.group(2)), int(m.group(3)), d[key]))
+                else:
+                    merged.setdefault(key, d[key])
+    new = {}
+    for path, old in leaves(template_state):
+        got = merged.get(path)
+        if got is None:
+            continue
+        if isinstance(got, list):
+            full = np.zeros(tuple(old.shape), got[0][2].dtype)
+            for i0, j0, blk in got:
+                full[i0:i0 + blk.shape[0], j0:j0 + blk.shape[1]] = blk
+            got = full
+        new[path] = torch.from_numpy(np.array(got))
+    return shard_state(replace_leaves(template_state, new), mesh), clock

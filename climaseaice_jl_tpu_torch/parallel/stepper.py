@@ -12,7 +12,11 @@ on the shards at the global edges.
 :func:`make_distributed_step` returns ``dstep(state_interior, dt)``, which
 steps the rank's interior-only shard (:func:`.multihost.shard_state` cuts
 it from a global interior-only state, :func:`strip_halos` makes one from a
-padded state).  With the 'wide' halo policy the split directions' halos are
+padded state).  Under the 'per_substep' and 'overlap' policies the loop
+exchanges as :func:`..dynamics.momentum.loop_form` says (the deferred
+form, the overlapped one, or an exchange a half-update), and every
+dynamics the serial step takes runs on a shard.  With the 'wide' halo
+policy the split directions' halos are
 widened to 2·substeps+3 so that the substep loop needs no exchange, and
 the loop runs on every shard in the kernel the JAX package runs there
 (:func:`..model.meshed_momentum_route`): 2.7 on a folded or curvilinear
@@ -59,13 +63,15 @@ class ProcessMesh:
 
     Where the backend takes host tensors only (gloo), the strips are staged
     through host memory; on NCCL device tensors are sent as they are.
-    ``bytes_sent`` counts the bytes this rank sends."""
+    ``bytes_sent`` counts the bytes this rank sends, ``rounds`` its ring
+    exchanges (one a :meth:`shift` or :meth:`start_shift`)."""
 
     def __init__(self, shape, index, device, transport=True):
         self.shape = tuple(int(p) for p in shape)
         self.index = tuple(int(i) for i in index)
         self.device = torch.device(device)
         self.bytes_sent = 0
+        self.rounds = 0
         self.groups = None
         self.stage = True
         if transport:
@@ -96,11 +102,18 @@ class ProcessMesh:
     def shift(self, dim, to_next, to_prev):
         """Ring shift along mesh direction ``dim``: ``to_next`` goes to the
         next rank and ``to_prev`` to the previous one (either may be None);
-        returns ``(from_prev, from_next)``.  The two directions carry their
-        own tags, so that with two ranks, where both neighbours are the same
-        rank, the messages stay apart."""
+        returns ``(from_prev, from_next)``."""
+        return self.start_shift(dim, to_next, to_prev).wait()
+
+    def start_shift(self, dim, to_next, to_prev):
+        """:meth:`shift` without waiting: posts the sends and receives
+        (``dist.batch_isend_irecv``) and returns a handle whose ``wait()``
+        gives back ``(from_prev, from_next)``.  The two directions carry
+        their own tags, so that with two ranks, where both neighbours are
+        the same rank, the messages stay apart."""
         if self.groups is None:
             raise RuntimeError("this ProcessMesh has no transport")
+        self.rounds += 1
         nxt, prv = self._neighbour(dim, 1), self._neighbour(dim, -1)
         ops, recv = [], []
         for payload, dest, src, tag in ((to_next, nxt, prv, 2 * dim),
@@ -113,11 +126,8 @@ class ProcessMesh:
             ops += [dist.P2POp(dist.isend, self.wire(payload), dest, tag=tag),
                     dist.P2POp(dist.irecv, buf, src, tag=tag)]
             recv.append(buf)
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
         device = (to_next if to_next is not None else to_prev).device
-        from_prev, from_next = (None if b is None else b.to(device) for b in recv)
-        return from_prev, from_next
+        return _PendingShift(dist.batch_isend_irecv(ops), recv, device)
 
     def all_gather(self, dim, block):
         """``block`` of every rank along mesh direction ``dim`` (the row
@@ -129,6 +139,19 @@ class ProcessMesh:
         out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
         dist.all_gather_into_tensor(out, t, group=self.groups[dim])
         return out.to(block.device)
+
+
+class _PendingShift:
+    """A posted ring shift: ``wait()`` completes it and returns
+    ``(from_prev, from_next)`` on the device of its payloads."""
+
+    def __init__(self, works, recv, device):
+        self.works, self.recv, self.device = works, recv, device
+
+    def wait(self):
+        for work in self.works:
+            work.wait()
+        return tuple(None if b is None else b.to(self.device) for b in self.recv)
 
 
 def make_mesh(mesh_shape, device=None):
@@ -358,9 +381,11 @@ def make_distributed_step(model, mesh_shape, device=None):
     2·substeps+3; a fold split across x then needs the tiled curvilinear
     route, which lets its halo evolve without refills.  Before any rank
     communicates, the momentum route of every shard is found
-    (:func:`..model.meshed_momentum_route`); the 'overlap' policy raises
-    ``NotImplementedError`` (queue 9), and shards whose routes differ raise
-    ``ValueError``: every rank must run the same kernels."""
+    (:func:`..model.meshed_momentum_route`), and shards whose routes differ
+    raise ``ValueError``: every rank must run the same kernels.  Any
+    dynamics the serial step takes runs on a shard (the JAX package's
+    `stepper.py:333-417`), as long as the model holds no grid-shaped array
+    outside its grid and masks."""
     grid = model.grid
     _check_model_shardable(model)
     Px, Py = mesh_shape
@@ -385,7 +410,7 @@ def make_distributed_step(model, mesh_shape, device=None):
         # every shard's route, before any rank communicates
         probes = [model.evolve(grid=_local_grid(grid, nx, ny, ix, iy, axes, mesh_shape))
                   for ix in range(Px) for iy in range(Py)]
-        if (solver.halo_exchange == "wide" and grid.north_fold and Px > 1
+        if (getattr(solver, "halo_exchange", None) == "wide" and grid.north_fold and Px > 1
                 and not (solver.fused != "never" and tiled_curvilinear_envelope(probes[0]))):
             raise NotImplementedError(
                 "wide-halo EVP with a north fold split across the x mesh requires the fused "
@@ -412,9 +437,10 @@ def make_distributed_step(model, mesh_shape, device=None):
 
     def dstep(state_int, dt):
         """One step of this rank's interior-only shard; ``dt`` as the
-        serial step takes it."""
+        serial step takes it.  ``dstep.local_model`` is the shard's model."""
         # update_state's masking and the pad-and-fill in one exchange round
         state = _pad_state(state_int, lgrid, masks=lmasks)
         return _strip_state(_step(lmodel, state, dt), lgrid)
 
+    dstep.local_model = lmodel
     return dstep, mesh

@@ -1,19 +1,22 @@
 """The run loop: Simulation, callbacks, schedules, NaN check.
 
 Counterpart of `climaseaice_jl_tpu/simulation.py`.  A Simulation owns the
-(model, state) pair, calls :func:`~.model.step` and fires host callbacks on
-schedule.  Checkpoints, output writers and profiling belong to a later slice
-(queue 6, with ``io/``).
+(model, state) pair, calls :func:`~.model.step` and fires host callbacks and
+output writers (:mod:`.io`) on schedule; it picks up from a checkpoint and
+writes a device trace of its loop where asked.
 """
 
 from __future__ import annotations
 
+import os
+import socket
 import time as _time
 
 import numpy as np
 import torch
 
 from .model import step as _step
+from .io.checkpoint import Checkpointer, restore_state
 
 
 class IterationInterval:
@@ -66,6 +69,7 @@ class Simulation:
         self.stop_time = stop_time
         self.stop_iteration = stop_iteration
         self.callbacks = {}
+        self.output_writers = {}
         self.check_nans = check_nans
         self.wall_seconds = 0.0
 
@@ -87,17 +91,24 @@ class Simulation:
     def _fire(self):
         for cb in self.callbacks.values():
             cb.maybe_fire(self)
+        for w in self.output_writers.values():
+            w.maybe_write(self)
 
     def run(self, pickup=None, profile_dir=None):
-        """Run to the stop condition.  ``pickup`` (restart from a checkpoint)
-        and ``profile_dir`` (a device trace of the loop) belong to a later
-        slice of the port (queue 6) and raise."""
-        if pickup is not None and pickup is not False:
-            raise NotImplementedError("pickup needs checkpoints, which belong to a "
-                                      "later slice of the port (queue 6, io/)")
+        """Run to the stop condition.
+
+        ``pickup``: a checkpoint path, True to resume from the latest
+        checkpoint of a registered :class:`.io.Checkpointer`, or an
+        iteration number to resume from that one (`simulation.py:89-120`);
+        the state is restored bit for bit on the model's device.
+        ``profile_dir``: run the loop under ``torch.profiler`` (the card's
+        kernels too where the model is on one) and write its Chrome trace
+        into that directory, as ``<host>_<pid>.<ms>.pt.trace.json``
+        (``self.trace_file``)."""
         if profile_dir is not None:
-            raise NotImplementedError("profile_dir belongs to a later slice of the "
-                                      "port (queue 6)")
+            return self._run_profiled(pickup, profile_dir)
+        if pickup is not None and pickup is not False:
+            self.state = restore_state(self.state, self._pickup_path(pickup))
         device = self.model.grid.device
         t0 = _time.perf_counter()
         steps0 = self.iteration
@@ -124,6 +135,34 @@ class Simulation:
             g = self.model.grid
             self.points_per_second = g.Nx * g.Ny * steps / elapsed
         return self.state
+
+    def _pickup_path(self, pickup):
+        if pickup is not True and not isinstance(pickup, int):
+            return pickup
+        ckp = next((w for w in self.output_writers.values() if isinstance(w, Checkpointer)),
+                   None)
+        if ckp is None:
+            raise ValueError(f"pickup={pickup!r} requires a Checkpointer output writer")
+        if pickup is True:
+            path = ckp.latest()
+            if path is None:
+                raise ValueError("pickup=True requires existing checkpoints")
+            return path
+        return f"{ckp.prefix}_iteration{int(pickup)}.npz"
+
+    def _run_profiled(self, pickup, profile_dir):
+        from torch.profiler import profile, ProfilerActivity
+        activities = [ProfilerActivity.CPU]
+        if self.model.grid.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            state = self.run(pickup=pickup)
+        self.trace_file = os.path.join(
+            profile_dir, f"{socket.gethostname()}_{os.getpid()}.{int(_time.time() * 1e3)}"
+                         ".pt.trace.json")
+        prof.export_chrome_trace(self.trace_file)
+        return state
 
 
 def time_step(model, state, dt, steps=1):

@@ -39,6 +39,8 @@ JAX kernels in interpret mode inside ``shard_map``."""
 
 import contextlib
 import dataclasses
+import glob
+import os
 
 import numpy as np
 import pytest
@@ -56,6 +58,7 @@ from climaseaice_jl_tpu_torch.dynamics import fused_evp_padded as tpad
 from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_padded as ttp
 from climaseaice_jl_tpu_torch.dynamics import fused_evp_tiled_curvilinear as ttc
 from climaseaice_jl_tpu_torch.dynamics import fixed_tile_advection as tadv
+from climaseaice_jl_tpu_torch.dynamics import momentum as tmomentum
 
 SIZE = (48, 96)
 FIXED = (8, 128)
@@ -241,38 +244,74 @@ def case():
     return mj, sj, mt, st, _serial(mt, st, STEPS, DT), jax_ref
 
 
+@contextlib.contextmanager
+def exchange_every_half_update():
+    """The gate of the loop's local fills turned off: a shard's loop then
+    exchanges after each half-update, as 'per_substep' did before the
+    deferred form.  Module-level, so that a spawned rank can run a case in
+    it."""
+    gate = tmomentum.local_loop_ok
+    tmomentum.local_loop_ok = lambda model, h_min: False
+    try:
+        yield
+    finally:
+        tmomentum.local_loop_ok = gate
+
+
 _RUNS = {}
 
 
 @pytest.fixture(scope="module")
-def runs(case, drag_case, rect):
-    """One spawn per number of ranks, run on first use: on (1, 2) and
-    (2, 2) the x-meshed-fold case and the basin; on two ranks also the
-    72×48 case with and without its drag on (2, 1); on four the
-    rectilinear 'per_substep' run, paths A and B (B on (1, 4) too); last,
-    on each, the x-meshed-fold case without ``fixed_tiles``."""
+def io_dir(tmp_path_factory):
+    """Where the ranks of the (2, 2) rectilinear run write their snapshots
+    and sharded checkpoints."""
+    return str(tmp_path_factory.mktemp("rank_io"))
+
+
+@pytest.fixture(scope="module")
+def runs(case, drag_case, rect, physics, overlap, io_dir):
+    """One spawn per number of ranks, run on first use, its results by
+    label: on (1, 2) and (2, 2) the x-meshed-fold case ("fold") and the
+    basin ("basin"); on two ranks also the 72×48 case with and without its
+    drag on (2, 1) ("drag", "no-drag"); on four paths A and B (B on (1, 4)
+    too); on each the rectilinear 'per_substep' run in the deferred form
+    ("rect", on four with its rank snapshots and sharded checkpoint) and in
+    the per-half-update form ("rect-half"), the overlap cases of this mesh,
+    the general physics on it, and the x-meshed-fold case without
+    ``fixed_tiles`` ("unpinned")."""
     _, _, mt, st, _, _ = case
 
     def run(mesh):
         if mesh not in _RUNS:
-            cases = [dict(model=mt, state=st, mesh=mesh, steps=STEPS, dt=DT, device="cpu"),
-                     dict(build=db.build, kwargs=dict(Nx=48, Ny=96, substeps=NSUB,
-                                                      fixed_tiles=FIXED),
-                          mesh=mesh, steps=2, dt=600.0, device="cpu")]
+            mr, sr = _rectilinear()
+            cases = {"fold": dict(model=mt, state=st, mesh=mesh, steps=STEPS, dt=DT),
+                     "basin": dict(build=db.build, kwargs=dict(Nx=48, Ny=96, substeps=NSUB,
+                                                               fixed_tiles=FIXED),
+                                   mesh=mesh, steps=2, dt=600.0),
+                     "rect": dict(model=mr, state=sr, mesh=mesh, steps=5, dt=60.0,
+                                  io=io_dir if mesh == (2, 2) else None),
+                     "rect-half": dict(model=mr, state=sr, mesh=mesh, steps=5, dt=60.0,
+                                       context=exchange_every_half_update)}
             if mesh == (1, 2):
-                cases += [dict(model=model, state=drag_case["state"], mesh=(2, 1), steps=1,
-                               dt=600.0, device="cpu", names=DRAG_NAMES)
-                          for model in (drag_case["port"], drag_case["port_no_drag"])]
+                for label, model in (("drag", drag_case["port"]),
+                                     ("no-drag", drag_case["port_no_drag"])):
+                    cases[label] = dict(model=model, state=drag_case["state"], mesh=(2, 1),
+                                        steps=1, dt=600.0, names=DRAG_NAMES)
             if mesh == (2, 2):
-                mr, sr = _rectilinear()
-                cases.append(dict(model=mr, state=sr, mesh=mesh, steps=5, dt=60.0,
-                                  device="cpu"))
-                cases += [dict(model=rect[p][2], state=rect[p][3], mesh=m, steps=RECT_STEPS,
-                               dt=DT, device="cpu")
-                          for p, m in (("A", (2, 2)), ("B", (2, 2)), ("B", (1, 4)))]
-            cases.append(dict(model=_port_case(fixed_tiles=None), state=st, mesh=mesh,
-                              steps=STEPS, dt=DT, device="cpu"))
-            _RUNS[mesh] = launch.run_cases(cases, mesh[0] * mesh[1], timeout=600)
+                cases.update({p + "-" + "x".join(map(str, m)): dict(
+                    model=rect[p][2], state=rect[p][3], mesh=m, steps=RECT_STEPS, dt=DT)
+                    for p, m in (("A", (2, 2)), ("B", (2, 2)), ("B", (1, 4)))})
+            cases.update({label: dict(model=o["port"], state=o["state"], mesh=o["mesh"],
+                                      steps=o["steps"], dt=60.0)
+                          for label, o in overlap.items() if o["ranks"] == mesh[0] * mesh[1]})
+            cases.update({f"{name}-{mesh}": dict(model=p["port"], state=p["state"], mesh=mesh,
+                                                 steps=PHYSICS_STEPS, dt=PHYSICS_DT)
+                          for name, p in physics.items()})
+            cases["unpinned"] = dict(model=_port_case(fixed_tiles=None), state=st, mesh=mesh,
+                                     steps=STEPS, dt=DT)
+            results = launch.run_cases([dict(c, device="cpu") for c in cases.values()],
+                                       mesh[0] * mesh[1], timeout=600)
+            _RUNS[mesh] = dict(zip(cases, results))
         return _RUNS[mesh]
 
     return run
@@ -286,7 +325,7 @@ def test_xmeshed_fold_case_equals_serial_bitwise(case, runs, mesh):
     fold split across x on (2, 2), across y on (1, 2); every rank sent
     strips, and the same count of bytes on ranks of the same row."""
     serial = case[4]
-    result = runs(mesh)[0]
+    result = runs(mesh)["fold"]
     for name in COMPARED:
         got = result["fields"][name]
         assert np.isfinite(got).all(), name
@@ -299,7 +338,7 @@ def test_xmeshed_fold_case_within_bars_of_jax(case, runs, mesh):
     """The port's distributed result against the JAX package's serial step
     (which its own suite holds bitwise equal to its distributed one)."""
     jax_ref = case[5]
-    result = runs(mesh)[0]
+    result = runs(mesh)["fold"]
     for name in COMPARED:
         a, b = jax_ref[name].astype(np.float64), result["fields"][name].astype(np.float64)
         rel = np.abs(b - a).max() / max(np.abs(a).max(), 1e-30)
@@ -313,7 +352,7 @@ def test_basin_equals_serial_bitwise(runs, mesh):
     field bit for bit."""
     m, s = db.build(48, 96, substeps=NSUB, fixed_tiles=FIXED, device="cpu")
     serial = _serial(m, s, 2, 600.0)
-    result = runs(mesh)[1]
+    result = runs(mesh)["basin"]
     for name, got in result["fields"].items():
         assert np.isfinite(got).all(), name
         assert np.array_equal(got, serial[name]), (name, np.abs(got - serial[name]).max())
@@ -325,7 +364,7 @@ def test_per_substep_rectilinear_within_contract(runs):
     the serial run after 5 steps."""
     m, s = _rectilinear()
     serial = _serial(m, s, 5, 60.0)
-    result = runs((2, 2))[2]
+    result = runs((2, 2))["rect"]
     for name in ("u", "v", "h", "a"):
         np.testing.assert_allclose(result["fields"][name], serial[name], rtol=1e-7, atol=1e-9,
                                    err_msg=name)
@@ -338,7 +377,7 @@ def test_wide_padded_case_equals_serial_padded_bitwise(rect, runs):
     momentum goes through the padded route."""
     mt, st = rect["A"][2:]
     serial = _serial(mt, st, RECT_STEPS, DT, tpad.padded_fused_momentum_step)
-    result = runs((2, 2))[3]["fields"]
+    result = runs((2, 2))["A-2x2"]["fields"]
     for name, got in result.items():
         assert np.isfinite(got).all(), name
         assert np.array_equal(got, serial[name]), (name, np.abs(got - serial[name]).max())
@@ -349,7 +388,7 @@ def test_wide_padded_case_within_jax_bars(rect, runs):
     `tests/test_distributed.py:238-248`'s bars: u, v within 2e-2 of the
     velocity scale, h and ℵ within 1e-4 of their largest values."""
     ref = rect["A_jax_serial"]
-    result = runs((2, 2))[3]["fields"]
+    result = runs((2, 2))["A-2x2"]["fields"]
     vel = max(np.abs(ref["u"]).max(), np.abs(ref["v"]).max(), 1e-8)
     for name, bar in (("u", 2e-2), ("v", 2e-2), ("h", 1e-4), ("a", 1e-4)):
         scale = vel if name in ("u", "v") else max(np.abs(ref[name]).max(), 1e-8)
@@ -357,7 +396,8 @@ def test_wide_padded_case_within_jax_bars(rect, runs):
         assert rel < bar, (name, rel)
 
 
-@pytest.mark.parametrize("mesh, index", [((2, 2), 4), ((1, 4), 5)], ids=["2x2", "1x4"])
+@pytest.mark.parametrize("mesh, index", [((2, 2), "B-2x2"), ((1, 4), "B-1x4")],
+                         ids=["2x2", "1x4"])
 def test_fixed_tile_rectilinear_case_equals_serial_bitwise(rect, runs, mesh, index):
     """Path B at test size (`tests/test_distributed.py:291`'s contract):
     2.4 and 2.5 meshed (the split directions' padded extent carried, ceil
@@ -390,7 +430,7 @@ def test_wide_unpinned_case_equals_serial_bitwise(unpinned_serial, runs, mesh):
     step, whose whole-array kernel 2.6 forms its coefficients otherwise
     (γ² as c·Δt/(m·Az), where 2.7 has c·Δt·(1/Az)/m)."""
     serial, default = unpinned_serial
-    result = runs(mesh)[-1]["fields"]
+    result = runs(mesh)["unpinned"]["fields"]
     for name in COMPARED:
         got = result[name]
         assert np.isfinite(got).all(), name
@@ -398,6 +438,328 @@ def test_wide_unpinned_case_equals_serial_bitwise(unpinned_serial, runs, mesh):
         ref = default[name].astype(np.float64)
         rel = np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30)
         assert rel <= BARS[name], (name, rel)
+
+
+# --- the deferred form, the overlap policy and the general physics on shards ----------------
+
+def _exchange_dims(mesh):
+    return (mesh[0] > 1) + (mesh[1] > 1)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_deferred_exchange_equals_half_update_form_with_half_the_rounds(runs, mesh):
+    """The rectilinear 'per_substep' run (αEVP, no free drift, halos 5) takes
+    the deferred form on every rank: local fills in both half-updates and
+    one joint u, v exchange a substep and before the loop
+    (`momentum.py:489-511`).  Its interiors equal, bit for bit, those of the
+    per-half-update form (the gate turned off), and its substep loop makes
+    half the exchange rounds: (substeps + 1) a split direction a step, where
+    the other form makes twice that, and sends the same bytes (u and v in
+    one payload where the other sends two)."""
+    deferred, half = runs(mesh)["rect"], runs(mesh)["rect-half"]
+    for name, got in deferred["fields"].items():
+        assert np.array_equal(got, half["fields"][name]), name
+    loop_rounds = (10 + 1) * _exchange_dims(mesh)          # 10 substeps, one call a step
+    for rd, rh in zip(deferred["records"], half["records"]):
+        assert (rd["loop"], rh["loop"]) == ("deferred", "exchanging")
+        assert rh["rounds_per_step"] - rd["rounds_per_step"] == loop_rounds
+        assert rd["bytes_per_step"] == rh["bytes_per_step"]        # u, v in one payload
+
+
+def test_rank_snapshots_and_sharded_checkpoints_round_trip(runs, io_dir):
+    """After the (2, 2) rectilinear run every rank wrote its snapshot and
+    its sharded checkpoint with the JAX package's names and keys
+    (``snapshot_rank<P>_<iteration>.npz`` with ``u@<i0>_<j0>``,
+    ``checkpoint.rank<P>.npz``); each rank's checkpoint restored onto the
+    mesh bit for bit, the reassembled snapshot equals the gathered state,
+    and the JAX package's reassembly of the port's files equals the
+    port's."""
+    from climaseaice_jl_tpu.parallel.multihost import (
+        reassemble_rank_snapshots as jax_reassemble)
+    from climaseaice_jl_tpu_torch.parallel import reassemble_rank_snapshots
+    result = runs((2, 2))["rect"]
+    assert all(r["checkpoint_bitwise"] for r in result["records"])
+    for name, got in result["fields"].items():
+        assert np.array_equal(result["snapshot"][name], got), name
+    files = sorted(os.path.basename(f) for f in glob.glob(os.path.join(io_dir, "*.npz")))
+    assert files == ([f"checkpoint.rank{r:03d}.npz" for r in range(4)]
+                     + [f"snapshot_rank{r:03d}_00000005.npz" for r in range(4)])
+    with np.load(os.path.join(io_dir, "snapshot_rank003_00000005.npz")) as d:
+        assert "u@24_24" in d.files and "time" in d.files
+    prefix = os.path.join(io_dir, "snapshot")
+    ours, theirs = (f(prefix, 5, (48, 48)) for f in (reassemble_rank_snapshots, jax_reassemble))
+    assert sorted(ours) == sorted(theirs)
+    for name in ours:
+        assert np.array_equal(ours[name], theirs[name]), name
+
+
+def _overlap_model(lib, kind, policy="overlap", halo=5, **device):
+    """`tests/test_distributed.py`'s overlap configurations in float64:
+    "periodic" and "bounded" (`_build`: 48², αEVP with α⁺ = 1e4, 10
+    substeps, WENO-7), "island" (the periodic one with its island) and
+    "fold" (`:402-418`: 32², a folded north edge, WENO-5)."""
+    km = 1000.0
+    if kind == "fold":
+        grid = lib.RectilinearGrid(size=(32, 32), x=(0, 20 * km), y=(0, 20 * km), halo=halo,
+                                   topology=("periodic", "bounded"), north_fold=True, **device)
+        top, adv = {"u": 0.01, "v": 0.005}, lib.WENO(order=5)
+    else:
+        topology = ("bounded",) * 2 if kind == "bounded" else ("periodic",) * 2
+        grid = lib.RectilinearGrid(size=(48, 48), x=(-10 * km, 10 * km), y=(-10 * km, 10 * km),
+                                   halo=halo, topology=topology, **device)
+        if kind == "island":
+            xc = np.asarray(grid.xc)[grid.Hx:grid.Hx + 48, None]
+            yc = np.asarray(grid.yc)[None, grid.Hy:grid.Hy + 48]
+            grid = lib.ImmersedBoundaryGrid(grid, (xc ** 2 + yc ** 2) < (4 * km) ** 2)
+        top, adv = {"u": 0.01, "v": 0.01}, lib.WENO(order=7)
+    dynamics = lib.SeaIceMomentumEquation(
+        rheology=lib.ElastoViscoPlasticRheology(max_relaxation_parameter=1e4),
+        coriolis=lib.FPlane(f=1e-4), top_momentum_stress=top,
+        bottom_momentum_stress=lib.SemiImplicitStress(),
+        solver=lib.SplitExplicitSolver(substeps=10, halo_exchange=policy))
+    return lib.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None, advection=adv,
+                             timestepper="ForwardEuler")
+
+
+def _overlap_state(csi, mj, kind):
+    km = 1000.0
+    if kind == "fold":
+        rng = np.random.default_rng(11)
+        return csi.initial_state(mj, h=0.4 + 0.05 * rng.random((32, 32)), a=1.0, u=0.05)
+
+    def h0(x, y):
+        return 0.3 + 0.005 * (np.sin(60 * x / (20 * km)) + np.sin(30 * y / (20 * km)))
+
+    return csi.initial_state(mj, h=h0, a=1.0, u=0.1)
+
+
+# label: (configuration, mesh, steps, halo); the last one's halo of 4 fails
+# the overlap gate (5), which then falls through to the exchanging fills
+OVERLAP = {
+    "overlap-periodic-1x2": ("periodic", (1, 2), 3, 5),
+    "overlap-periodic-2x2": ("periodic", (2, 2), 3, 5),
+    "overlap-bounded-1x2": ("bounded", (1, 2), 3, 5),
+    "overlap-bounded-2x2": ("bounded", (2, 2), 3, 5),
+    "overlap-island-2x2": ("island", (2, 2), 3, 5),
+    "overlap-fold-1x2": ("fold", (1, 2), 3, 5),
+    "overlap-halo4-1x2": ("periodic", (1, 2), 2, 4),
+}
+
+
+def _jax_distributed(mj, sj, mesh, steps, dt):
+    """The JAX package's make_distributed_step on the 8 virtual CPU devices:
+    ``steps`` steps, interior-only fields as numpy arrays."""
+    from climaseaice_jl_tpu.parallel import make_distributed_step as jax_dstep
+    from climaseaice_jl_tpu.parallel.stepper import strip_halos as jax_strip
+    dstep, _ = jax_dstep(mj, mesh)
+    s = jax_strip(mj, sj)
+    for _ in range(steps):
+        s = dstep(s, dt)
+    return {n: np.asarray(getattr(s, n)) for n in ("u", "v", "h", "a")}
+
+
+@pytest.fixture(scope="module")
+def overlap():
+    """Per label of ``OVERLAP``: the port's model and state (the JAX initial
+    state carried across), its mesh, steps and number of ranks, and the JAX
+    model and state."""
+    import climaseaice_jl_tpu as csi
+    out = {}
+    for label, (kind, mesh, steps, halo) in OVERLAP.items():
+        mj = _overlap_model(csi, kind, halo=halo)
+        sj = _overlap_state(csi, mj, kind)
+        mt = _overlap_model(cst, kind, halo=halo, device="cpu")
+        out[label] = dict(port=mt, state=state_from_numpy(mt, state_to_numpy(sj)), mesh=mesh,
+                          steps=steps, ranks=mesh[0] * mesh[1], jax=(mj, sj))
+    return out
+
+
+def _assert_within(ref, got, rtol, atol, what):
+    for name in ("u", "v", "h", "a"):
+        np.testing.assert_allclose(got[name], ref[name], rtol=rtol, atol=atol,
+                                   err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("label", list(OVERLAP))
+def test_overlap_equals_serial_and_jax(label, overlap, runs):
+    """halo_exchange='overlap' (`tests/test_distributed.py:355-422`): each
+    substep posts the joint u, v exchange, runs the whole shard on the
+    arrays from before it, waits, and recomputes a (2H+8)-wide band at each
+    split edge.  Where JAX's gate admits it (halos ≥ 5, shards ≥ 8 points
+    along split directions, αEVP, no free drift, no fold split across x)
+    every rank runs that form; with halo 4 it falls through to the
+    exchanging fills, as JAX's does.  Either way u, v, h, ℵ are within that
+    test's rtol 1e-7, atol 1e-9 of the port's serial run and of the JAX
+    package's make_distributed_step on the same mesh.  The overlap form
+    makes the deferred form's exchange rounds: one a substep and one after
+    the loop, where the deferred form makes one before it."""
+    o = overlap[label]
+    result = runs(o["mesh"])[label]
+    want = "exchanging" if label.startswith("overlap-halo4") else "overlap"
+    assert all(r["loop"] == want for r in result["records"])
+    serial = _serial(o["port"], o["state"], o["steps"], 60.0)
+    _assert_within(serial, result["fields"], 1e-7, 1e-9, "serial")
+    if want == "overlap":
+        mj, sj = o["jax"]
+        _assert_within(_jax_distributed(mj, sj, o["mesh"], o["steps"], 60.0), result["fields"],
+                       1e-7, 1e-9, "jax")
+    if label.startswith("overlap-periodic"):      # the configuration of "rect"
+        deferred = runs(o["mesh"])["rect"]["records"]
+        assert [r["rounds_per_step"] for r in result["records"]] == \
+            [r["rounds_per_step"] for r in deferred]
+
+
+def _viscosity(x, y, t):
+    """ν(x, y, t) of the viscous variant, arithmetic only, so that the same
+    function serves both packages."""
+    return 800.0 + 400.0 * (x / 32e3) * (y / 32e3) + 0.1 * t
+
+
+def _h_forcing(grid, clock, fields):
+    """A thickness forcing from the shard's x coordinates and the clock."""
+    return 1e-7 * fields.a * (1.0 + grid.xc[:, None] / 32e3) * (1.0 + clock.time / 600.0)
+
+
+def _u_forcing(grid, clock, fields):
+    """A velocity forcing from the shard's y coordinates."""
+    return 1e-6 * fields.a * (1.0 + grid.yc[None, :] / 32e3)
+
+
+def _physics_model(lib, name, **device):
+    """The general-path physics at 16×16 in float64 (periodic x, bounded y, WENO-5,
+    Forward Euler): "explicit" (ViscousRheology with ν(x, y, t) +
+    ExplicitSolver + BetaPlane, slab thermodynamics), "free_drift"
+    (StressBalanceFreeDrift as the whole dynamics, slab thermodynamics, no
+    advection) and "forced" (soft-ice αEVP, 10 substeps, with BetaPlane,
+    free drift of marginal ice and forcing of h and u: the general
+    split-explicit path, its fills exchanging)."""
+    km = 1000.0
+    grid = lib.RectilinearGrid(size=(16, 16), x=(0, 32 * km), y=(0, 32 * km), halo=5,
+                               topology=("periodic", "bounded"), **device)
+    top = {"u": 0.05, "v": -0.02}
+    kw = dict(ice_thermodynamics=None)
+    if name == "explicit":
+        dyn = lib.SeaIceMomentumEquation(
+            rheology=lib.ViscousRheology(nu=_viscosity),
+            coriolis=lib.BetaPlane(f0=1e-4, beta=1e-11),
+            top_momentum_stress=top, bottom_momentum_stress=lib.SemiImplicitStress(),
+            solver=lib.ExplicitSolver())
+        kw = dict(ice_thermodynamics=lib.sea_ice_slab_thermodynamics())
+    elif name == "free_drift":
+        # no advection: the JAX package's tracer tendencies read the
+        # solver of the dynamics, which free drift has not
+        dyn = lib.StressBalanceFreeDrift(top_momentum_stress=top,
+                                         bottom_momentum_stress=lib.SemiImplicitStress(ue=0.1))
+        kw = dict(ice_thermodynamics=lib.sea_ice_slab_thermodynamics(), advection=None)
+    else:
+        fd = lib.StressBalanceFreeDrift(top_momentum_stress=top,
+                                        bottom_momentum_stress=lib.SemiImplicitStress())
+        dyn = lib.SeaIceMomentumEquation(
+            rheology=lib.ElastoViscoPlasticRheology(ice_compressive_strength=27.5),
+            coriolis=lib.BetaPlane(f0=1.4e-4, beta=1e-11), top_momentum_stress=top,
+            bottom_momentum_stress=lib.SemiImplicitStress(), free_drift=fd, minimum_mass=200.0,
+            solver=lib.SplitExplicitSolver(substeps=10))
+        kw["forcing"] = {"h": _h_forcing, "u": _u_forcing}
+    kw.setdefault("advection", lib.WENO(order=5))
+    return lib.sea_ice_model(grid, dynamics=dyn, timestepper="ForwardEuler", **kw)
+
+
+PHYSICS = ("explicit", "free_drift", "forced")
+PHYSICS_STEPS, PHYSICS_DT = 2, 300.0
+
+
+@pytest.fixture(scope="module")
+def physics():
+    """Per variant of ``PHYSICS``: the port's model and the JAX package's,
+    with a seeded state (thin ice at a third of the points) carried across."""
+    import climaseaice_jl_tpu as csi
+    rng = np.random.default_rng(17)
+    h = np.where(rng.random((16, 16)) < 0.3, 0.1, 1.0 + 0.2 * rng.random((16, 16)))
+    a = 0.9 + 0.1 * rng.random((16, 16))
+    u, v = (0.05 * rng.standard_normal((16, 16)) for _ in range(2))
+    out = {}
+    for name in PHYSICS:
+        mj = _physics_model(csi, name)
+        sj = csi.initial_state(mj, h=h, a=a, u=u, v=v)
+        mt = _physics_model(cst, name, device="cpu")
+        out[name] = dict(port=mt, state=state_from_numpy(mt, state_to_numpy(sj)), jax=(mj, sj))
+    return out
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("name", PHYSICS)
+def test_general_physics_on_shards_matches_jax(name, mesh, physics, runs):
+    """ExplicitSolver with a viscosity function and a beta-plane, free drift
+    as the dynamics, and the forced soft-ice αEVP general path with a
+    beta-plane and marginal-ice free drift run on every shard (each reading
+    its own coordinates and the clock), and hold, within 1e-10 of each
+    field's largest value, to the JAX package's make_distributed_step on
+    the same mesh and to the port's serial run."""
+    p = physics[name]
+    got = runs(mesh)[f"{name}-{mesh}"]["fields"]
+    mj, sj = p["jax"]
+    refs = (_jax_distributed(mj, sj, mesh, PHYSICS_STEPS, PHYSICS_DT),
+            _serial(p["port"], p["state"], PHYSICS_STEPS, PHYSICS_DT))
+    for what, ref in zip(("jax", "serial"), refs):
+        for field in ("u", "v", "h", "a"):
+            assert np.isfinite(got[field]).all(), field
+            scale = max(np.abs(ref[field]).max(), 1e-30)
+            rel = np.abs(got[field] - ref[field]).max() / scale
+            assert rel <= 1e-10, (what, field, rel)
+    assert np.abs(got["u"]).max() > 0
+
+
+def test_overlap_posts_before_the_interior_and_waits_before_the_bands(monkeypatch):
+    """On a shard of a (2, 2) mesh (no transport: the exchange is stood in
+    for by the local fills), each substep of the overlap form posts the
+    exchange, runs the whole shard, waits, then runs the four edge bands,
+    in that order; the bands' grids are (2H + 8) wide across their edge."""
+    from climaseaice_jl_tpu_torch.dynamics import momentum as tmom
+    from climaseaice_jl_tpu_torch.fields import fill_halos_fc_local, fill_halos_cf_local
+    model = _overlap_model(cst, "periodic", device="cpu")
+    g = model.grid
+    lgrid = tstep._local_grid(g, 24, 24, 0, 1, ("x", "y"), (2, 2),
+                              tstep.ProcessMesh((2, 2), (0, 1), "cpu", transport=False))
+    lmasks = tstep._local_masks(lgrid, None, 0, 1, False)
+    lmodel = model.evolve(grid=lgrid, masks=lmasks)
+    assert tmom.loop_form(lmodel) == "overlap"
+    from climaseaice_jl_tpu_torch.parallel.multihost import _map_fields
+    state = _map_fields(cst.initial_state(model, h=0.3, a=1.0, u=0.1),
+                        lambda q: q[:34, 24:58])          # the shard's window
+    events, grids = [], []
+
+    def local_uv(u, v, grid):
+        return fill_halos_fc_local(u, grid), fill_halos_cf_local(v, grid)
+
+    def start(u, v, grid):
+        events.append("post")
+
+        def finish():
+            events.append("wait")
+            return local_uv(u, v, grid)
+
+        return finish
+
+    made = tmom._make_evp_substep
+
+    def spy(m, *args):
+        one = made(m, *args)
+        tag = "interior" if not grids else "band"
+        grids.append(m.grid)
+
+        def run(*a):
+            events.append(tag)
+            return one(*a)
+
+        return run
+
+    monkeypatch.setattr(tmom, "start_fill_halos_uv", start)
+    monkeypatch.setattr(tmom, "fill_halos_uv", local_uv)
+    monkeypatch.setattr(tmom, "fill_halos_many", lambda qs, locs, grid: list(qs))
+    monkeypatch.setattr(tmom, "_make_evp_substep", spy)
+    tmom.split_explicit_momentum_step(lmodel, state, 60.0, state.u, state.v)
+    assert events == (["post", "interior", "wait"] + ["band"] * 4) * 10
+    assert [gr.shape for gr in grids[1:]] == [(18, 34)] * 2 + [(34, 18)] * 2
 
 
 # --- in this process ------------------------------------------------------------------------
@@ -427,19 +789,22 @@ def test_strip_unstrip_round_trip_matches_jax(case):
 
 def _refusal_models():
     return {
-        "overlap": (_port_case(halo_exchange="overlap", fixed_tiles=None), (2, 2), "queue 9"),
-        "xfold-narrow-halo": (_port_case(), (2, 1), "north fold split across the x mesh"),
+        "overlap": (_port_case(halo_exchange="overlap", fixed_tiles=None), (2, 2), RuntimeError,
+                    "torch.distributed is not initialised"),
+        "xfold-narrow-halo": (_port_case(), (2, 1), NotImplementedError,
+                              "north fold split across the x mesh"),
     }
 
 
 @pytest.mark.parametrize("name", ["overlap", "xfold-narrow-halo"])
 def test_refusals_before_any_exchange(name):
-    """What the port does not run raises NotImplementedError in
-    make_distributed_step, before it needs a process group: the 'overlap'
-    policy, and a fold split across x whose y halo is below 2·substeps+3
-    (the JAX package's message)."""
-    model, mesh, match = _refusal_models()[name]
-    with pytest.raises(NotImplementedError, match=match):
+    """make_distributed_step settles what it runs before it needs a process
+    group: a fold split across x whose y halo is below 2·substeps+3 raises
+    NotImplementedError (the JAX package's message), while the 'overlap'
+    policy, which the port now runs, passes every shard's route and stops
+    only at the missing process group."""
+    model, mesh, error, match = _refusal_models()[name]
+    with pytest.raises(error, match=match):
         make_distributed_step(model, mesh)
 
 
@@ -480,6 +845,9 @@ ROUTES = {
     "per_substep": (lambda: _port_case(halo_exchange="per_substep"), (2, 2), "general"),
     "split-bounded": (lambda: _rect_case(cst, topology=("periodic", "bounded"), device="cpu"),
                       (1, 2), "general"),
+    "overlap": (lambda: _port_case(halo_exchange="overlap", fixed_tiles=None), (2, 2), "general"),
+    "ExplicitSolver": (lambda: _physics_model(cst, "explicit", device="cpu"), (2, 2), "general"),
+    "free-drift": (lambda: _physics_model(cst, "free_drift", device="cpu"), (1, 2), "general"),
 }
 
 
@@ -489,14 +857,15 @@ def test_shard_route(name):
     package dispatches it (`model.py:401-445`): path A to 2.3 meshed, path B
     to 2.4 and 2.5 meshed, the tripolar case to 2.7 (its unpinned plan
     without ``fixed_tiles``, its pinned plan with them); the general path
-    under 'per_substep', and where a bounded direction is split (2.3's
-    meshed gate, `pallas_evp_padded.py:66-74`)."""
+    under 'per_substep' and 'overlap', where a bounded direction is split
+    (2.3's meshed gate, `pallas_evp_padded.py:66-74`), and for free drift as
+    the dynamics and the explicit solver."""
     build, mesh, route = ROUTES[name]
     model = build()
     grid = model.grid
-    solver = model.dynamics.solver
+    solver = getattr(model.dynamics, "solver", None)
     axes = ("x" if mesh[0] > 1 else None, "y" if mesh[1] > 1 else None)
-    if solver.halo_exchange == "wide":
+    if getattr(solver, "halo_exchange", None) == "wide":
         H = 2 * solver.substeps + 3
         grid = with_halo(grid, (H if axes[0] else grid.Hx, H if axes[1] else grid.Hy))
     nx, ny = grid.Nx // mesh[0], grid.Ny // mesh[1]
@@ -836,7 +1205,7 @@ def test_xsplit_fold_with_drag_parts_from_serial_as_jax_does(drag_case, runs):
     port's distributed result lies within ``BARS`` of it.  The drag is
     1e3, not the basin's 1e-3, so that the seed shows at this size."""
     serial_t = _serial(drag_case["port"], drag_case["state"], 1, 600.0)
-    dist_t, dist_t_no_drag = (r["fields"] for r in runs((1, 2))[2:4])
+    dist_t, dist_t_no_drag = (runs((1, 2))[k]["fields"] for k in ("drag", "no-drag"))
     serial_t_no_drag = _serial(drag_case["port_no_drag"], drag_case["state"], 1, 600.0)
     serial_j, dist_j = drag_case["serial_jax"], drag_case["dist_jax"]
     for name in DRAG_NAMES:

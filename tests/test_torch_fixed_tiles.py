@@ -866,6 +866,32 @@ def test_fixed_tile_step_matches_jax(timestepper, monkeypatch):
         assert _rel(a, b) <= bar, (name, _rel(a, b))
 
 
+def test_forced_fixed_tile_step_matches_jax(monkeypatch):
+    """The slice with a callable forcing on h (``1e-7·ℵ``), 3 Forward Euler
+    steps, against `csi.step` within `test_fixed_tile_step_matches_jax`'s
+    bars: the EVP gates refuse forcing in both packages, so the momentum
+    takes the general path, while the advection (2.9) and the column
+    (2.11) stay on their fixed-tile routes, as JAX's do."""
+    import climaseaice_jl_tpu as csi
+
+    def forcing(g, c, f):
+        return 1e-7 * f.a
+
+    mj = _model(csi, timestepper="ForwardEuler", forcing={"h": forcing})
+    mt = _model(cst, timestepper="ForwardEuler", forcing={"h": forcing}, device="cpu")
+    sj = _initial(csi, mj)
+    st = _to_port(mt, sj)
+    calls = _spy(monkeypatch)
+    for _ in range(3):
+        sj = csi.step(mj, sj, 120.0)
+        st = cst.step(mt, st, 120.0)
+    assert calls == dict(prep=0, tiled=0, adv=6, thermo=3, padded=0, periodic=0)
+    for name, bar in zip(FIELDS, (1e-4, 1e-4, 1e-5, 1e-5, 4e-3, 4e-3, 4e-3, 4e-3)):
+        a, b = _interior(mt.grid, getattr(sj, name)), _interior(mt.grid, getattr(st, name))
+        assert np.isfinite(b).all(), name
+        assert _rel(a, b) <= bar, (name, _rel(a, b))
+
+
 def test_halo5_vs_halo19_bitwise():
     """The contract of validation/reproducibility_tpu.py on one device:
     halo 5 and halo 19 give bitwise-equal interiors of u, v, h, ℵ, σ and α

@@ -512,20 +512,167 @@ def test_fused_gates_refuse_the_general_physics():
     assert routes == ["general"] * 3 and st.h.isfinite().all()
 
 
+def _with_grid_array(model, dynamics):
+    """``model`` with a grid-shaped array in its dynamics: a field
+    viscosity for the explicit solver, an array ocean velocity for free
+    drift."""
+    field = np.full(model.grid.shape, 0.1)
+    if dynamics == "ExplicitSolver":
+        return model.evolve(dynamics=model.dynamics.evolve(
+            rheology=cst.ViscousRheology(nu=1e4 * field)))
+    return model.evolve(dynamics=model.dynamics.evolve(
+        bottom_momentum_stress=cst.SemiImplicitStress(ue=field)))
+
+
 @pytest.mark.parametrize("dynamics", ["ExplicitSolver", "free drift as the dynamics"])
 def test_shard_refuses_the_general_physics(dynamics):
-    """A shard's model (a grid that names mesh axes) whose dynamics have no
-    SplitExplicitSolver raises NotImplementedError naming queue 9, in the
-    route and in the momentum step: the distributed step of these dynamics
-    is not ported."""
+    """The explicit solver and free drift as the whole dynamics run on a
+    shard (a grid that names mesh axes): its route is the general path, and
+    make_distributed_step passes every shard's route and stops only at the
+    missing process group.  A shard refuses them where the model holds a
+    grid-shaped array (a field viscosity, an array ocean velocity), which a
+    rank could not cut, with the JAX package's error (`stepper.py:320-330`),
+    as the JAX package refuses the same model."""
+    from climaseaice_jl_tpu_torch.parallel import make_distributed_step
+    from climaseaice_jl_tpu.parallel import make_distributed_step as jax_dstep
+    csi = _csi()
     model = _variants(_gate_models()[1][1])[dynamics]
     grid = model.grid
     probe = model.evolve(grid=_local_grid(grid, grid.Nx // 2, grid.Ny, 0, 0,
                                           ("x", None), (2, 1)))
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        tmodel.meshed_momentum_route(probe)
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        tmodel.momentum_step(probe, cst.SeaIceState(), 60.0)
+    assert tmodel.meshed_momentum_route(probe) == "general"
+    with pytest.raises(RuntimeError, match="torch.distributed is not initialised"):
+        make_distributed_step(model, (2, 1))
+    with pytest.raises(NotImplementedError, match="grid-shaped model array"):
+        make_distributed_step(_with_grid_array(model, dynamics), (2, 1))
+
+    gj = csi.RectilinearGrid(size=(16, 128), x=(0, 32 * km), y=(0, 256 * km), halo=5,
+                             topology=("bounded", "bounded"), dtype="float32")
+    field = np.full(gj.shape, 0.1)
+    if dynamics == "ExplicitSolver":
+        dj = csi.SeaIceMomentumEquation(rheology=csi.ViscousRheology(nu=1e4 * field),
+                                        solver=csi.ExplicitSolver())
+    else:
+        dj = csi.StressBalanceFreeDrift(top_momentum_stress={"u": 0.1, "v": 0.05},
+                                        bottom_momentum_stress=csi.SemiImplicitStress(ue=field))
+    with pytest.raises(NotImplementedError, match="grid-shaped model array"):
+        jax_dstep(csi.sea_ice_model(gj, dynamics=dj), (2, 1))
+
+
+# --- the module-level helpers: strain rates, div_Uah, the SBP identity ----------------------
+
+def test_strain_rate_helpers_and_div_Uah_match_jax():
+    """``strain_rate_xx``, ``strain_rate_yy``, ``strain_rate_xy``
+    (`rheologies.py:58-68`) and ``div_Uah`` (`advection.py:310`, WENO-5,
+    with the peripheral masks) on a bounded latitude-longitude grid with
+    seeded fields, against the JAX package's: within 1e-12 of each field's
+    largest value (the same operations in the same order)."""
+    csi = _csi()
+    import climaseaice_jl_tpu.dynamics.rheologies as jrheo
+    import climaseaice_jl_tpu.advection as jadv
+    from climaseaice_jl_tpu_torch.dynamics import rheologies as trheo
+    from climaseaice_jl_tpu_torch import advection as tadv
+
+    def grid(lib, **kw):
+        return lib.LatitudeLongitudeGrid(size=(12, 10), longitude=(0, 60), latitude=(20, 70),
+                                         topology=("bounded", "bounded"), halo=4, **kw)
+
+    gj, gt = grid(csi), grid(cst, device="cpu")
+    rng = np.random.default_rng(8)
+    u, v, a, h = (rng.standard_normal(gt.shape) * s + o
+                  for s, o in ((0.05, 0.0), (0.05, 0.0), (0.05, 0.9), (0.2, 1.0)))
+    u[:, :6] = 0.0                                     # faces at rest: the ratio form's branch
+    mt = cst.sea_ice_model(gt)
+    masks_t = (mt.masks.per_fc, mt.masks.per_cf)
+    masks_j = tuple(m.numpy() for m in masks_t)
+    T = [torch.as_tensor(q) for q in (u, v, a, h)]
+    for name in ("strain_rate_xx", "strain_rate_yy", "strain_rate_xy"):
+        ref = np.asarray(getattr(jrheo, name)(gj, u, v))
+        got = getattr(trheo, name)(gt, T[0], T[1]).numpy()
+        assert _rel(gj.interior(ref), gt.interior(got)) <= 1e-12, name
+    for scheme, masks in ((lambda lib: lib.WENO(order=5), True),
+                          (lambda lib: lib.UpwindBiased(order=3), False)):
+        ref = np.asarray(jadv.div_Uah(gj, scheme(csi), u, v, a, h,
+                                      masks=masks_j if masks else None))
+        got = tadv.div_Uah(gt, scheme(cst), *T, masks=masks_t if masks else None).numpy()
+        assert np.isfinite(got).all()
+        assert _rel(gj.interior(ref), gt.interior(got)) <= 1e-12
+
+
+def _set_smooth(grid, xloc, yloc, func, margin=2):
+    """A zero field with ``func(λ, φ)`` on the interior but a margin, at the
+    staggered location ``xloc``, ``yloc`` ('c' or 'f' each)."""
+    lam = (grid.xc if xloc == "c" else grid.xf).numpy()
+    phi = (grid.yc if yloc == "c" else grid.yf).numpy()
+    q = np.zeros(grid.shape)
+    Hx, Hy = grid.Hx, grid.Hy
+    i = np.arange(margin, grid.Nx - margin)[:, None]
+    j = np.arange(margin, grid.Ny - margin)[None, :]
+    q[Hx + i, Hy + j] = func(lam[Hx + i], phi[Hy + j])
+    return torch.as_tensor(q)
+
+
+@pytest.mark.parametrize("N", [40, 80])
+def test_sbp_adjointness(N):
+    """`tests/test_rheology_energy_budget.py::test_sbp_adjointness` on the
+    port: on a bounded latitude-longitude grid the port's metric-aware
+    stress divergence satisfies Σ [u ∂ⱼσ₁ⱼ + v ∂ⱼσ₂ⱼ] Az = −Σ [σ₁₁ϵ̇₁₁ +
+    σ₂₂ϵ̇₂₂ + 2σ₁₂ϵ̇₁₂] Az (the strain rates from ``strain_rate_*``) to
+    below 1e-10 of the larger side, where the naive flux form misses by more
+    than 1e-3."""
+    from climaseaice_jl_tpu_torch.ops import dxf, dxc, dyf, dyc
+    from climaseaice_jl_tpu_torch.state import ModelFields
+    from climaseaice_jl_tpu_torch.dynamics.rheologies import (
+        stress_divergence, strain_rate_xx, strain_rate_yy, strain_rate_xy)
+    grid = cst.LatitudeLongitudeGrid(size=(N, N), longitude=(0, 60), latitude=(20, 70),
+                                     topology=("bounded", "bounded"), halo=4, device="cpu")
+    lh = lambda lam: lam / 60 * 2 * np.pi                   # noqa: E731
+    ph = lambda phi: (phi - 20) / 50 * 2 * np.pi            # noqa: E731
+    u = _set_smooth(grid, "f", "c", lambda l, p: np.sin(2 * lh(l)) * np.cos(3 * ph(p)))
+    v = _set_smooth(grid, "c", "f", lambda l, p: np.cos(3 * lh(l)) * np.sin(2 * ph(p)))
+    s11 = _set_smooth(grid, "c", "c", lambda l, p: np.sin(lh(l)) * np.sin(2 * ph(p)))
+    s22 = _set_smooth(grid, "c", "c", lambda l, p: np.cos(2 * lh(l)) * np.cos(ph(p)))
+    s12 = _set_smooth(grid, "f", "f", lambda l, p: np.sin(3 * lh(l)) * np.cos(2 * ph(p)))
+    fields = ModelFields(u=u, v=v, sig11=s11, sig22=s22, sig12=s12)
+    div_x, div_y = stress_divergence(cst.ElastoViscoPlasticRheology(), grid, fields)
+    old_x = (dxf(grid.dy_cc * s11) + dyc(grid.dx_ff * s12)) / grid.az_fc
+    old_y = (dxc(grid.dy_ff * s12) + dyf(grid.dx_cc * s22)) / grid.az_cf
+
+    I = grid.interior                                        # noqa: E741
+
+    def az(name):
+        return getattr(grid, name).broadcast_to(grid.shape)
+
+    W_new = float((I(u * div_x * az("az_fc"))).sum() + (I(v * div_y * az("az_cf"))).sum())
+    W_old = float((I(u * old_x * az("az_fc"))).sum() + (I(v * old_y * az("az_cf"))).sum())
+    D = float(I(s11 * strain_rate_xx(grid, u, v) * az("az_cc")).sum()
+              + I(s22 * strain_rate_yy(grid, u, v) * az("az_cc")).sum()
+              + 2 * I(s12 * strain_rate_xy(grid, u, v) * az("az_ff")).sum())
+    new, old = (abs(W + D) / max(abs(W), abs(D)) for W in (W_new, W_old))
+    assert new < 1e-10, new
+    assert old > 1e-3, old
+    assert new < 1e-6 * old
+
+
+PORTED_MODULES = ["advection", "dynamics.coriolis", "dynamics.free_drift", "dynamics.momentum",
+                  "dynamics.rheologies", "dynamics.stresses", "fields", "forcing_utils", "grids",
+                  "io.checkpoint", "io.writers", "model", "ops", "parallel.multihost",
+                  "simulation", "state", "thermodynamics.heat_bcs", "thermodynamics.slab"]
+
+
+@pytest.mark.parametrize("module", PORTED_MODULES)
+def test_module_names_match_the_jax_package(module):
+    """Every public function and class that a ported module of the JAX
+    package defines is in the port's module of the same name."""
+    import importlib
+    import inspect
+    jax_mod = importlib.import_module("climaseaice_jl_tpu." + module)
+    port_mod = importlib.import_module("climaseaice_jl_tpu_torch." + module)
+    names = [n for n, v in vars(jax_mod).items()
+             if not n.startswith("_") and (inspect.isfunction(v) or inspect.isclass(v))
+             and v.__module__ == jax_mod.__name__]
+    assert names
+    assert [n for n in names if not hasattr(port_mod, n)] == []
 
 
 # --- the card against the CPU: chip_smoke.py phase 33 ----------------------------------------

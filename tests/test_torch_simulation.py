@@ -3,6 +3,8 @@
 10 substeps) through `Simulation.run`, its callbacks and schedules, the stop
 conditions, and the NaN check."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -87,13 +89,26 @@ def test_nan_check_raises_at_iteration_100():
     assert quiet.iteration == 150
 
 
-def test_options_of_later_slices_raise():
-    """Checkpoint pickup and device traces are not ported yet and raise
-    rather than run without them."""
+def test_options_of_later_slices_raise(tmp_path):
+    """Checkpoint pickup and device traces are ported: a pickup that cannot
+    be met raises the JAX package's ValueError before a step (no
+    Checkpointer for True or a number; True with no checkpoint written), a
+    path picks up, and a profiled run writes its trace and steps as an
+    unprofiled one does."""
     model, state = _still_water(1.0)
     sim = cst.Simulation(model, state, dt=60.0, stop_iteration=1)
-    with pytest.raises(NotImplementedError, match="queue 6"):
+    for pickup in (True, 3):
+        with pytest.raises(ValueError, match="requires a Checkpointer"):
+            sim.run(pickup=pickup)
+    sim.output_writers["ckp"] = cst.io.Checkpointer(str(tmp_path / "chk"),
+                                                    cst.IterationInterval(1))
+    with pytest.raises(ValueError, match="requires existing checkpoints"):
         sim.run(pickup=True)
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        sim.run(profile_dir="trace")
     assert sim.iteration == 0
+    sim.run(profile_dir=str(tmp_path / "trace"))
+    assert sim.iteration == 1 and os.path.exists(sim.trace_file)
+    again = cst.Simulation(model, state, dt=60.0, stop_iteration=1)
+    again.run(pickup=str(tmp_path / "chk_iteration1.npz"))
+    assert again.iteration == 1
+    for name in ("h", "a", "u", "v"):
+        assert torch.equal(getattr(again.state, name), getattr(sim.state, name)), name

@@ -277,9 +277,34 @@ Phases, each of which raises (exit code 1) when it fails:
     uninterrupted run, 2.1 launched 360 times on the resumed path and no
     other EVP kernel; a NetCDF record of the card's state read back equal;
     one step under ``run(profile_dir=…)``, whose Chrome trace holds one
-    event of 2.1's kernel per launch the counter saw.
-Phases 31-34 print ms per step (CUDA events, after a warm-up) with the
-card's name and power limit, and their seconds.
+    event of 2.1's kernel per launch the counter saw;
+38. the enthalpy column (``climaseaice_jl_tpu_torch.enthalpy``): the
+    diffusive-column example at its full length (10 days, 8,640 steps of
+    100 s, float64) against `validation/diffusive_ice_column.npz` (rtol
+    1e-9, atol 1e-11); a (512, 512) batch of 20-cell columns, 100 steps,
+    finite, timed; the card against the CPU on a (16, 16) batch, within
+    1e-12;
+39. the ice over the slab ocean: the ``ice_ocean_coupled`` example's two
+    years (2,880 steps of 6 h on 8×8, float64), its 72 records of mean h,
+    SST and salinity within 1e-6 of each series' largest magnitude of
+    `validation/ice_ocean_coupled.npz`;
+40. the ice over the shallow-water ocean: (a) the
+    ``melting_over_dynamic_ocean`` example at `tests/test_examples.py`'s
+    short length (32², 12 steps, float64) with that test's assertions; (b)
+    its configuration in float32 at 512² (``coupled_channel``), a warm-up
+    and 3 timed ``coupled_step`` calls: 2.3 launched 60 times a call and 3
+    calls a step, 2.1 and 2.2 never; finite, h ≥ 0, 0 ≤ ℵ ≤ 1, the ice and
+    the ocean at rest on the walls, ∑η·Az conserved to float32 roundoff;
+    in turns with the ice step alone; the device-busy share of one profiled
+    coupled step; 2.3 against its plain version on that path's input (the
+    ocean's seeded u, v as uₑ, vₑ; soft ice, seeded velocities), bitwise, timed,
+    with its bound; (c) the card against the CPU at 128², float32, soft ice,
+    seeded ice velocities over an ocean at rest, 2 steps: u, v ≤ 1e-4, σ, α
+    ≤ 4e-3, h, ℵ, SST, salinity, η ≤ 1e-5 of each field's largest value.
+    Phase 40 steps Δt = 1200 s · 32/N, the ocean's Courant number of the
+    example's tested 32² run.
+Phases 31-34 and 38-40 print ms per step (CUDA events) with the card's
+name and power limit, and their seconds.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and as the last line
@@ -398,6 +423,14 @@ POINTWISE_ARRAYS = 3
 # snowfall and flooding 24, the diagnostics 12; h, ℵ, hs, S, Tu, Tus and the
 # latitude read, 10 outputs written
 LAYERED_THERMO_ARRAYS = 17
+# csrc/evp_padded.cu without immersed drag (the coupled channel): 145 a point
+# and substep; 14 constants, the 4 stress arrays (τ top, the ocean's uₑ, vₑ)
+# and the 6 carried fields read
+PADDED_NODRAG_FLOPS_PER_POINT_SUBSTEP = 145
+PADDED_NODRAG_ARRAYS_READ = 24
+# the three examples that run the side models (phases 38-40)
+SIDE_MODEL_EXAMPLES = ("diffusive_ice_column_model", "ice_ocean_coupled",
+                       "melting_over_dynamic_ocean")
 
 
 def layered_thermo_flops(F):
@@ -799,8 +832,9 @@ def check_basin_state(model, state):
         raise AssertionError("the fold halo of u is not minus its mirror")
 
 
-def profile_device_ms(cst, model, state, dt):
-    """Device time (ms) of one step under torch.profiler, the count of
+def profile_device_ms(cst, model, state, dt, step=None):
+    """Device time (ms) of one step (``cst.step`` unless ``step`` is given)
+    under torch.profiler, the count of
     device-to-host reads of a value that make the host wait for the device,
     and the profiler's table by kernel.  The device time is the union of
     the kernels' and copies' intervals, not their sum: a chunk of 2.3 or
@@ -810,7 +844,7 @@ def profile_device_ms(cst, model, state, dt):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        cst.step(model, state, dt)
+        (step or cst.step)(model, state, dt)
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
@@ -1459,8 +1493,8 @@ def physics_phases(cst, card, evp_counters, adv_counter, thermo_counter):
         "arctic_basin_seasonal_cycle": (lambda: arctic_basin_seasonal_cycle.build(device="cuda"),
                                         loop(90, 8 * 3600.0), 90, lambda m, s: h0(m, s) > 0),
     }
-    if {k.split(" ")[0] for k in runs} != set(ex.NAMES):
-        raise AssertionError("phase 34 does not run every example of the port")
+    if {k.split(" ")[0] for k in runs} | set(SIDE_MODEL_EXAMPLES) != set(ex.NAMES):
+        raise AssertionError("phases 34 and 38-40 do not run every example of the port")
     t0 = time.perf_counter()
     for name, (build, run, n, ok) in runs.items():
         model, state = build()
@@ -1559,6 +1593,288 @@ def io_phase(cst, card, evp_counters):
         return launches["2.1"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def coupled_channel(cst, N, dtype="float32", P_star=27500.0, device="cuda", seed=None,
+                    ocean_seed=None):
+    """`examples/melting_over_dynamic_ocean.py:build(N)` (the periodic ×
+    bounded channel, αEVP with 120 substeps, FPlane, WENO-7, RK3, the
+    shallow-water ocean with 24 substeps and κ = 20) in ``dtype`` with P★ =
+    ``P_star``; with ``seed``, seeded ice velocities, with ``ocean_seed``
+    seeded ocean velocities.  The example's ``build`` keeps the JAX
+    example's arguments, which have neither."""
+    import numpy as np
+    from climaseaice_jl_tpu_torch import coupled as cp
+    from climaseaice_jl_tpu_torch.ocean import ShallowWaterOcean
+    grid = cst.RectilinearGrid(size=(N, N), x=(-50 * KM, 50 * KM), y=(-50 * KM, 50 * KM),
+                               topology=("periodic", "bounded"), dtype=dtype, device=device)
+    dynamics = cst.SeaIceMomentumEquation(
+        rheology=cst.ElastoViscoPlasticRheology(ice_compressive_strength=P_star),
+        coriolis=cst.FPlane(f=1.4e-4), top_momentum_stress={"u": 0.05, "v": 0.0},
+        bottom_momentum_stress=cst.SemiImplicitStress(),
+        solver=cst.SplitExplicitSolver(substeps=120))
+    ice = cst.sea_ice_model(grid, dynamics=dynamics, top_heat_flux=(cst.RadiativeEmission(),),
+                            bottom_heat_flux=0.0, ice_salinity=5.0, advection=cst.WENO(order=7),
+                            timestepper="SplitRungeKutta3")
+    ocean = ShallowWaterOcean(depth=50.0, coriolis=cst.FPlane(f=1.4e-4), wind_stress_x=0.05,
+                              substeps=24, tracer_diffusivity=20.0)
+    iom = cp.IceOceanModel(ice=ice, ocean=ocean)
+    x = (np.arange(N) + 0.5) * (100 * KM / N) - 50 * KM
+    T0 = -1.5 + 2.5 * np.exp(-(x[None, :] / (15 * KM)) ** 2) * np.ones((N, 1))
+    kw = {}
+    for keys, value in ((("u", "v"), seed), (("u_ocean", "v_ocean"), ocean_seed)):
+        if value is not None:
+            rng = np.random.default_rng(value)
+            kw.update({k: 0.05 * rng.standard_normal((N, N)) for k in keys})
+    return iom, cp.initial_state(iom, T_ocean=T0, S_ocean=30.0, h=1.0, a=1.0, **kw)
+
+
+def ocean_at_rest_on_walls(iom, cstate):
+    """The ocean's u and v zero on the peripheral nodes of the ice's grid."""
+    g, masks = iom.ice.grid, iom.ice.masks
+    for vel, per in ((cstate.u_ocean, masks.per_fc), (cstate.v_ocean, masks.per_cf)):
+        per = g.interior(per)
+        if per.any() and g.interior(vel)[per].abs().max().item() != 0.0:
+            raise AssertionError("ocean velocity on a peripheral node")
+
+
+def side_model_phases(cst, card, evp_counters):
+    """Phases 38-40: the enthalpy column, the ice over the slab ocean and the
+    ice over the shallow-water ocean on the card.  Returns the launches of
+    2.3 on phase 40's coupled path and its kernel entry's timing and
+    shape."""
+    import numpy as np
+    import torch
+    from climaseaice_jl_tpu_torch import coupled as cp
+    from climaseaice_jl_tpu_torch import enthalpy as em
+    from climaseaice_jl_tpu_torch.dynamics import fused_evp_padded
+    from climaseaice_jl_tpu_torch.examples import (diffusive_ice_column_model,
+                                                   ice_ocean_coupled, melting_over_dynamic_ocean)
+    from climaseaice_jl_tpu_torch.convert import coupled_state_to_numpy
+    events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+
+    def timed(fn):
+        """(result, CUDA-event ms) of ``fn()``."""
+        torch.cuda.synchronize()
+        events[0].record()
+        out = fn()
+        events[1].record()
+        torch.cuda.synchronize()
+        return out, events[0].elapsed_time(events[1])
+
+    # --- 38. the enthalpy column --------------------------------------------------------
+    t0 = time.perf_counter()
+    model, state = diffusive_ice_column_model.build(device="cuda")
+    (_, t, T), ms = timed(lambda: diffusive_ice_column_model.run(model, state))
+    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "validation",
+                               "diffusive_ice_column.npz"))
+    if not np.array_equal(t, ref["t"]):
+        raise AssertionError("[38] the column's record times differ from the golden's")
+    np.testing.assert_allclose(T, ref["T"], rtol=1e-9, atol=1e-11)
+    worst = np.abs(T - ref["T"]).max()
+    print(f"[38] diffusive_ice_column_model: 10 days, 8,640 steps of 100 s, float64, "
+          f"{ms / 8640 * 1e3:.1f} µs a step (CUDA events, no host read until the end); its 40 "
+          f"records within rtol 1e-9, atol 1e-11 of validation/diffusive_ice_column.npz "
+          f"(largest difference {worst:.2e} °C), on {card}")
+    rng = np.random.default_rng(38)
+
+    def batch(columns, device):
+        """The example's column model and a seeded enthalpy in ``columns``."""
+        grid = em.ZGrid(Nz=20, device=device)
+        m = em.EnthalpyMethodSeaIceModel(
+            grid=grid, closure=em.MolecularDiffusivity(kappa_ice=1e-5, kappa_water=1e-6),
+            top_T_bc=em.ValueBoundaryCondition(diffusive_ice_column_model.air_ice_temperature),
+            bottom_T_bc=em.ValueBoundaryCondition(
+                diffusive_ice_column_model.ice_ocean_temperature))
+        H = H0[tuple(slice(0, n) for n in columns)]
+        return m, em.initial_state(m, H=torch.as_tensor(H, device=grid.device), columns=columns)
+
+    def steps_of(m, s, n):
+        for _ in range(n):
+            s = em.step(m, s, 100.0)
+        return s
+
+    H0 = 2090.0 / 999.8 * rng.uniform(-4.0, 2.0, (512, 512, 20))
+    m, s = batch((512, 512), "cuda")
+    steps_of(m, s, 1)                                                    # warm-up
+    s, ms = timed(lambda: steps_of(m, s, 100))
+    if not torch.isfinite(s.T).all():
+        raise AssertionError("[38] the batched columns are not finite")
+    small = {d: steps_of(*batch((16, 16), d), 100) for d in ("cuda", "cpu")}
+    rels = {n: rel_diff(getattr(small["cpu"], n), getattr(small["cuda"], n).cpu())[0]
+            for n in ("H", "T", "kappa")}
+    print(f"    batched columns (512, 512) × 20 cells, float64, 100 steps: finite, "
+          f"{ms / 100:.3f} ms a step (CUDA events); card vs CPU on a "
+          f"(16, 16) batch, 100 steps: "
+          + ", ".join(f"{n} {r:.1e}" for n, r in rels.items()) + f" (bar 1e-12), on {card} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for n, r in rels.items():
+        check(n, r, 1e-12)
+
+    # --- 39. the ice over the slab ocean ------------------------------------------------
+    t0 = time.perf_counter()
+    iom, cstate = ice_ocean_coupled.build(device="cuda")
+    (_, series), ms = timed(lambda: ice_ocean_coupled.run(iom, cstate, 2880))
+    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "validation",
+                               "ice_ocean_coupled.npz"))
+    devs = {}
+    for k, name in enumerate(("t", "h", "T", "S")):
+        devs[name] = np.abs(series[:, k] - ref[name]).max() / np.abs(ref[name]).max()
+    print(f"[39] ice_ocean_coupled: 2 years, 2,880 coupled steps of 6 h on 8×8, Forward Euler, "
+          f"float64, {ms / 2880:.3f} ms a step (CUDA events); its 72 records against "
+          f"validation/ice_ocean_coupled.npz, largest deviation over the series' largest "
+          f"magnitude: " + ", ".join(f"{n} {d:.2e}" for n, d in devs.items())
+          + f" (bar 1e-6), on {card} ({time.perf_counter() - t0:.1f} s)")
+    if series.shape != (72, 4) or not max(devs.values()) <= 1e-6:
+        raise AssertionError(f"[39] the slab-ocean run parts from its golden: {devs}")
+
+    # --- 40. the ice over the shallow-water ocean -----------------------------------------
+    # (a) the example's short run of tests/test_examples.py:102
+    t0 = time.perf_counter()
+    iom, cstate = melting_over_dynamic_ocean.build(N=32, device="cuda")
+    g = iom.ice.grid
+    h0 = g.interior(cstate.ice.h).clone()
+
+    def loop(iom_, s, n, dt=1200.0):
+        for _ in range(n):
+            s = cp.coupled_step(iom_, s, dt)
+        return s
+
+    cstate, ms = timed(lambda: loop(iom, cstate, 12))
+    h, uo = g.interior(cstate.ice.h), g.interior(cstate.u_ocean)
+    mid, edge = h[:, h.shape[1] // 2].mean(), h[:, 2].mean()
+    if not (torch.isfinite(h).all() and torch.isfinite(uo).all()
+            and mid < h0[:, h0.shape[1] // 2].mean() and mid < edge
+            and uo.abs().max() > 1e-5):
+        raise AssertionError("[40] melting_over_dynamic_ocean: the short run's assertions failed")
+    print(f"[40] (a) melting_over_dynamic_ocean.build(N=32): 12 coupled steps of 20 min, float64 "
+          f"(the general path), {ms / 12:.1f} ms a step (CUDA events, first step included); "
+          f"finite, the warm strip thinner ({mid.item():.4f} m) than the edge "
+          f"({edge.item():.4f} m), |u_ocean| {uo.abs().max().item():.2e} m/s, on {card} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # (b) the slice's main path at full width: float32, 512².  The ocean's
+    # forward-backward substeps hold while gravity waves cross fewer than
+    # about √2 cells a substep, √(gH)·Δt/(24·Δx): 0.35 in the 32² run that
+    # tests/test_examples.py:102 makes with the example's 20 min step, 1.42 at
+    # the example's default N = 128, where both packages blow up within a
+    # step (ROADMAP.md §3), 5.7 at 512².  So Δt shrinks with Δx, keeping the
+    # tested run's 0.35: 75 s at 512², 300 s at 128²
+    t0 = time.perf_counter()
+    N, nsub = 512, 120
+    dt = 1200.0 * 32 / N
+    iom, cstate = coupled_channel(cst, N)
+    cstate = cp.coupled_step(iom, cstate, dt)                           # warm-up
+    torch.cuda.synchronize()
+    g = iom.ice.grid
+
+    def volume(s):
+        return (g.interior(s.eta).double() * g.interior(g.az_cc.expand(g.shape)).double()).sum()
+
+    def abs_volume(s):
+        return (g.interior(s.eta).double().abs() * float(g.az_cc)).sum()
+
+    vol0 = volume(cstate)
+    for c in evp_counters.values():
+        c.reset()
+    steps = 3
+    cstate, ms = timed(lambda: loop(iom, cstate, steps, dt))
+    calls = {k: (c.calls, c.launches) for k, c in evp_counters.items() if c.calls}
+    per_call = -(-nsub // fused_evp_padded.chunk_substeps())
+    want = {"2.3": (3 * steps, 3 * steps * per_call)}
+    if calls != want:
+        raise AssertionError(f"[40] EVP kernel calls and launches {calls}, expected {want}")
+    check_state(iom.ice, cstate.ice)
+    ocean_at_rest_on_walls(iom, cstate)
+    for name in ("T_ocean", "S_ocean", "u_ocean", "v_ocean", "eta"):
+        if not torch.isfinite(g.interior(getattr(cstate, name))).all():
+            raise AssertionError(f"[40] {name} is not finite")
+    drift = abs(volume(cstate) - vol0).item()
+    bound = steps * iom.ocean.substeps * float(np.finfo(np.float32).eps) * abs_volume(cstate).item()
+    if not drift <= bound:
+        raise AssertionError(f"[40] ∑η·Az drifted by {drift:.3e} m³, above {bound:.3e}")
+    coupled_launches = calls["2.3"][1]
+    print(f"[40] (b) the channel in float32 at {N}² (coupled_channel: 120 EVP substeps, 24 "
+          f"ocean substeps, WENO-7, RK3, Δt {dt:.0f} s): {steps} coupled steps after a warm-up, "
+          f"{ms / steps:.2f} ms a step (CUDA events); 2.3 {calls['2.3'][0]} calls, "
+          f"{coupled_launches} launches ({per_call} a call), 2.1 and 2.2 none; finite, h ≥ 0, "
+          f"0 ≤ ℵ ≤ 1, ice and ocean at rest on the walls; ∑η·Az moved {drift:.3e} m³ "
+          f"(float32 bound {bound:.3e}: {steps * iom.ocean.substeps} substeps × ε × ∑|η|·Az)")
+    ice_model = cp.ice_model_for_step(iom, cstate)
+    turns = []
+    for name in ("coupled", "ice alone", "coupled", "ice alone"):
+        if name == "coupled":
+            _, turn_ms = timed(lambda: loop(iom, cstate, 2, dt))
+        else:
+            _, turn_ms = timed(lambda: [cst.step(ice_model, cstate.ice, dt) for _ in range(2)])
+        turns.append(f"{name} {turn_ms / 2:.2f}")
+    device_ms, syncs, _ = profile_device_ms(cst, iom, cstate, dt, step=cp.coupled_step)
+    print(f"    in turns, ms a step (CUDA events, 2 steps each from the same state; the ice "
+          f"step alone is cst.step on the refreshed ice model): {', '.join(turns)}; one "
+          f"profiled coupled step {device_ms:.3f} ms of device time, busy "
+          f"{100 * device_ms / (ms / steps):.1f} %, {syncs} host waits, on {card} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # 2.3 against its plain version on this path's input (array uₑ, vₑ), soft ice
+    soft, soft_state = coupled_channel(cst, N, P_star=27.5, seed=40, ocean_seed=39)
+    soft_model = cp.ice_model_for_step(soft, soft_state)
+    ice = soft_state.ice
+    params, consts, carry, _ = fused_evp_padded.padded_evp_inputs(soft_model, ice, dt,
+                                                                  ice.u, ice.v)
+    if not torch.equal(consts[-2], soft_state.u_ocean) or len(consts) != 18:
+        raise AssertionError("[40] the ocean's u did not reach 2.3 as uₑ")
+    out = fused_evp_padded.padded_evp_substeps(params, consts, [q.clone() for q in carry],
+                                               nsub, g)
+    ref23 = fused_evp_padded.padded_evp_substeps_reference(params, consts, carry, nsub, g)
+    torch.cuda.synchronize()
+    print(f"    2.3 against its plain version on the coupled path's input ({g.nxp}×{g.nyp} "
+          f"padded, the ocean's seeded u, v as uₑ, vₑ, soft ice, seeded ice velocities, "
+          f"{nsub} substeps):")
+    worst_rel = worst_abs = 0.0
+    for name, r, o, bar in zip(("u", "v", "sig11", "sig22", "sig12", "alpha"), ref23, out,
+                               (1e-4, 1e-4, 4e-3, 4e-3, 4e-3, 4e-3)):
+        rel, abs_err = rel_diff(r, o)
+        check(name, rel, bar)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    ulps = max(max_ulp(r, o) for r, o in zip(ref23, out))
+    if ulps:
+        raise AssertionError(f"[40] 2.3 is {ulps} ulp from its plain version")
+    work = [q.clone() for q in carry]
+    kernel_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps(
+        params, consts, work, nsub, g), 20)
+    plain_ms = cuda_ms(lambda: fused_evp_padded.padded_evp_substeps_reference(
+        params, consts, carry, nsub, g), 3)
+    points = g.nxp * g.nyp
+    nbytes = ((PADDED_NODRAG_ARRAYS_READ + EVP_ARRAYS_WRITTEN) * points + EVP_PARAMS) * 4
+    flops = (PADDED_NODRAG_FLOPS_PER_POINT_SUBSTEP * nsub + PADDED_FLOPS_PER_POINT_CALL) * points
+    bytes_ms, ops_ms = bounds_ms(nbytes, flops)
+    print(f"    bitwise over the whole padded arrays; kernel {kernel_ms:.4f} ms a call, plain "
+          f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB), on {card}")
+    timing = (worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    shape = f"{g.nxp}x{g.nyp} padded ({N}x{N} periodic x bounded channel, ocean u, v as ue, ve)"
+    del out, ref23, work, carry, consts
+
+    # (c) card against CPU at 128²: the ice's velocities seeded, the ocean at
+    # rest as the example starts it.  Seeded grid-scale ocean currents make
+    # the SST and salinity ill-conditioned: there one float32 ulp of the
+    # ice's u alone moves them by 2e-5 in two steps on either device
+    t0 = time.perf_counter()
+    finals = {}
+    for device in ("cuda", "cpu"):
+        m, s = coupled_channel(cst, 128, P_star=27.5, device=device, seed=41)
+        finals[device] = coupled_state_to_numpy(loop(m, s, 2, 1200.0 * 32 / 128))
+    print(f"[40] (c) the channel at 128², float32, soft ice, seeded ice velocities, 2 coupled "
+          f"steps of 300 s, "
+          f"card (2.3) vs CPU (its plain version) ({time.perf_counter() - t0:.1f} s):")
+    bars = {"ice/u": 1e-4, "ice/v": 1e-4, "ice/sig11": 4e-3, "ice/sig22": 4e-3,
+            "ice/sig12": 4e-3, "ice/alpha": 4e-3, "ice/h": 1e-5, "ice/a": 1e-5,
+            "T_ocean": 1e-5, "S_ocean": 1e-5, "eta": 1e-5}
+    for name, bar in bars.items():
+        rel, _ = rel_diff(torch.as_tensor(finals["cpu"][name]),
+                          torch.as_tensor(finals["cuda"][name]))
+        check(name, rel, bar)
+    return coupled_launches, timing, shape
 
 
 def main(argv=None):
@@ -3434,6 +3750,7 @@ def main(argv=None):
                     "2.7": tc_counter, "2.8": strength_counter}
     forced_launches = physics_phases(cst, card, evp_counters, adv_counter, thermo_counter)
     io_phase(cst, card, evp_counters)
+    coupled_launches, coupled_timing, coupled_shape = side_model_phases(cst, card, evp_counters)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -3543,6 +3860,9 @@ def main(argv=None):
                      "climaseaice_jl_tpu_torch/csrc/evp_tiled_curvilinear.cu",
                      "climaseaice_jl_tpu/dynamics/pallas_evp_tiled_curvilinear.py:662",
                      "_tiled_curv_kernel", tcu_launches, *tcu_timing, tcu_shape),
+        kernel_entry("padded_evp_substeps_coupled", "climaseaice_jl_tpu_torch/csrc/evp_padded.cu",
+                     "climaseaice_jl_tpu/dynamics/pallas_evp_padded.py:167", "_padded_kernel",
+                     coupled_launches, *coupled_timing, coupled_shape),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

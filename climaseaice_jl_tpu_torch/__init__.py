@@ -14,9 +14,9 @@ in :mod:`.dynamics.fused_evp`, other bounded and immersed rectilinear grids
 in :mod:`.dynamics.fused_evp_padded`; on CPU tensors the same routes run
 the kernels' plain PyTorch versions.  The viscous rheology, the explicit
 solver, the beta-plane, free drift and user forcing run on the general
-path, as in the JAX package; :mod:`.examples` holds the examples that need
-only these modules.  ``SplitExplicitSolver(fixed_tiles=…)``
-selects the decomposition-invariant mode: the EVP loop with its
+path, as in the JAX package; :mod:`.examples` holds the eleven examples.
+``SplitExplicitSolver(fixed_tiles=…)`` selects the decomposition-invariant
+mode: the EVP loop with its
 coefficients (pinned curvilinear tiles on grids with array metrics or a
 north fold, with the ice strength), the tracer advection, the column
 thermodynamics and pointwise forcing callables
@@ -33,6 +33,11 @@ samples each face at its own index), and the result parts from the serial
 one in the rows next to the fold.  :mod:`.io` writes and restores
 checkpoints (the JAX package's files, both ways) and NPZ and NetCDF output;
 ``Simulation.run`` picks up from a checkpoint and writes a device trace.
+The side models: :mod:`.enthalpy` (the enthalpy-method column, one column
+or a batch), :mod:`.coupled` (the ice over a slab mixed-layer ocean or over
+:mod:`.ocean`'s shallow-water ocean, one ``coupled_step``; a float32 αEVP
+ice model over the shallow-water ocean runs its momentum in the padded
+kernel, the drag's ocean velocities being arrays).
 """
 
 from .grids import (RectilinearGrid, LatitudeLongitudeGrid, CurvilinearGrid,

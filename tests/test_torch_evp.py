@@ -295,7 +295,9 @@ def test_port_imports_no_jax():
             "multihost.py", "launch.py", "free_drift.py", "freezing_bucket.py",
             "simple_freezing_bucket.py", "perpetual_night.py", "melting_in_spring.py",
             "freezing_of_a_lake.py", "ice_advected_by_anticyclone.py",
-            "ice_advected_on_coastline.py", "arctic_basin_seasonal_cycle.py"} <= names
+            "ice_advected_on_coastline.py", "arctic_basin_seasonal_cycle.py", "enthalpy.py",
+            "ocean.py", "coupled.py", "diffusive_ice_column_model.py", "ice_ocean_coupled.py",
+            "melting_over_dynamic_ocean.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

@@ -1,4 +1,4 @@
-"""The port's eight examples (`climaseaice_jl_tpu_torch/examples/`), its
+"""The port's eleven examples (`climaseaice_jl_tpu_torch/examples/`), its
 JAX-free oracles and the golden runs of `validation/`.
 
 * Each example's short run of `tests/test_examples.py`, with its
@@ -20,6 +20,12 @@ JAX-free oracles and the golden runs of `validation/`.
   `melting_in_spring_{bare,snow}.npz` (their first 15 days) and
   `arctic_basin_seasonal_cycle.npz` (its first 360 records) in tier-1, at the
   oracles' tolerances; their full lengths in ``slow`` tests.
+* The side models' three examples: the short runs of
+  `tests/test_examples.py:46,102` (and 30 days of ``ice_ocean_coupled``)
+  against the JAX examples, at 1e-10 for the column and the slab ocean; the
+  goldens `validation/diffusive_ice_column.npz` (all 40 records) and
+  `validation/ice_ocean_coupled.npz` (12 records in tier-1, all 72 in a
+  ``slow`` test) at rtol 1e-9.
 
 Both packages run in float64 on the CPU."""
 
@@ -32,9 +38,14 @@ import torch
 
 import climaseaice_jl_tpu_torch as cst
 from climaseaice_jl_tpu_torch.convert import state_to_numpy
-from climaseaice_jl_tpu_torch.examples import (arctic_basin_seasonal_cycle, freezing_bucket,
+from climaseaice_jl_tpu_torch import coupled as cp
+from climaseaice_jl_tpu_torch import enthalpy as et
+from climaseaice_jl_tpu_torch.convert import coupled_state_to_numpy, enthalpy_state_to_numpy
+from climaseaice_jl_tpu_torch.examples import (arctic_basin_seasonal_cycle,
+                                               diffusive_ice_column_model, freezing_bucket,
                                                freezing_of_a_lake, ice_advected_by_anticyclone,
-                                               ice_advected_on_coastline, melting_in_spring,
+                                               ice_advected_on_coastline, ice_ocean_coupled,
+                                               melting_in_spring, melting_over_dynamic_ocean,
                                                perpetual_night, simple_freezing_bucket)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -461,3 +472,120 @@ def test_anticyclone_golden_trajectory(ieee_sqrt):
     for k in ("u", "v", "h", "a"):
         np.testing.assert_allclose(getattr(state, k).numpy(), ref[k], rtol=1e-9, atol=1e-11,
                                    err_msg=f"field {k} diverged from golden")
+
+
+# --- the side models' examples ------------------------------------------------------------
+
+def test_diffusive_column_short():
+    """`tests/test_examples.py:46`: 50 steps of 600 s (past the explicit
+    scheme's stability limit, as there): finite; H, T, ϕ, κ within 1e-10 of
+    the JAX run's largest values."""
+    jex = _jax_example("diffusive_ice_column_model")
+    from climaseaice_jl_tpu import enthalpy as em
+    model, state = diffusive_ice_column_model.build(device="cpu")
+    state = _loop(et.step, model, state, 600.0, 50)
+    assert torch.isfinite(state.T).all()
+    mj, sj = jex.build()
+    sj = _loop(em.step, mj, sj, 600.0, 50)
+    aj, at = enthalpy_state_to_numpy(sj), enthalpy_state_to_numpy(state)
+    for name in ("H", "T", "phi", "kappa"):
+        assert _rel(aj[name], at[name]) <= TIGHT, name
+
+
+def test_ice_ocean_coupled_short():
+    """30 days (120 coupled steps of 6 h) of the slab-ocean example through
+    its ``run`` (insolation formed on the device from the clock) against the
+    JAX example's loop over the same steps: the three records and every
+    field of the coupled state within 1e-10."""
+    jex = _jax_example("ice_ocean_coupled")
+    iom, state = ice_ocean_coupled.build(device="cpu")
+    state, series = ice_ocean_coupled.run(iom, state, 120)
+    iom_j, sj = jex.build()
+    dt, ref = 6 * 3600.0, []
+    for k in range(120):
+        t = float(sj.clock.time)
+        insol = -150.0 * max(0.0, np.sin(2 * np.pi * t / jex.year))
+        iom_j = iom_j.evolve(ocean=iom_j.ocean.evolve(solar_insolation=insol))
+        sj = jex.cp.coupled_step(iom_j, sj, dt)
+        if k % 40 == 0:
+            I = iom_j.ice.grid.interior
+            ref.append((t / day, float(np.asarray(I(sj.ice.h)).mean()),
+                        float(np.asarray(I(sj.T_ocean)).mean()),
+                        float(np.asarray(I(sj.S_ocean)).mean())))
+    assert series.shape == (3, 4)
+    np.testing.assert_allclose(series, np.array(ref), rtol=TIGHT, atol=0)
+    aj, at = coupled_state_to_numpy(sj), coupled_state_to_numpy(state)
+    assert sorted(aj) == sorted(at)
+    for key in aj:
+        assert _rel(aj[key], at[key]) <= TIGHT, key
+
+
+MELTING_FIELDS = ("ice/h", "ice/a", "ice/u", "ice/v", "T_ocean", "S_ocean", "u_ocean", "v_ocean",
+                  "eta")
+
+
+def test_melting_over_dynamic_ocean_short():
+    """`tests/test_examples.py:102`: 32², 12 coupled steps of 20 min at the
+    default P★ (float64, the general path): finite, the warm strip melts
+    and thins below the channel's edge, the ocean moves.  Against the JAX
+    example over the same steps: the default-P★ bars (h, ℵ ≤ 1e-6; u, v ≤
+    5e-2; 1e-6 for the ocean's fields) or four times the JAX example's own
+    distance from itself with h perturbed by one part in 1e15, whichever is
+    larger.  The bars alone cannot hold here: packed ice (ℵ = 1) in the
+    plastic regime carries that perturbation to 2.7e-3 in h and 0.19 in v
+    after 12 steps of the JAX example itself (the port: 4.0e-3 and 0.13)."""
+    jex = _jax_example("melting_over_dynamic_ocean")
+    iom, state = melting_over_dynamic_ocean.build(N=32, device="cpu")
+    g = iom.ice.grid
+    h0 = g.interior(state.ice.h).clone()
+    state = _loop(cp.coupled_step, iom, state, 1200.0, 12)
+    h, uo = g.interior(state.ice.h), g.interior(state.u_ocean)
+    assert torch.isfinite(h).all() and torch.isfinite(uo).all()
+    mid, edge = h[:, h.shape[1] // 2].mean(), h[:, 2].mean()
+    assert mid < h0[:, h0.shape[1] // 2].mean() and mid < edge
+    assert uo.abs().max() > 1e-5
+
+    iom_j, sj = jex.build(N=32)
+    perturbed = sj.evolve(ice=sj.ice.evolve(h=sj.ice.h * (1 + 1e-15)))
+    sj = _loop(jex.cp.coupled_step, iom_j, sj, 1200.0, 12)
+    perturbed = _loop(jex.cp.coupled_step, iom_j, perturbed, 1200.0, 12)
+    aj, ap, at = (coupled_state_to_numpy(x) for x in (sj, perturbed, state))
+    for key in MELTING_FIELDS:
+        bar = max(DEFAULT_P_STAR_BARS.get(key.removeprefix("ice/"), 1e-6),
+                  4 * _rel(aj[key], ap[key]))
+        assert _rel(aj[key], at[key]) <= bar, (key, _rel(aj[key], at[key]), bar)
+
+
+def test_diffusive_ice_column_golden():
+    """`validation/diffusive_ice_column.npz`: the JAX example's 40 records
+    of 10 days (8,640 steps of 100 s), times exact, temperatures within rtol
+    1e-9, atol 1e-11 (the oracle's bars)."""
+    ref = np.load(os.path.join(VALIDATION, "diffusive_ice_column.npz"))
+    model, state = diffusive_ice_column_model.build(device="cpu")
+    _, t, T = diffusive_ice_column_model.run(model, state)
+    np.testing.assert_array_equal(t, ref["t"])
+    np.testing.assert_allclose(T, ref["T"], rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(model.grid.zc().numpy(), ref["z"], rtol=0, atol=0)
+
+
+def _coupled_golden(n_records):
+    ref = np.load(os.path.join(VALIDATION, "ice_ocean_coupled.npz"))
+    iom, state = ice_ocean_coupled.build(device="cpu")
+    _, series = ice_ocean_coupled.run(iom, state, 40 * (n_records - 1) + 1)
+    assert series.shape == (n_records, 4)
+    for k, name in enumerate(("t", "h", "T", "S")):
+        np.testing.assert_allclose(series[:, k], ref[name][:n_records], rtol=1e-9, atol=0,
+                                   err_msg=name)
+
+
+def test_ice_ocean_coupled_golden():
+    """`validation/ice_ocean_coupled.npz`: the first 12 of its 72 records
+    (every 40th step of 6 h: 441 steps, 110 days) of mean h, SST and
+    salinity within rtol 1e-9."""
+    _coupled_golden(12)
+
+
+@pytest.mark.slow
+def test_ice_ocean_coupled_golden_full():
+    """The same over the golden's two years (72 records, 2,880 steps)."""
+    _coupled_golden(len(np.load(os.path.join(VALIDATION, "ice_ocean_coupled.npz"))["t"]))

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..tracing import span
 from ..grids import PERIODIC
 from ..ops import ixf, iyf, ixy_ff
 from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff
@@ -559,17 +560,20 @@ def fused_split_explicit_momentum_step(model, state, dt, u_start, v_start):
     nsub = model.dynamics.solver.substeps
     if grid.Nx * grid.Ny <= _MAX_POINTS_RICH:
         params, consts, carry, P_pad = evp_inputs(model, state, dt, u_start, v_start)
-        out = evp_substeps(params, consts, carry, nsub)
+        with span("seaice.evp"):
+            out = evp_substeps(params, consts, carry, nsub)
     else:
         from .fused_evp_tiled import tiled_evp_inputs, tiled_evp_substeps
         params, inputs, carry, P_pad = tiled_evp_inputs(model, state, dt, u_start, v_start)
-        out = tiled_evp_substeps(params, *inputs, carry, nsub)
+        with span("seaice.evp"):
+            out = tiled_evp_substeps(params, *inputs, carry, nsub)
     u_i, v_i, s11_i, s22_i, s12_i, al_i = out
 
     def repad(filler, q_int, old):
-        q = old.clone()
-        q[grid.Hx:grid.Hx + grid.Nx, grid.Hy:grid.Hy + grid.Ny] = q_int
-        return filler(q, grid)
+        with span("seaice.fill"):
+            q = old.clone()
+            q[grid.Hx:grid.Hx + grid.Nx, grid.Hy:grid.Hy + grid.Ny] = q_int
+            return filler(q, grid)
 
     return dict(u=repad(fill_halos_fc, u_i, state.u),
                 v=repad(fill_halos_cf, v_i, state.v),

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..tracing import span
 from ..grids import PERIODIC, BOUNDED
 from ..ops import shift_m
 from ..fields import (fill_halos_cc, fill_halos_ff, fill_halos_fc_local, fill_halos_cf_local,
@@ -657,9 +658,12 @@ def padded_fused_momentum_step(model, state, dt, u_start, v_start):
     zeta_cc and zeta_ff stay as they were."""
     grid = model.grid
     params, consts, carry, P = padded_evp_inputs(model, state, dt, u_start, v_start)
-    u, v, s11, s22, s12, alpha = padded_evp_substeps(
-        params, consts, carry, model.dynamics.solver.substeps, grid)
-    return dict(u=u, v=v, sig11=fill_halos_cc(s11, grid), sig22=fill_halos_cc(s22, grid),
-                sig12=fill_halos_ff(s12, grid), alpha=alpha,
+    with span("seaice.evp"):
+        u, v, s11, s22, s12, alpha = padded_evp_substeps(
+            params, consts, carry, model.dynamics.solver.substeps, grid)
+    with span("seaice.fill"):
+        s11, s22 = fill_halos_cc(s11, grid), fill_halos_cc(s22, grid)
+        s12 = fill_halos_ff(s12, grid)
+    return dict(u=u, v=v, sig11=s11, sig22=s22, sig12=s12, alpha=alpha,
                 P=P, un=u_start, vn=v_start,
                 Delta=state.Delta, zeta_cc=state.zeta_cc, zeta_ff=state.zeta_ff)

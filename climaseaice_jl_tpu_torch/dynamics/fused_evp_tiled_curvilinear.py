@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..tracing import span
 from ..grids import PERIODIC, BOUNDED, _curvilinear_with_halo
 from ..fields import (FILLERS, fill_halos_cc, fill_halos_ff, fill_halos_cc_local,
                       fill_halos_fc_local, fill_halos_cf_local, fill_halos_ff_local,
@@ -1013,23 +1014,27 @@ def tiled_curvilinear_momentum_step(model, state, dt, u_start, v_start):
     Hw = 2 * K + 5 if serial_fold and grid.Hy < 2 * K + 5 else None
     params, planes, carry, target, flags = tiled_curvilinear_inputs(model, state, dt, u_start,
                                                                     v_start, Hw)
-    u, v, s11, s22, s12, alpha = tiled_curvilinear_evp_substeps(params, planes, carry, nsub,
-                                                                target, plan, flags)
+    with span("seaice.evp"):
+        u, v, s11, s22, s12, alpha = tiled_curvilinear_evp_substeps(params, planes, carry, nsub,
+                                                                    target, plan, flags)
     if fixed is None:
         P = ice_strength(model.dynamics.rheology, state.h, state.a)
     else:
         P = fixed_tile_P(ice_strength_params(model), planes[C_H], planes[C_A])
-    if Hw is not None:
-        u, v = _crop(u, grid, target, "fc"), _crop(v, grid, target, "cf")
-        s11, s22 = _crop(s11, grid, target, "cc"), _crop(s22, grid, target, "cc")
-        s12 = _crop(s12, grid, target, "ff")
-        alpha = fill_halos_cc_local(_crop(alpha, grid, target, "cc"), grid)
-        if fixed is not None:
-            P = fill_halos_cc_local(_crop(P, grid, target, "cc"), grid)
-    if grid.north_fold and _meshed(grid, 0):
-        u, v = fill_halos_uv(u, v, grid)
-    else:
-        u, v = fill_halos_fc_local(u, grid), fill_halos_cf_local(v, grid)
-    return dict(u=u, v=v, sig11=fill_halos_cc(s11, grid), sig22=fill_halos_cc(s22, grid),
-                sig12=fill_halos_ff(s12, grid), alpha=alpha, P=P, un=u_start, vn=v_start,
+    with span("seaice.fill"):
+        if Hw is not None:
+            u, v = _crop(u, grid, target, "fc"), _crop(v, grid, target, "cf")
+            s11, s22 = _crop(s11, grid, target, "cc"), _crop(s22, grid, target, "cc")
+            s12 = _crop(s12, grid, target, "ff")
+            alpha = fill_halos_cc_local(_crop(alpha, grid, target, "cc"), grid)
+            if fixed is not None:
+                P = fill_halos_cc_local(_crop(P, grid, target, "cc"), grid)
+        if grid.north_fold and _meshed(grid, 0):
+            u, v = fill_halos_uv(u, v, grid)
+        else:
+            u, v = fill_halos_fc_local(u, grid), fill_halos_cf_local(v, grid)
+        s11, s22 = fill_halos_cc(s11, grid), fill_halos_cc(s22, grid)
+        s12 = fill_halos_ff(s12, grid)
+    return dict(u=u, v=v, sig11=s11, sig22=s22, sig12=s12, alpha=alpha, P=P,
+                un=u_start, vn=v_start,
                 Delta=state.Delta, zeta_cc=state.zeta_cc, zeta_ff=state.zeta_ff)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..tracing import span
 from ..grids import PERIODIC
 from ..fields import fill_halos_cc, fill_halos_fc, fill_halos_cf, fill_halos_ff, _meshed
 from .fused_evp import (KernelCounter, check_kernel_args, cuda_error_string, describe_kernel,
@@ -302,15 +303,17 @@ def tiled_padded_momentum_step(model, state, dt, u_start, v_start):
     720-734` does; Delta, zeta_cc and zeta_ff stay as they were."""
     grid = model.grid
     params, consts, carry, P = padded_evp_inputs(model, state, dt, u_start, v_start)
-    out = tiled_padded_evp_substeps(params, consts, carry, model.dynamics.solver.substeps,
-                                    grid, model.dynamics.solver.fixed_tiles)
-    if params.device.type == "cuda":
-        def repad(q):
-            return grid.set_interior(torch.zeros_like(q), grid.interior(q))
-        out = [repad(q) for q in out]
-    u, v, s11, s22, s12, alpha = out
-    return dict(u=fill_halos_fc(u, grid), v=fill_halos_cf(v, grid),
-                sig11=fill_halos_cc(s11, grid), sig22=fill_halos_cc(s22, grid),
-                sig12=fill_halos_ff(s12, grid), alpha=fill_halos_cc(alpha, grid),
-                P=P, un=u_start, vn=v_start,
+    with span("seaice.evp"):
+        out = tiled_padded_evp_substeps(params, consts, carry, model.dynamics.solver.substeps,
+                                        grid, model.dynamics.solver.fixed_tiles)
+    with span("seaice.fill"):
+        if params.device.type == "cuda":
+            def repad(q):
+                return grid.set_interior(torch.zeros_like(q), grid.interior(q))
+            out = [repad(q) for q in out]
+        u, v, s11, s22, s12, alpha = out
+        filled = dict(u=fill_halos_fc(u, grid), v=fill_halos_cf(v, grid),
+                      sig11=fill_halos_cc(s11, grid), sig22=fill_halos_cc(s22, grid),
+                      sig12=fill_halos_ff(s12, grid), alpha=fill_halos_cc(alpha, grid))
+    return dict(**filled, P=P, un=u_start, vn=v_start,
                 Delta=state.Delta, zeta_cc=state.zeta_cc, zeta_ff=state.zeta_ff)

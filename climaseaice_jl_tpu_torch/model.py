@@ -35,6 +35,7 @@ import dataclasses
 import torch
 
 from .utils import frozen_dataclass
+from .tracing import span, spanned
 from .grids import Grid, south_crop_grid
 from .state import SeaIceState, Clock, ModelFields
 from .fields import (fill_halos_many, fill_halos_fc, fill_halos_cf, peripheral_masks,
@@ -314,7 +315,8 @@ def update_state(model, state):
         qs.append(torch.where(masks.per_cf, 0.0, state.v))
         locs.append("cf")
 
-    filled = fill_halos_many(qs, locs, grid)
+    with span("seaice.fill"):
+        filled = fill_halos_many(qs, locs, grid)
     upd = {}
     tracers = {}
     tracer_iter = iter(tracer_names)
@@ -330,6 +332,7 @@ def update_state(model, state):
 
 # --- tendencies and tracer update ---------------------------------------------
 
+@spanned("seaice.tracers")
 def tracer_tendencies(model, state):
     """G = −∇·(U c) + user forcing for h, ℵ, hs and extra tracers.
 
@@ -378,6 +381,7 @@ def tracer_tendencies(model, state):
     return Gh, Ga, Ghs, Gtr
 
 
+@spanned("seaice.tracers")
 def dynamic_step_tracers(model, state, G, dt, base=None):
     """Euler tracer update + clipping + ridging.  ``base``: the state to
     update *from* (Ψ⁻ under RK3); defaults to ``state``."""
@@ -443,6 +447,7 @@ _MESHED_STEPS = {
 }
 
 
+@spanned("seaice.momentum")
 def momentum_step(model, state, dt, u_prev=None, v_prev=None):
     """Dispatch on the dynamics in the JAX package's order
     (`model.py:381-445`): free drift as the whole dynamics (the closed-form
@@ -495,6 +500,7 @@ def momentum_step(model, state, dt, u_prev=None, v_prev=None):
 
 # --- thermodynamic dispatch ---------------------------------------------------
 
+@spanned("seaice.column")
 def thermodynamic_step(model, state, dt):
     """Slab column step: bare ice, or snow on ice.  A float32
     SlabThermodynamics model with ``fixed_tiles`` runs the column step in the
@@ -551,6 +557,7 @@ def rk3_step(model, state, dt):
     return _tick(state, dt)
 
 
+@spanned("seaice.step")
 def _step(model, state, dt):
     if model.timestepper == "ForwardEuler":
         return forward_euler_step(model, state, dt)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .model import step as _step
+from .tracing import span, spanned
 from .io.checkpoint import Checkpointer, restore_state
 
 
@@ -71,7 +72,6 @@ class Simulation:
         self.callbacks = {}
         self.output_writers = {}
         self.check_nans = check_nans
-        self.wall_seconds = 0.0
 
     @property
     def time(self):
@@ -81,6 +81,7 @@ class Simulation:
     def iteration(self):
         return int(self.state.clock.iteration)
 
+    @spanned("seaice.run.stop_test")
     def should_stop(self):
         if self.stop_time is not None and self.time >= self.stop_time - 1e-9:
             return True
@@ -88,6 +89,7 @@ class Simulation:
             return True
         return False
 
+    @spanned("seaice.run.callbacks")
     def _fire(self):
         for cb in self.callbacks.values():
             cb.maybe_fire(self)
@@ -122,14 +124,15 @@ class Simulation:
                 t0 = _time.perf_counter()
                 steps0 = self.iteration
                 first_step_done = True
-            if self.check_nans and self.iteration % 100 == 0:
-                if torch.isnan(self.model.grid.interior(self.state.h)).any():
-                    raise FloatingPointError(
-                        f"NaN ice thickness at iteration {self.iteration}")
+            if self.check_nans:
+                with span("seaice.run.nan_check"):
+                    if (self.iteration % 100 == 0
+                            and torch.isnan(self.model.grid.interior(self.state.h)).any()):
+                        raise FloatingPointError(
+                            f"NaN ice thickness at iteration {self.iteration}")
             self._fire()
         _synchronize(device)
         elapsed = _time.perf_counter() - t0
-        self.wall_seconds += elapsed
         steps = self.iteration - steps0
         if steps > 0 and elapsed > 0:
             g = self.model.grid

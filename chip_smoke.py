@@ -29,7 +29,14 @@ Phases, each of which raises (exit code 1) when it fails:
    αEVP with 120 substeps, WENO-7, bare-ice slab thermodynamics, RK3), one
    warm-up step and five timed steps; the state must stay finite with
    h ≥ 0 and 0 ≤ ℵ ≤ 1, and the EVP wrapper must have been called 3 times
-   per step with phase 2's launches per call;
+   per step with phase 2's launches per call, and the advection kernel
+   (2.9) 6 times a step on the whole-grid route (one launch each, h and ℵ
+   in three stages) and never on the fixed-tile route; then that route's
+   divergence (``make_whole_grid_div``) on the step's h and ℵ at 522²
+   padded: bitwise its plain version in the route's metric mode over the
+   padded arrays and the general path (``horizontal_div_Uc``) over the
+   interior (0 ulp, gates); times per call of the kernel, its plain version
+   and the general path, and the bound;
 4. the dispatch boundary between the periodic kernels: one flagship step
    at 512² (262,144 points) goes through ``csrc/evp.cu`` (2.1) only, one at
    768² (589,824 points, above the 571,099 points where the JAX package
@@ -168,7 +175,9 @@ Phases, each of which raises (exit code 1) when it fails:
     one warm-up step, five timed ``cst.step`` calls and two iterations of
     ``Simulation.run``; finite and physical; per step 3 calls of 2.2 (one
     launch per chunk of the route plan's K substeps) and none of 2.1 or the
-    other EVP kernels; one profiled step's device-busy share;
+    other EVP kernels, 6 calls and launches of 2.9 on the whole-grid route
+    and none on the fixed-tile route; one profiled step's device-busy
+    share; then the whole-grid divergence at 2058² padded as in phase 3;
 23. the same port on the card and on the CPU, 768² soft ice (through 2.2
     and its plain version), 12 substeps, 2 RK3 steps; bars as in phase 5;
 24. kernels 2.7 and 2.9 on one shard of the distributed step: shard (1, 1)
@@ -1240,6 +1249,60 @@ def profile_step(cst, model, state, dt, title, card):
     return f"{title} on {card}: one profiled step, {host_ms:.2f} ms host time\n{table}\n"
 
 
+def whole_grid_advection_check(model, state, label, card):
+    """Kernel 2.9 on the whole-grid route (``make_whole_grid_div``) on a
+    step's h and ℵ: bitwise its plain version in the route's metric mode (0-d
+    Δy_fc, Δx_cf and Az_cc) over the padded arrays, and the general path's
+    ``horizontal_div_Uc`` over the interior, both gates; times per call (CUDA
+    events) of the kernel, its plain version and the general path, and the
+    bound.  Returns (worst abs, worst rel, kernel ms, plain ms, bytes ms,
+    operations ms), the differences from the plain version."""
+    import torch
+    from climaseaice_jl_tpu_torch.advection import horizontal_div_Uc
+    from climaseaice_jl_tpu_torch.dynamics import fixed_tile_advection as fta
+    grid, adv = model.grid, model.advection
+    if not fta.whole_grid_advection_available(model):
+        raise AssertionError(f"{label}: the model does not take the whole-grid advection route")
+    u, v = state.u.contiguous(), state.v.contiguous()
+    masks = (model.masks.per_fc.contiguous(), model.masks.per_cf.contiguous())
+    metrics = fta._face_metrics(grid)
+    if not all(m.dim() == 0 for m in metrics):
+        raise AssertionError(f"{label}: the route passes array metrics on a uniform grid")
+    schemes = fta._schemes(adv)
+    div = fta.make_whole_grid_div(model, u, v)
+    worst_abs = worst_rel = 0.0
+    print(f"  whole-grid advection (2.9, {fta.kernel_for(*schemes)}, 0-d metrics) on {label}:")
+    for name, c in (("h", state.h.contiguous()), ("a", state.a.contiguous())):
+        out = div(c)
+        ref = fta.fixed_tile_div_reference(grid, schemes, u, v, c, masks, metrics)
+        general = horizontal_div_Uc(grid, adv, u, v, c, masks=masks)
+        torch.cuda.synchronize()
+        rel, abs_err = rel_diff(ref, out)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+        ulps, same = bits_record([ref], [out])
+        g_ulps, g_same = bits_record([grid.interior(general)], [grid.interior(out)])
+        print(f"    div(U{name}): {ulps} ulp from the plain version over the padded arrays, "
+              f"raw bits {same}; {g_ulps} ulp from the general path over the interior, raw "
+              f"bits {g_same}")
+        if not (same and g_same):
+            raise AssertionError(f"{label}: the whole-grid route's div(U{name}) is {ulps} ulp "
+                                 f"from its plain version and {g_ulps} from the general path")
+    c = state.h.contiguous()
+    kernel_ms = cuda_ms(lambda: div(c), 50)
+    plain_ms = cuda_ms(lambda: fta.fixed_tile_div_reference(grid, schemes, u, v, c, masks,
+                                                            metrics), 5)
+    general_ms = cuda_ms(lambda: horizontal_div_Uc(grid, adv, u, v, c, masks=masks), 5)
+    points = grid.nxp * grid.nyp
+    # the 0-d metrics add no bytes; as with array metrics, a second product at
+    # each face and the divergence (δx + δy)/Az one operation fewer
+    bytes_ms, ops_ms = bounds_ms(ADV_BYTES_PER_POINT * points,
+                                 (ADV_FLOPS_PER_POINT + 1) * points)
+    print(f"    kernel {kernel_ms:.4f} ms/call, plain {plain_ms:.3f} ms/call, general path "
+          f"{general_ms:.3f} ms/call, bound {max(bytes_ms, ops_ms):.4f} ms (operations "
+          f"{ops_ms:.4f}, bytes {bytes_ms:.4f}) on {card}")
+    return worst_abs, worst_rel, kernel_ms, plain_ms, bytes_ms, ops_ms
+
+
 def kernel_entry(name, source, replaces, function, launches, worst_abs, worst_rel,
                  kernel_ms, plain_ms, bytes_ms, ops_ms, shape):
     return {
@@ -1966,13 +2029,16 @@ def main(argv=None):
     del out, ref, work
 
     # --- 3. the main path ---------------------------------------------------------
+    from climaseaice_jl_tpu_torch.dynamics import fixed_tile_advection
+    whole_grid_counter = fixed_tile_advection.whole_grid_advection_counter
+    fixed_adv_counter = fixed_tile_advection.fixed_tile_advection_counter
     flag_model = model = flagship(cst, N, nsub)
     state = flagship_state(cst, model)
     dt, steps = 120.0, 5
     state = cst.step(model, state, dt)                  # warm-up
     torch.cuda.synchronize()
-    counter.reset()
-    tiled_evp_counter.reset()
+    for c in (counter, tiled_evp_counter, whole_grid_counter, fixed_adv_counter):
+        c.reset()
     state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
     main_calls, main_launches = counter.calls, counter.launches
     check_state(model, state)
@@ -1982,9 +2048,17 @@ def main(argv=None):
         raise AssertionError(f"EVP wrapper: {main_calls} calls, {main_launches} launches, "
                              f"tiled {tiled_evp_counter.calls} calls; expected "
                              f"{3 * steps}, {3 * steps * launches_21} and 0")
+    adv_got = (whole_grid_counter.calls, whole_grid_counter.launches, fixed_adv_counter.calls)
+    if adv_got != (6 * steps, 6 * steps, 0):
+        raise AssertionError(f"advection (2.9): whole-grid route {adv_got[0]} calls, "
+                             f"{adv_got[1]} launches, fixed-tile route {adv_got[2]} calls; "
+                             f"expected {6 * steps}, {6 * steps} and 0")
     print(f"[3] main path {N}² flagship: {step_ms:.2f} ms/step (CUDA events; host "
           f"{host_ms:.2f} ms/step), {points / step_ms * 1e3:.4e} points/s, "
-          f"EVP {main_calls} calls / {main_launches} launches in {steps} steps, on {card}")
+          f"EVP {main_calls} calls / {main_launches} launches, advection (2.9, whole grid) "
+          f"{adv_got[0]} calls / {adv_got[1]} launches in {steps} steps, on {card}")
+    whole_grid_advection_check(model, state, f"the {N}² flagship's step, "
+                               f"{model.grid.nxp}×{model.grid.nyp} padded", card)
     if args.profile:
         profiles.append(profile_step(cst, model, state, dt, f"{N}² flagship step", card))
 
@@ -3058,7 +3132,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     counters = dict(periodic_tiled=tiled_evp_counter, periodic=counter, padded=padded_counter,
                     curvilinear=curv_counter, tiled_padded=tiled_counter,
-                    tiled_curvilinear=tc_counter)
+                    tiled_curvilinear=tc_counter, whole_grid_adv=whole_grid_counter,
+                    fixed_tile_adv=adv_counter)
     for c in counters.values():
         c.reset()
     state, step_ms, host_ms = timed_steps(cst, model, state, dt, steps)
@@ -3069,8 +3144,13 @@ def main(argv=None):
     n_steps = steps + 2
     calls = {k: c.calls for k, c in counters.items()}
     t22_main_launches = tiled_evp_counter.launches
+    wg_main_launches = whole_grid_counter.launches
     expected = dict.fromkeys(counters, 0)
     expected["periodic_tiled"] = 3 * n_steps
+    expected["whole_grid_adv"] = 6 * n_steps
+    if wg_main_launches != 6 * n_steps:
+        raise AssertionError(f"{N2}² flagship: 2.9 launched {wg_main_launches} times on the "
+                             f"whole-grid route, expected {6 * n_steps}")
     if t22_launches_per_call != -(-nsub // t22_chunk):
         raise AssertionError(f"2.2 made {t22_launches_per_call} launches a call, its plan "
                              f"{-(-nsub // t22_chunk)}")
@@ -3083,7 +3163,9 @@ def main(argv=None):
     print(f"[22] slice main path {N2}² flagship: {step_ms:.2f} ms/step (CUDA events; host "
           f"{host_ms:.2f} ms/step), {points / step_ms * 1e3:.4e} points/s; 2.2 "
           f"{calls['periodic_tiled']} calls / {t22_main_launches} launches in {steps} steps + 2 "
-          f"Simulation iterations, no other EVP kernel; one profiled step {device_ms:.3f} ms "
+          f"Simulation iterations, no other EVP kernel; 2.9 on the whole-grid route "
+          f"{calls['whole_grid_adv']} calls / {wg_main_launches} launches, none on the "
+          f"fixed-tile route; one profiled step {device_ms:.3f} ms "
           f"of device time, busy {100 * device_ms / step_ms:.1f} % of a step, {syncs} host "
           f"waits on a device value, on {card}")
     print("\n".join(table.splitlines()[:16]))
@@ -3092,6 +3174,10 @@ def main(argv=None):
                         f"{table}\n")
         with open(args.profile, "w") as f:
             f.write("\n".join(profiles))
+    wg_shape = (f"{model.grid.nxp}x{model.grid.nyp} padded ({N2}x{N2} periodic flagship), "
+                "WENO-7, 0-d metrics")
+    wg_timing = whole_grid_advection_check(model, state, f"the {N2}² flagship's step, "
+                                           f"{model.grid.nxp}×{model.grid.nyp} padded", card)
     del model, state, sim
 
     # --- 23. card vs CPU above the whole-array limit -----------------------------------------
@@ -3778,6 +3864,11 @@ def main(argv=None):
         dict(kernel_entry("fixed_tile_div", "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
                           "climaseaice_jl_tpu/dynamics/pallas_advection.py:142", "_adv_kernel",
                           fixed_launches["adv"], *adv_timing, f"{shape}, WENO-7"),
+             entry="csi_fixed_tile_div_tiles"),
+        dict(kernel_entry("fixed_tile_div_whole_grid",
+                          "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",
+                          "climaseaice_jl_tpu/advection.py:292", "horizontal_div_Uc",
+                          wg_main_launches, *wg_timing, wg_shape),
              entry="csi_fixed_tile_div_tiles"),
         dict(kernel_entry("fixed_tile_div_runtime_scheme",
                           "climaseaice_jl_tpu_torch/csrc/advection_fixed.cu",

@@ -6,7 +6,9 @@
 // UpwindBiased 1/3/5/7, Centered 2/4; the x and y schemes may differ), the
 // fluxes u·ĉ and v·ĉ zeroed through peripheral faces, and their divergence:
 // δx(fx)·(1/Δx) + δy(fy)·(1/Δy) on uniform grids, [δx(Δy_fc·u·ĉ) +
-// δy(Δx_cf·v·ĉ)]/Az_cc with array metrics.  The TPU kernel gathers
+// δy(Δx_cf·v·ĉ)]/Az_cc with array metrics, and the same with 0-d Δy_fc,
+// Δx_cf and Az_cc (`metrics_0d`: the whole-grid route's uniform grids, in
+// the order of `advection.py:horizontal_div_Uc`).  The TPU kernel gathers
 // halo-extended tiles (wrap into the interior along a periodic direction
 // that is not split across ranks, clamp at the padded edge otherwise:
 // `pallas_advection.py:217-218`) and shifts inside them: a point's
@@ -160,7 +162,7 @@ __global__ void __launch_bounds__(BX * BY) fixed_tile_div(
     const float* __restrict__ az_cc, const float* __restrict__ inv_dx,
     const float* __restrict__ inv_dy, Scheme sx, Scheme sy,
     float* __restrict__ out, int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int wrap_x,
-    int wrap_y) {
+    int wrap_y, int metrics_0d) {
   const int j = blockIdx.x * BX + threadIdx.x;
   const int i = blockIdx.y * BY + threadIdx.y;
   if (i >= nxp || j >= nyp) return;
@@ -181,7 +183,7 @@ __global__ void __launch_bounds__(BX * BY) fixed_tile_div(
     const int k = ix[R + e] * nyp + col0;
     const float uk = u[k];
     const float cx = upwind_select(uk, l, r);
-    const float fx = arr ? dy_fc[k] * uk * cx : uk * cx;
+    const float fx = arr ? dy_fc[metrics_0d ? 0 : k] * uk * cx : uk * cx;
     f[e] = per_fc[k] ? 0.0f : fx;
   }
   const float dfx = f[1] - f[0];
@@ -192,12 +194,13 @@ __global__ void __launch_bounds__(BX * BY) fixed_tile_div(
     const int k = row0 + iy[R + e];
     const float vk = v[k];
     const float cy = upwind_select(vk, l, r);
-    const float fy = arr ? dx_cf[k] * vk * cy : vk * cy;
+    const float fy = arr ? dx_cf[metrics_0d ? 0 : k] * vk * cy : vk * cy;
     f[e] = per_cf[k] ? 0.0f : fy;
   }
   const float dfy = f[1] - f[0];
   out[static_cast<size_t>(i) * nyp + j] =
-      arr ? (dfx + dfy) / az_cc[row0 + col0] : dfx * inv_dx[0] + dfy * inv_dy[0];
+      arr ? (dfx + dfy) / az_cc[metrics_0d ? 0 : row0 + col0]
+          : dfx * inv_dx[0] + dfy * inv_dy[0];
 }
 
 // --- the tile kernel ------------------------------------------------------------
@@ -235,7 +238,7 @@ struct TileArgs {
   const float* inv_dx;
   const float* inv_dy;
   float* out;
-  int nxp, nyp, Hx, Nx, Hy, Ny, wrap_x, wrap_y;
+  int nxp, nyp, Hx, Nx, Hy, Ny, wrap_x, wrap_y, metrics_0d;
   Table tx, ty;
 };
 
@@ -333,6 +336,7 @@ __global__ void __launch_bounds__(THREADS) tile_div(const __grid_constant__ Tile
     cs[q] = A.c[img_x[q / CW] * nyp + img_y[q % CW]];
   __syncthreads();
   const bool arr = A.az_cc != nullptr;
+  const bool m0 = A.metrics_0d != 0;
   for (int q = tid; q < (TX + 1) * TY; q += THREADS) {   // face (i0 + a, j0 + b)
     const int a = q / TY, b = q % TY;
     float s[2 * RX];
@@ -343,7 +347,7 @@ __global__ void __launch_bounds__(THREADS) tile_div(const __grid_constant__ Tile
     const int g = img_x[a + RX] * nyp + img_y[b + RY];
     const float ug = A.u[g];
     const float cx = upwind_select(ug, l, r);
-    const float f = arr ? A.dy_fc[g] * ug * cx : ug * cx;
+    const float f = arr ? A.dy_fc[m0 ? 0 : g] * ug * cx : ug * cx;
     fx[q] = A.per_fc[g] ? 0.0f : f;
   }
   for (int q = tid; q < TX * (TY + 1); q += THREADS) {   // face (i0 + a, j0 + b)
@@ -356,7 +360,7 @@ __global__ void __launch_bounds__(THREADS) tile_div(const __grid_constant__ Tile
     const int g = img_x[a + RX] * nyp + img_y[b + RY];
     const float vg = A.v[g];
     const float cy = upwind_select(vg, l, r);
-    const float f = arr ? A.dx_cf[g] * vg * cy : vg * cy;
+    const float f = arr ? A.dx_cf[m0 ? 0 : g] * vg * cy : vg * cy;
     fy[q] = A.per_cf[g] ? 0.0f : f;
   }
   __syncthreads();
@@ -367,7 +371,7 @@ __global__ void __launch_bounds__(THREADS) tile_div(const __grid_constant__ Tile
     const float dfx = fx[(a + 1) * TY + b] - fx[a * TY + b];
     const float dfy = fy[a * (TY + 1) + b + 1] - fy[a * (TY + 1) + b];
     A.out[static_cast<size_t>(i) * nyp + j] =
-        arr ? (dfx + dfy) / A.az_cc[img_x[a + RX] * nyp + img_y[b + RY]]
+        arr ? (dfx + dfy) / A.az_cc[m0 ? 0 : img_x[a + RX] * nyp + img_y[b + RY]]
             : dfx * A.inv_dx[0] + dfy * A.inv_dy[0];
   }
 }
@@ -376,7 +380,8 @@ __global__ void __launch_bounds__(THREADS) tile_div(const __grid_constant__ Tile
 
 // ∇·(U c) on the padded (nxp, nyp) arrays into `out` on `stream`.  dy_fc,
 // dx_cf and az_cc are null on uniform grids, where inv_dx and inv_dy point
-// to 1/Δx and 1/Δy (null with array metrics).
+// to 1/Δx and 1/Δy (null with array metrics); with `metrics_0d` 1, dy_fc,
+// dx_cf and az_cc point to one value each.
 // Scheme kinds: 0 Centered, 1 UpwindBiased, 2 WENO.  `wrap_*`: 1 where the
 // direction is periodic and not split across ranks.  Returns 0, or the
 // cudaGetLastError() after the launch.
@@ -385,13 +390,13 @@ extern "C" int csi_fixed_tile_div(
     const uint8_t* per_cf, const float* dy_fc, const float* dx_cf, const float* az_cc,
     const float* inv_dx, const float* inv_dy, const float* tab_x, const float* tab_y,
     int kind_x, int order_x, int kind_y, int order_y, float* out, int nxp, int nyp, int Hx,
-    int Nx, int Hy, int Ny, int wrap_x, int wrap_y, void* stream) {
+    int Nx, int Hy, int Ny, int wrap_x, int wrap_y, int metrics_0d, void* stream) {
   const Scheme sx{kind_x, order_x, tab_x}, sy{kind_y, order_y, tab_y};
   const dim3 block(BX, BY);
   const dim3 grid((nyp + BX - 1) / BX, (nxp + BY - 1) / BY);
   fixed_tile_div<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       u, v, c, per_fc, per_cf, dy_fc, dx_cf, az_cc, inv_dx, inv_dy, sx, sy, out, nxp, nyp, Hx,
-      Nx, Hy, Ny, wrap_x, wrap_y);
+      Nx, Hy, Ny, wrap_x, wrap_y, metrics_0d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -406,10 +411,10 @@ extern "C" int csi_fixed_tile_div_tiles(
     const float* inv_dx, const float* inv_dy, const float* tab_x, int n_tab_x,
     const float* tab_y, int n_tab_y, int kind_x, int order_x, int kind_y, int order_y,
     float* out, int nxp, int nyp, int Hx, int Nx, int Hy, int Ny, int wrap_x, int wrap_y,
-    void* stream) {
+    int metrics_0d, void* stream) {
   if (n_tab_x > MAX_TAB || n_tab_y > MAX_TAB) return -1;
   TileArgs A{u, v, c, per_fc, per_cf, dy_fc, dx_cf, az_cc, inv_dx, inv_dy, out,
-             nxp, nyp, Hx, Nx, Hy, Ny, wrap_x, wrap_y, {}, {}};
+             nxp, nyp, Hx, Nx, Hy, Ny, wrap_x, wrap_y, metrics_0d, {}, {}};
   for (int q = 0; q < n_tab_x; ++q) A.tx.v[q] = tab_x[q];
   for (int q = 0; q < n_tab_y; ++q) A.ty.v[q] = tab_y[q];
   const dim3 grid((nyp + TY - 1) / TY, (nxp + TX - 1) / TX);

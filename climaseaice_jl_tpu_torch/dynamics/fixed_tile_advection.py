@@ -1,6 +1,8 @@
 """Fixed-tile tracer advection, the decomposition-invariant ∇·(U c): the
 gate, :func:`make_fixed_tile_div`, the CUDA kernel's wrapper and its plain
-version.
+version; and the whole-grid route, which runs the same kernel for a model
+without ``fixed_tiles`` (:func:`whole_grid_advection_available`,
+:func:`make_whole_grid_div`).
 
 Counterpart of `climaseaice_jl_tpu/dynamics/pallas_advection.py`.  The TPU
 kernel (``_adv_kernel``) runs the flux-form reconstruction of
@@ -30,6 +32,10 @@ general path's values up to that reordering; in the halos the outputs come
 from the clamped or wrapped images instead of the general path's circular
 shifts over the padded extent, and the step refills them anyway.
 
+The whole-grid route passes Δy_fc, Δx_cf and Az_cc on every grid: as 0-d
+tensors on uniform grids (the kernel's third metric mode), so that its
+interiors are bitwise those of :func:`..advection.horizontal_div_Uc`.
+
 A CUDA tensor goes to the kernel, a CPU tensor to
 :func:`fixed_tile_div_reference`; a kernel that fails to build or launch
 raises.
@@ -49,7 +55,6 @@ from ..advection import (WENO, UpwindBiased, Centered, FluxFormAdvection, requir
                          reconstruct_face, _upwind_select, _weno_tables_cached)
 from .fused_evp import KernelCounter, cuda_error_string
 
-_WX = 8    # overlap of the TPU kernel's x tiles (≥ the widest stencil radius 5)
 _EXT = 8   # points by which the plain version extends its image arrays
 _KINDS = {Centered: 0, UpwindBiased: 1, WENO: 2}
 # the schemes the tile kernel is compiled for, each in both directions
@@ -58,38 +63,49 @@ TILE_SCHEMES = ((WENO, 5), (WENO, 7), (WENO, 9), (UpwindBiased, 1), (UpwindBiase
                 (UpwindBiased, 5), (UpwindBiased, 7), (Centered, 2), (Centered, 4))
 TILE_ENTRY, RUNTIME_ENTRY = "csi_fixed_tile_div_tiles", "csi_fixed_tile_div"
 
-fixed_tile_advection_counter = KernelCounter()        # both entries
-fixed_tile_advection_runtime_counter = KernelCounter()  # the runtime-scheme entry's
+fixed_tile_advection_counter = KernelCounter()        # both entries, fixed-tile route
+whole_grid_advection_counter = KernelCounter()        # both entries, whole-grid route
+fixed_tile_advection_runtime_counter = KernelCounter()  # the runtime-scheme entry's, both routes
 
 
 def _schemes(adv):
     return (adv.x, adv.y) if isinstance(adv, FluxFormAdvection) else (adv, adv)
 
 
-def fixed_tile_advection_available(model):
-    """True when tracer advection can take the fixed-tile kernel
-    (`pallas_advection.py:50-79`): ``fixed_tiles`` set, a float32 grid,
-    WENO, UpwindBiased or Centered schemes, halos at least the stencil
-    radius, and TX a multiple of 8 and TY of 128."""
+def _fixed_tiles(model):
+    return getattr(getattr(model.dynamics, "solver", None), "fixed_tiles", None)
+
+
+def _kernel_computes(model):
+    """True when the kernel computes the model's tracer advection: a float32
+    grid, each direction's scheme one of :data:`TILE_SCHEMES` (a
+    FluxFormAdvection of two different ones takes the runtime-scheme
+    entry), and halos at least the stencil radius."""
     grid = model.grid
-    dyn = model.dynamics
     adv = model.advection
-    if adv is None or dyn is None:
-        return False
-    fixed = getattr(getattr(dyn, "solver", None), "fixed_tiles", None)
-    if fixed is None:
-        return False
-    if grid.dtype != torch.float32:
-        return False
-    if not all(isinstance(s, (WENO, UpwindBiased, Centered)) for s in _schemes(adv)):
-        return False
-    r = required_halo(adv)
-    if grid.Hx < r or grid.Hy < r or r > _WX:
-        return False
-    TX, TY = fixed
-    if TY is None or TX % 8 or TY % 128:
-        return False
-    return True
+    return (adv is not None and grid.dtype == torch.float32
+            and all((type(s), getattr(s, "order", None)) in TILE_SCHEMES for s in _schemes(adv))
+            and min(grid.Hx, grid.Hy) >= required_halo(adv))
+
+
+def fixed_tile_advection_available(model):
+    """True when tracer advection takes the kernel on the fixed-tile route
+    (`pallas_advection.py:50-79`): ``fixed_tiles`` set, with TX a multiple
+    of 8 and TY of 128, and :func:`_kernel_computes`."""
+    fixed = _fixed_tiles(model)
+    return (fixed is not None and fixed[1] is not None and fixed[0] % 8 == 0
+            and fixed[1] % 128 == 0 and _kernel_computes(model))
+
+
+def whole_grid_advection_available(model):
+    """True when tracer advection takes the kernel on the whole-grid route:
+    no ``fixed_tiles``, a grid on a CUDA device that is not a shard (on a
+    shard a split direction clamps where the general path reads the
+    exchanged halo), and :func:`_kernel_computes`.  Everything else,
+    including CPU and float64 models, keeps the general path."""
+    grid = model.grid
+    return (_fixed_tiles(model) is None and grid.device.type == "cuda"
+            and grid.mesh_axes is None and _kernel_computes(model))
 
 
 def _check_scheme(s):
@@ -122,8 +138,8 @@ def _array_metrics(grid):
 def fixed_tile_div_reference(grid, schemes, u, v, c, masks, metrics):
     """Plain PyTorch version of the kernel: ∇·(U c) on the padded shape.
     ``masks``: (peripheral_fc, peripheral_cf) booleans; ``metrics``: (Δy_fc,
-    Δx_cf, Az_cc) padded arrays on grids with array metrics, else the 0-d
-    (1/Δx, 1/Δy)."""
+    Δx_cf, Az_cc), padded arrays on grids with array metrics or 0-d tensors
+    (the whole-grid route's uniform grids), else the 0-d (1/Δx, 1/Δy)."""
     sx, sy = schemes
     for s in schemes:
         _check_scheme(s)
@@ -140,7 +156,7 @@ def fixed_tile_div_reference(grid, schemes, u, v, c, masks, metrics):
     cy = _upwind_select(ve, ly, ry)
     arr = len(metrics) == 3
     if arr:
-        dy_fc, dx_cf, az_cc = (ext(m) for m in metrics)
+        dy_fc, dx_cf, az_cc = (m if m.dim() == 0 else ext(m) for m in metrics)
         fx = dy_fc * ue * cx
         fy = dx_cf * ve * cy
     else:
@@ -202,31 +218,35 @@ def _div_entry(name):
         tables = ([ctypes.c_void_p, ctypes.c_int] * 2 if name == TILE_ENTRY
                   else [ctypes.c_void_p] * 2)
         fn.argtypes = ([ctypes.c_void_p] * 10 + tables + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def fixed_tile_div(grid, schemes, u, v, c, masks, metrics):
+def fixed_tile_div(grid, schemes, u, v, c, masks, metrics,
+                   counter=fixed_tile_advection_counter):
     """∇·(U c) of tracer ``c`` on ``grid``'s padded shape (arguments as
     :func:`fixed_tile_div_reference` takes them).  CUDA tensors go to the
-    kernel that :func:`kernel_for` names, one launch; CPU tensors to the
-    plain version."""
+    kernel that :func:`kernel_for` names, one launch, counted in
+    ``counter``; CPU tensors to the plain version."""
     device = c.device
     if device.type == "cpu":
         return fixed_tile_div_reference(grid, schemes, u, v, c, masks, metrics)
     if device.type != "cuda":
         raise ValueError(f"no advection kernel for device {device}")
     arr = len(metrics) == 3
-    fields = (u, v, c) + (tuple(metrics) if arr else ())
+    m0 = arr and all(m.dim() == 0 for m in metrics)
+    fields = (u, v, c) + (tuple(metrics) if arr and not m0 else ())
     for q in fields:
         if (q.device != device or q.dtype != torch.float32 or tuple(q.shape) != grid.shape
                 or not q.is_contiguous()):
             raise ValueError(f"advection arrays must be contiguous float32 {grid.shape} "
                              f"tensors on {device}")
-    if not arr and any(m.device != device or m.dtype != torch.float32 or m.dim() != 0
-                       for m in metrics):
-        raise ValueError(f"1/Δx and 1/Δy must be 0-d float32 tensors on {device}")
+    if (not arr or m0) and any(m.device != device or m.dtype != torch.float32
+                               for m in metrics):
+        raise ValueError(f"0-d metrics must be float32 tensors on {device}")
+    if not arr and any(m.dim() != 0 for m in metrics):
+        raise ValueError("1/Δx and 1/Δy must be 0-d tensors")
     for m in masks:
         if m.device != device or m.dtype != torch.bool or tuple(m.shape) != grid.shape \
                 or not m.is_contiguous():
@@ -246,16 +266,38 @@ def fixed_tile_div(grid, schemes, u, v, c, masks, metrics):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, *tables, kx, ox, ky, oy, out.data_ptr(), grid.nxp, grid.nyp, grid.Hx,
-                 grid.Nx, grid.Hy, grid.Ny, int(_wraps(grid, 0)), int(_wraps(grid, 1)), stream)
+                 grid.Nx, grid.Hy, grid.Ny, int(_wraps(grid, 0)), int(_wraps(grid, 1)), int(m0),
+                 stream)
     if err != 0:
         raise RuntimeError(f"fixed-tile advection kernel launch failed: CUDA error {err} "
                            f"({cuda_error_string('advection_fixed', err)})")
-    fixed_tile_advection_counter.calls += 1
-    fixed_tile_advection_counter.launches += 1
+    counter.calls += 1
+    counter.launches += 1
     if entry == RUNTIME_ENTRY:
         fixed_tile_advection_runtime_counter.calls += 1
         fixed_tile_advection_runtime_counter.launches += 1
     return out
+
+
+def _face_metrics(grid):
+    """(Δy_fc, Δx_cf, Az_cc) as the kernel takes them: padded arrays where
+    any of them is one, else the three 0-d tensors."""
+    metrics = tuple(grid.scalar(getattr(grid, name)) for name in ("dy_fc", "dx_cf", "az_cc"))
+    if all(m.dim() == 0 for m in metrics):
+        return metrics
+    return tuple(m.expand(grid.shape).contiguous() for m in metrics)
+
+
+def _make_div(model, u, v, metrics, counter):
+    grid = model.grid
+    schemes = _schemes(model.advection)
+    masks = tuple(m.contiguous() for m in (model.masks.per_fc, model.masks.per_cf))
+    u, v = u.contiguous(), v.contiguous()
+
+    def div(c):
+        return fixed_tile_div(grid, schemes, u, v, c.contiguous(), masks, metrics, counter)
+
+    return div
 
 
 def make_fixed_tile_div(model, u, v):
@@ -263,17 +305,19 @@ def make_fixed_tile_div(model, u, v):
     (`pallas_advection.py:194-265`); the velocities, masks and metrics are
     shared by every tracer's call."""
     grid = model.grid
-    schemes = _schemes(model.advection)
-    f32 = grid.scalar
     if _array_metrics(grid):
-        metrics = tuple(f32(getattr(grid, name)).expand(grid.shape).contiguous()
-                        for name in ("dy_fc", "dx_cf", "az_cc"))
+        metrics = _face_metrics(grid)
     else:
-        metrics = (1.0 / f32(grid.dx_cc), 1.0 / f32(grid.dy_cc))
-    masks = tuple(m.contiguous() for m in (model.masks.per_fc, model.masks.per_cf))
-    u, v = u.contiguous(), v.contiguous()
+        metrics = (1.0 / grid.scalar(grid.dx_cc), 1.0 / grid.scalar(grid.dy_cc))
+    return _make_div(model, u, v, metrics, fixed_tile_advection_counter)
 
-    def div(c):
-        return fixed_tile_div(grid, schemes, u, v, c.contiguous(), masks, metrics)
 
-    return div
+def make_whole_grid_div(model, u, v):
+    """``div(c) -> ∇·(U c)`` on the whole-grid route, where
+    :func:`whole_grid_advection_available` holds: one launch of the kernel
+    per tracer, in :func:`..advection.horizontal_div_Uc`'s operation order,
+    so every interior point has its bits.  Halo points hold the images' values
+    instead of the circular shifts', and the step refills them; on rows of
+    land every face is peripheral and the divergence is exactly 0, so no
+    crop is needed."""
+    return _make_div(model, u, v, _face_metrics(model.grid), whole_grid_advection_counter)

@@ -17,7 +17,9 @@ north fold the pinned curvilinear EVP loop with its ice strength
 (:mod:`.dynamics.fused_evp_tiled_curvilinear`), on rectilinear ones the
 tiled EVP loop (:mod:`.dynamics.fused_evp_tiled_padded`) with its
 coefficient kernel; the advection of :mod:`.dynamics.fixed_tile_advection`
-and the column physics of :mod:`.thermodynamics.fixed_tile_thermo`.
+and the column physics of :mod:`.thermodynamics.fixed_tile_thermo`.  A
+float32 model without ``fixed_tiles`` on the card advects its tracers with
+that advection kernel too, on the whole grid.
 
 The momentum dispatch follows the JAX package's order: a
 :class:`StressBalanceFreeDrift` as the whole dynamics sets the velocities
@@ -59,7 +61,8 @@ from .dynamics.fused_evp_tiled_padded import (tiled_padded_available,
 from .dynamics.fused_evp_tiled_curvilinear import (tiled_curvilinear_available,
                                                    tiled_curvilinear_momentum_step)
 from .dynamics.fixed_tile_advection import (fixed_tile_advection_available,
-                                            make_fixed_tile_div)
+                                            make_fixed_tile_div, whole_grid_advection_available,
+                                            make_whole_grid_div)
 from .thermodynamics.slab import SlabThermodynamics
 from .thermodynamics.fixed_tile_thermo import fixed_tile_thermo_step
 from .dynamics.stresses import place_stress
@@ -338,7 +341,10 @@ def tracer_tendencies(model, state):
 
     With ``fixed_tiles`` the divergence comes from the fixed-tile advection
     kernel where :func:`fixed_tile_advection_available` allows it
-    (`model.py:303-310`).  Otherwise, solid-row crop: on the ≥ 32
+    (`model.py:303-310`).  Without it, a float32 model on the card takes the
+    same kernel on the whole grid where :func:`whole_grid_advection_available`
+    allows it, bitwise the general path in every interior point and exactly
+    zero on rows of land, so uncropped.  Otherwise, solid-row crop: on the ≥ 32
     southernmost interior rows that are land across every x, every face is
     peripheral, so the divergence is exactly zero there.  It is computed on
     a row-sliced view of the grid and a band of zeros takes the cropped rows
@@ -357,6 +363,8 @@ def tracer_tendencies(model, state):
     cs = model.masks.solid_rows if adv is not None and fixed is None and not forcing else 0
     if fixed is not None and fixed_tile_advection_available(model):
         div = make_fixed_tile_div(model, u, v)
+    elif whole_grid_advection_available(model):
+        div = make_whole_grid_div(model, u, v)
     elif cs >= 32:
         gc = south_crop_grid(grid, cs)
         uc, vc = u[:, cs:], v[:, cs:]

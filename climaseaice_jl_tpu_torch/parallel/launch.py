@@ -51,6 +51,7 @@ def kernel_counters():
         "2.7": fused_evp_tiled_curvilinear.tiled_curvilinear_evp_counter,
         "2.8": fused_evp_tiled_curvilinear.ice_strength_counter,
         "2.9": fixed_tile_advection.fixed_tile_advection_counter,
+        "2.9 whole grid": fixed_tile_advection.whole_grid_advection_counter,
         "2.10": fixed_tile_pointwise.fixed_tile_pointwise_counter,
         "2.11": fixed_tile_thermo.fixed_tile_thermo_counter,
     }

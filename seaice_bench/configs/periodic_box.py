@@ -17,6 +17,8 @@ from .. import roofline
 # the EVP kernels of this configuration's route, by name in the device trace:
 # 2.1 and 2.2 both instantiate the periodic tile engine's chunk kernel
 EVP_KERNELS = r"\bperiodic_chunk\b"
+# 2.9's tile kernel, which the whole-grid route runs for h and ℵ
+KERNELS = {"advection": r"\btile_div\b"}
 # above this many points the port runs 2.2, at or below it 2.1
 # (climaseaice_jl_tpu_torch/dynamics/fused_evp.py, _MAX_POINTS_RICH)
 MAX_POINTS_21 = 571_099

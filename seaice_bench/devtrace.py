@@ -82,3 +82,18 @@ def breakdown(device_ops, host_ops, lo, hi, top=10):
         label = max(inner, key=lambda op: op[1])[0] if inner else "host outside any operation"
         named.append([label, (b - a) * 1e-6])
     return {"device_ops": [[n, s] for n, s in ops], "idle_gaps": named}
+
+
+def roofline_pct(record, piece):
+    """The least time of the step's piece of work ``piece`` over the union
+    device time a step of the launches of its kernels (the record's
+    ``kernels[piece]`` pattern), in %; None where the configuration names no
+    kernel for it, or the trace holds none of its launches."""
+    pattern = record.get("kernels", {}).get(piece)
+    if pattern is None or piece not in record["work_ms"]:
+        return None
+    ops = matching(record["device_ops"], pattern)
+    if not ops:
+        return None
+    busy_ms = intervals_union_us([(s, e) for _, s, e in ops]) * 1e-3
+    return 100.0 * record["work_ms"][piece] / (busy_ms / record["steps"])

@@ -201,7 +201,8 @@ def run_cell(workload, seed, seconds, trace, t0, device=None, traffic=None, chip
         record.update(step_ms=times,
                       work_ms={k: roofline.least_ms(f, b)
                                for k, (f, b) in conf.work(cfg, tp).items()},
-                      evp_kernels=conf.EVP_KERNELS)
+                      evp_kernels=conf.EVP_KERNELS,
+                      kernels=getattr(conf, "KERNELS", {}))
         result["metrics"] = per_layer(record)
         busy = devtrace.intervals_union_us([(s, e) for _, s, e in record["device_ops"]])
         result["breakdown"] = devtrace.breakdown(record["device_ops"], record["host_ops"],

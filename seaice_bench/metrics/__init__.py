@@ -7,4 +7,6 @@ read.  The record (:func:`seaice_bench.harness.traced_record`) holds
 ``host_waits``, ``lo_us`` and ``hi_us`` (the stretch), ``step_ms`` (every
 step's time in the untraced window just before, by CUDA events),
 ``work_ms`` (the least time of each piece of a step's work, ``"evp"`` the
-EVP loop) and ``evp_kernels`` (the pattern of the EVP kernels' names)."""
+EVP loop) and ``evp_kernels`` (the pattern of the EVP kernels' names), and
+``kernels`` (the configuration's ``KERNELS``: a piece of ``work_ms`` → the
+pattern of its kernels' names; empty where the configuration names none)."""

@@ -8,12 +8,14 @@ import time
 
 import pytest
 
-import climaseaice_jl_tpu_torch.simulation as program_simulation
 from seaice_bench import harness, registry
 from seaice_bench.control import readings
+from seaice_bench.faults import half_left_out, one_answer_altered, thickness_altered, unchanged
 
 SMALL = {"periodic_box.n512": {"N": 32, "warmup_steps": 1, "steps_per_run": 2, "trace_steps": 2},
-         "periodic_box.n2048": {"N": 24, "warmup_steps": 1, "steps_per_run": 1, "trace_steps": 1}}
+         "periodic_box.n2048": {"N": 24, "warmup_steps": 1, "steps_per_run": 1, "trace_steps": 1},
+         "arctic_fixed.serial": {"Nx": 48, "Ny": 40, "warmup_steps": 1, "steps_per_run": 1,
+                                 "trace_steps": 1}}
 
 
 def run(workload, trace=False, seed=2 ** 32 + 7):
@@ -21,40 +23,6 @@ def run(workload, trace=False, seed=2 ** 32 + 7):
                                     device="cpu", traffic=SMALL[workload], chips_check=False)
     assert code == 0
     return result
-
-
-def _tick(state, dt):
-    c = state.clock
-    return state.evolve(clock=type(c)(time=c.time + dt, iteration=c.iteration + 1))
-
-
-def unchanged(step):
-    def broken(model, state, dt):
-        return _tick(state, dt)
-    return broken
-
-
-def one_answer_altered(step):
-    def broken(model, state, dt):
-        out = step(model, state, dt)
-        h = out.h.clone()
-        g = model.grid
-        h[g.Hx + g.Nx // 2, g.Hy + g.Ny // 2] += 0.1 * h.abs().max()
-        return out.evolve(h=h)
-    return broken
-
-
-def half_left_out(step):
-    def broken(model, state, dt):
-        out = step(model, state, dt)
-        upd = {}
-        for name in ("h", "a", "u", "v"):
-            q = getattr(out, name).clone()
-            half = q.shape[1] // 2
-            q[:, half:] = getattr(state, name)[:, half:]
-            upd[name] = q
-        return out.evolve(**upd)
-    return broken
 
 
 @pytest.mark.parametrize("workload", sorted(SMALL))
@@ -82,10 +50,14 @@ def test_traced_run_reports_per_layer_metrics():
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
-@pytest.mark.parametrize("fault", [unchanged, one_answer_altered, half_left_out])
-@pytest.mark.parametrize("workload", sorted(SMALL))
+FAULTS = [(w, f) for w in sorted(SMALL) for f in (unchanged, half_left_out)]
+FAULTS += [(w, one_answer_altered) for w in sorted(SMALL) if w.startswith("periodic_box")]
+FAULTS += [("arctic_fixed.serial", thickness_altered)]
+
+
+@pytest.mark.parametrize("workload,fault", FAULTS)
 def test_broken_timed_path_is_not_correct(workload, fault, monkeypatch):
-    monkeypatch.setattr(program_simulation, "_step", fault(program_simulation._step))
+    fault(monkeypatch.setattr)
     result = run(workload)
     assert result["correct"] is False
     assert any(v["value"] > v["limit"] for k, v in result["compared"].items()

@@ -125,6 +125,38 @@ def test_roofline_readers():
     assert readers["evp_roofline_pct"].read(record) is None
 
 
+def test_basin_roofline_bounds_match_the_recorded_ones():
+    # PERF.md's kernel table at the basin's 1162×970 padded and 1162×1018
+    # widened grids (24 substeps, FPlane): 2.7 0.0793 ms, 2.8 0.0042, 2.9 with
+    # array metrics 0.0172, 2.10 (x wind) 0.0040, 2.11 with the flux 0.0229
+    padded, widened = 1162 * 970, 1162 * 1018
+    assert roofline.least_ms(*roofline.tiled_curvilinear_evp(widened, 24)) == \
+        pytest.approx(0.0793, abs=2e-4)
+    assert roofline.least_ms(*roofline.advection_metrics(padded, 1)) == \
+        pytest.approx(0.0172, abs=5e-5)
+    assert roofline.least_ms(*roofline.layered_column(padded)) == pytest.approx(0.0229, abs=5e-5)
+    flops, nbytes = roofline.strength_and_winds(widened, padded, 0)
+    assert roofline.least_ms(flops, nbytes) == pytest.approx(0.0042, abs=5e-5)
+    flops, nbytes = roofline.strength_and_winds(0, padded, 1)
+    assert roofline.least_ms(flops, nbytes - 2 * roofline.F32) == pytest.approx(0.0040, abs=5e-5)
+
+
+def test_kernel_roofline_readers():
+    readers = registry.metric_readers()
+    record = {"steps": 2, "device_ops": [("void tile_div<2, 7, 2, 7>(TileArgs)", 0.0, 400.0),
+                                         ("void fixed_tile_div(float*)", 300.0, 500.0),
+                                         ("thermo_column(Args)", 600.0, 800.0)],
+              "host_ops": [], "work_ms": {"advection": 0.1, "column": 0.05, "pointwise": 0.01},
+              "kernels": {"advection": r"\b(tile_div|fixed_tile_div)\b",
+                          "column": r"\bthermo_column\b",
+                          "pointwise": r"\b(ice_strength|pointwise_unit)\b"}}
+    # the union of 2.9's launches is 0.5 ms in two steps
+    assert readers["advection_roofline_pct"].read(record) == pytest.approx(40.0)
+    assert readers["column_roofline_pct"].read(record) == pytest.approx(50.0)
+    assert readers["pointwise_roofline_pct"].read(record) is None
+    assert readers["column_roofline_pct"].read(dict(record, kernels={})) is None
+
+
 def test_module_check_compares_whole_top_level_names():
     assert modcheck.forbidden_modules(["climaseaice_jl_tpu_torch", "climaseaice_jl_tpu_torch.model",
                                        "torch", "jaxtyping", "numpy"]) == []
